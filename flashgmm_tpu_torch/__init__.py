@@ -1,0 +1,16 @@
+"""flashgmm_tpu_torch: the PyTorch/CUDA port of flashgmm_tpu for one NVIDIA
+H100.
+
+The JAX package ``flashgmm_tpu`` stays the reference; this package imports
+torch and numpy only, never JAX or anything under ``flashgmm_tpu``. Tensors
+are NHWC at its public functions, as in the JAX package. Entry points run on
+the card unless the caller passes ``device="cpu"``.
+
+The three Pallas TPU kernels of the reference are hand-written CUDA C++ here
+(``csrc/``), built by ``_build.py`` at first use: the rANS encoder and
+decoder (``ans/rans_kernels.py``) and the rows-chain conv
+(``ops/conv_kernel.py``). On CPU tensors each wrapper runs its plain
+PyTorch version instead.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA kernels.
+
+All sources under ``csrc/`` are compiled by ONE ``nvcc`` command into one
+shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers: a build takes seconds, not minutes). The library lands in
+``build/flashgmm_tpu_torch/`` at the repository root, named by a hash of the
+sources and flags, so a changed source rebuilds and an unchanged one loads.
+The build happens at first use, never at import.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+_PKG = Path(__file__).resolve().parent
+_SOURCES = ("csrc/rans_kernels.cu", "csrc/conv_kernel.cu")
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_DIR = _PKG.parent / "build" / "flashgmm_tpu_torch"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # starts, freqs, active, T, W, states, words, emits, stream
+    "fg_rans_encode": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
+    # states, stream words, n_stream, rows, active, lo, T, W, L, out, err,
+    # stream
+    "fg_rans_decode": (_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I,
+                       _P, _P, _P),
+    # x, w, bias, res, y, N, H, W, Cin, Cout, K, leaky, neg_slope, stream
+    "fg_conv2d_nhwc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _P),
+}
+
+
+class Kernels(NamedTuple):
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float  # build time; 0.0 when an earlier build was loaded
+    ptxas: tuple  # the -Xptxas -v lines of this build
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+@functools.cache
+def load() -> Kernels:
+    """Build (if needed) and load the kernel library; cached per process."""
+    sources = [_PKG / s for s in _SOURCES]
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in sources:
+        digest.update(src.read_bytes())
+    path = BUILD_DIR / f"libflashgmm_kernels_{digest.hexdigest()[:16]}.so"
+    seconds, ptxas = 0.0, ()
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, path)
+        ptxas = tuple(line.strip() for line in proc.stderr.splitlines()
+                      if "ptxas" in line)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return Kernels(lib, path, seconds, ptxas)
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error for its launch."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+
+
+def stream_ptr(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """A kernel takes CUDA tensors on one device; anything else is refused."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: expected CUDA tensors on one device, "
+                             f"got {[str(u.device) for u in tensors]}")

@@ -1,0 +1,99 @@
+"""Cheng2020 anchor + checkerboard + GMM, the flagship model (port of
+flashgmm_tpu/models/ckbd_gmm.py).
+
+Built on the CPU from an explicit ``torch.Generator`` seeded with ``seed``,
+then moved to ``device`` (the card unless the caller asks otherwise). Module
+paths equal the JAX package's parameter paths, so its weights load through
+``flashgmm_tpu_torch.zoo.load_jax_params``.
+"""
+
+import torch
+
+from flashgmm_tpu_torch.entropy_models import EntropyBottleneck
+from flashgmm_tpu_torch.latent_codecs import (
+    CheckerboardLatentCodec,
+    GaussianMixtureConditionalLatentCodec,
+    HyperLatentCodec,
+    HyperpriorLatentCodec,
+)
+from flashgmm_tpu_torch.layers import (
+    CheckerboardMaskedConv2d,
+    Conv2d,
+    LeakyReLU,
+    ResidualBlock,
+    ResidualBlockUpsample,
+    ResidualBlockWithStride,
+    Sequential,
+    conv3x3,
+    subpel_conv3x3,
+)
+
+from .base import CompressionModel
+
+
+class Cheng2020AnchorCheckerboardGMMv2(CompressionModel):
+    def __init__(self, N=192, K=4, *, seed: int = 0, device="cuda"):
+        super().__init__()
+        g = torch.Generator().manual_seed(int(seed))
+        self.N = int(N)
+        self.K = int(K)
+
+        self.g_a = Sequential(
+            ResidualBlockWithStride(3, N, stride=2, generator=g),
+            ResidualBlock(N, N, generator=g),
+            ResidualBlockWithStride(N, N, stride=2, generator=g),
+            ResidualBlock(N, N, generator=g),
+            ResidualBlockWithStride(N, N, stride=2, generator=g),
+            ResidualBlock(N, N, generator=g),
+            conv3x3(N, N, stride=2, generator=g),
+        )
+
+        self.g_s = Sequential(
+            ResidualBlock(N, N, generator=g),
+            ResidualBlockUpsample(N, N, 2, generator=g),
+            ResidualBlock(N, N, generator=g),
+            ResidualBlockUpsample(N, N, 2, generator=g),
+            ResidualBlock(N, N, generator=g),
+            ResidualBlockUpsample(N, N, 2, generator=g),
+            ResidualBlock(N, N, generator=g),
+            subpel_conv3x3(N, 3, 2, generator=g),
+        )
+
+        h_a = Sequential(
+            conv3x3(N, N, generator=g), LeakyReLU(),
+            conv3x3(N, N, generator=g), LeakyReLU(),
+            conv3x3(N, N, stride=2, generator=g), LeakyReLU(),
+            conv3x3(N, N, generator=g), LeakyReLU(),
+            conv3x3(N, N, stride=2, generator=g),
+        )
+
+        h_s = Sequential(
+            conv3x3(N, N, generator=g), LeakyReLU(),
+            subpel_conv3x3(N, N, 2, generator=g), LeakyReLU(),
+            conv3x3(N, N * 3 // 2, generator=g), LeakyReLU(),
+            subpel_conv3x3(N * 3 // 2, N * 3 // 2, 2, generator=g), LeakyReLU(),
+            conv3x3(N * 3 // 2, N * 2, generator=g),
+        )
+
+        self.latent_codec = HyperpriorLatentCodec({
+            "y": CheckerboardLatentCodec(
+                latent_codec={
+                    "y": GaussianMixtureConditionalLatentCodec(K=self.K),
+                },
+                entropy_parameters=Sequential(
+                    Conv2d(N * 12 // 3, N * 10 // 3, 1, generator=g),
+                    LeakyReLU(),
+                    Conv2d(N * 10 // 3, N * 10 // 3, 1, generator=g),
+                    LeakyReLU(),
+                    Conv2d(N * 10 // 3, 3 * self.K * N, 1, generator=g),
+                ),
+                context_prediction=CheckerboardMaskedConv2d(
+                    N, 2 * N, kernel_size=5, stride=1, padding=2, generator=g),
+            ),
+            "hyper": HyperLatentCodec(
+                entropy_bottleneck=EntropyBottleneck(N, generator=g),
+                h_a=h_a,
+                h_s=h_s,
+            ),
+        })
+        self.to(device)

@@ -1,0 +1,89 @@
+"""Hand-written CUDA conv for the rows chain.
+
+``conv2d_nhwc`` replaces flashgmm_tpu/ops/pallas_conv.py::_conv_kernel
+(source: ``flashgmm_tpu_torch/csrc/conv_kernel.cu``): a stride-1 "same" KxK
+conv over NHWC, K odd, float32 with float32 accumulation, with bias,
+LeakyReLU and a residual add fused into the epilogue. It takes any width
+and channel count (the TPU kernel's ``w % 8`` and ``C >= 64`` rules do not
+apply).
+
+On the rows chain its job is bitwise reproducibility: each output is
+accumulated by one thread in the fixed order (dy, dx, c_in), so its bits
+depend only on its input neighbourhood and the weights, never on the batch
+size, the shapes around it or a library's algorithm choice. The encoder and
+the decoder therefore compute identical CDF rows.
+
+What bounds it on the card: float32 FMA issue on the CUDA cores and the
+per-tap weight reads (no tiling, no tensor cores). ``conv2d_nhwc.launches``
+counts launches. The wrapper takes the plain version (``conv2d_nhwc_plain``,
+F.conv2d in float32 plus the epilogue) only for CPU tensors.
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from flashgmm_tpu_torch import _build
+
+
+def leaky_relu(x, negative_slope: float = 0.01):
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def conv2d_nhwc_plain(x, w, b=None, *, negative_slope=None, residual=None):
+    """The plain version: F.conv2d in float32, then the epilogue."""
+    k = w.shape[0]
+    y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
+                 None if b is None else b.float(), padding=k // 2)
+    y = y.permute(0, 2, 3, 1)
+    if negative_slope is not None:
+        y = leaky_relu(y, negative_slope)
+    if residual is not None:
+        y = y + residual.float()
+    return y.contiguous()
+
+
+def conv2d_nhwc(x, w, b=None, *, negative_slope=None, residual=None):
+    """Stride-1 'same' KxK conv: x [N, H, W, C_in], w [K, K, C_in, C_out]
+    (HWIO), b [C_out] or None; LeakyReLU with ``negative_slope`` and then
+    ``residual`` [N, H, W, C_out] are applied in the epilogue. float32."""
+    if x.dim() != 4 or w.dim() != 4 or w.shape[0] != w.shape[1] \
+            or w.shape[0] % 2 == 0 or w.shape[2] != x.shape[3]:
+        raise ValueError(f"conv2d_nhwc: x {tuple(x.shape)}, w {tuple(w.shape)}"
+                         " (need NHWC input and an odd square HWIO kernel)")
+    if x.device.type == "cpu":
+        return conv2d_nhwc_plain(x, w, b, negative_slope=negative_slope,
+                                 residual=residual)
+    n, h, wd, c_in = x.shape
+    k, c_out = w.shape[0], w.shape[3]
+    tensors = [t for t in (x, w, b, residual) if t is not None]
+    _build.require_cuda("conv2d_nhwc", *tensors)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("conv2d_nhwc: the kernel computes in float32 only")
+    if b is not None and b.shape != (c_out,):
+        raise ValueError(f"conv2d_nhwc: bias {tuple(b.shape)} for C_out={c_out}")
+    if residual is not None and residual.shape != (n, h, wd, c_out):
+        raise ValueError(f"conv2d_nhwc: residual {tuple(residual.shape)}")
+    x = x.contiguous()
+    w = w.contiguous()
+    b = None if b is None else b.contiguous()
+    residual = None if residual is None else residual.contiguous()
+    y = torch.empty((n, h, wd, c_out), dtype=torch.float32, device=x.device)
+    null = ctypes.c_void_p(None)
+    lib = _build.load().lib
+    with torch.cuda.device(x.device):
+        rc = lib.fg_conv2d_nhwc(
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
+            null if b is None else ctypes.c_void_p(b.data_ptr()),
+            null if residual is None else ctypes.c_void_p(residual.data_ptr()),
+            ctypes.c_void_p(y.data_ptr()), n, h, wd, c_in, c_out, k,
+            int(negative_slope is not None),
+            0.0 if negative_slope is None else float(negative_slope),
+            _build.stream_ptr(x))
+    _build.check(rc, "conv2d_nhwc")
+    conv2d_nhwc.launches += 1
+    return y
+
+
+conv2d_nhwc.launches = 0

@@ -1,0 +1,298 @@
+"""Batched on-device codec for the checkerboard-GMM flagship model (port of
+flashgmm_tpu/runtime/fast_codec.py:133-677, ``FastCheckerboardGmmCodec``).
+
+Encode: g_a -> h_a -> z quantized against the EntropyBottleneck tables ->
+z pass; then the shared stages side (h_s) -> rows0 -> anchor pass ->
+rows1 (5x5 checkerboard context) -> non-anchor pass. Decode runs the same
+order and ends in g_s. Only the stream words cross to the host. The byte
+format is the interleaved one of docs/bitstream.md §2, with the JAX
+package's lanes, stream caps, StreamOverflow fallback and NHWC-ravel symbol
+order, so the bytes of either package decode in the other when their rows
+agree.
+
+Correctness by construction: the encoder and the decoder call the SAME
+functions (``_side``, ``_rows0``, ``_rows1``) on tensors of the same
+shapes. Their convs go through the hand conv kernel in float32, whose bits
+depend on nothing but the input neighbourhood and the weights, and the CDF
+rows are elementwise torch ops. So both directions compute identical rows.
+g_a, h_a and g_s never need bit-equality (their outputs are rounded or are
+pixels) and run as library convs, in bfloat16 by default.
+"""
+
+import copy
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from flashgmm_tpu_torch.ans import interleaved as il
+from flashgmm_tpu_torch.ans import rans_kernels
+from flashgmm_tpu_torch.ans.gaussian_cdf import get_approx_mode, gmm_guarded_rows
+from flashgmm_tpu_torch.layers import run_canonical
+
+
+class StreamOverflow(RuntimeError):
+    """Capped encode buffer exceeded (pathological input); retry with
+    ``encode(x, full=True)``."""
+
+
+class PassStream(NamedTuple):
+    states: torch.Tensor  # int64 [W], values < 2^32
+    stream: torch.Tensor  # int32 [cap], u16 values
+    n_words: torch.Tensor  # int64 scalar
+
+
+def _encode_pass(start, freq, w: int, cap_divisor: int = 4) -> PassStream:
+    """Encode one symbol stream through the rANS encode kernel; the buffer
+    is capped at ``T*W // cap_divisor`` words. ``n_words`` above the cap
+    signals overflow (the caller re-encodes uncapped)."""
+    n = start.shape[0]
+    t, _ = il.layout(n, w)
+    active = il.active_mask(n, t, w, start.device)
+    states, words, emits = rans_kernels.encode_scan(
+        il.to_lanes(start, w), il.to_lanes(freq, w), active)
+    stream, n_words = il.pack_words(words, emits)
+    cap = max(t * w // cap_divisor, w)
+    return PassStream(states, stream[:cap], n_words)
+
+
+def _decode_pass(ps: PassStream, rows, n: int, lo: int, w: int):
+    """Decode n symbols through the rANS decode kernel. Padding lanes get
+    valid monotone dummy rows so every lane's math stays in range."""
+    t, pad = il.layout(n, w)
+    active = il.active_mask(n, t, w, rows.device)
+    L = rows.shape[-1]
+    if pad:
+        dummy = torch.clamp(torch.arange(L, dtype=torch.int32,
+                                         device=rows.device)
+                            * (65536 // (L - 1)), 0, 65536)
+        rows = torch.cat([rows.to(torch.int32), dummy.expand(pad, L)])
+    symbols = rans_kernels.decode_scan(ps.states, ps.stream,
+                                       rows.reshape(t, w, L), active, lo)
+    return il.from_lanes(symbols, n)
+
+
+class FastCheckerboardGmmCodec:
+    """Batched encode/decode around a Cheng2020AnchorCheckerboardGMMv2 (run
+    ``model.update()`` first). Works on the model's device."""
+
+    def __init__(self, model, lanes: int = 4096, max_abs: int = 47,
+                 cap_divisor: int = 4, bf16_transforms: bool = True):
+        self.lanes = int(lanes)
+        self.max_abs = int(max_abs)  # symbols clamped to [-max_abs, max_abs]
+        self.cap_divisor = int(cap_divisor)
+        self.mode = get_approx_mode()
+        self.model = model
+        lc = model.latent_codec.latent_codec
+        self._ckbd = lc["y"]
+        self._hyper = lc["hyper"]
+        self._gmm = self._ckbd.latent_codec["y"]
+        self._eb = self._hyper.entropy_bottleneck
+        self.device = self._eb.quantiles.device
+        # snapshots of the transforms, like the reference's nnx.split
+        self._dtype = torch.bfloat16 if bf16_transforms else torch.float32
+        self._g_a, self._h_a, self._g_s = (
+            copy.deepcopy(m).to(self._dtype).requires_grad_(False)
+            for m in (model.g_a, self._hyper.h_a, model.g_s))
+        if self._eb.quantized_cdf.numel() == 0:
+            raise ValueError("EntropyBottleneck tables are empty: run "
+                             "model.update() before building the codec")
+        self._z_rows, self._z_off, self._z_maxbin = self._z_tables()
+        self._med = self._eb._get_medians()[:, 0, 0].detach().float()
+
+    # -- shared pieces -------------------------------------------------------
+
+    def _transform(self, mod, x):
+        return mod(x.to(self._dtype)).float()
+
+    def _z_tables(self):
+        """(rows [C, L] int32, offsets [C], max_bin [C]) from EB buffers."""
+        cdf = self._eb.quantized_cdf.to(torch.int32)
+        lengths = self._eb.cdf_length.to(torch.int32)
+        j = torch.arange(cdf.shape[1], dtype=torch.int32, device=cdf.device)
+        rows = torch.where(j[None, :] < lengths[:, None], cdf, 65536)
+        return rows, self._eb.offset.to(torch.int32), lengths - 2
+
+    def _gmm_pass_params(self, y_ctx, side):
+        """EP -> per-symbol [N, K] (scales, means, weights), NHWC-ravel
+        symbol order (reference :333-353)."""
+        p = run_canonical(self._ckbd.entropy_parameters,
+                          self._ckbd.merge(y_ctx, side))
+        scales, means, weights = self._gmm._chunk(p)
+        weights = self._gmm._reshape_gmm_weight(weights)
+        K = self._gmm.K
+
+        def flat(v):
+            b, h, w2, km = v.shape
+            v = v.reshape(b, h, w2, K, km // K).transpose(3, 4)
+            return v.reshape(-1, K)
+
+        return torch.clamp(flat(scales), 0.11, 256.0), flat(means), flat(weights)
+
+    def _lo_bins(self):
+        return -(self.max_abs + 1), 2 * (self.max_abs + 1) + 1
+
+    def _side(self, z_bin):
+        """SHARED enc/dec: dequantize z and run h_s (rows chain)."""
+        z_hat = (z_bin + self._z_off).float() + self._med
+        return self._ckbd.unembed(run_canonical(self._hyper.h_s, z_hat))
+
+    def _rows0(self, side0):
+        """SHARED enc/dec: anchor-pass GMM rows (context is zero)."""
+        lo, num_bins = self._lo_bins()
+        params = self._gmm_pass_params(torch.zeros_like(side0), side0)
+        return gmm_guarded_rows(*params, lo, num_bins, self.mode)
+
+    def _rows1(self, side1, sym0):
+        """SHARED enc/dec: non-anchor-pass GMM rows conditioned on the
+        decoded anchors (integer symbols -> deterministic input)."""
+        lo, num_bins = self._lo_bins()
+        y_hat_ = torch.stack([sym0.float(), torch.zeros_like(sym0, dtype=torch.float32)])
+        ctx = self._ckbd.unembed(run_canonical(
+            self._ckbd.context_prediction, self._ckbd.embed(y_hat_)))[1]
+        params = self._gmm_pass_params(ctx, side1)
+        return gmm_guarded_rows(*params, lo, num_bins, self.mode)
+
+    def _encpass(self, rows, sym_flat, cap_divisor):
+        """Select (start, freq) of each symbol's bin and encode."""
+        lo, _ = self._lo_bins()
+        jbin = (sym_flat - lo).long()[:, None]
+        start = rows.gather(1, jbin)[:, 0]
+        freq = rows.gather(1, jbin + 1)[:, 0] - start
+        return _encode_pass(start, freq, self.lanes, cap_divisor)
+
+    def _z_channels(self):
+        return self._eb.channels
+
+    # -- orchestration ---------------------------------------------------------
+
+    @torch.inference_mode()
+    def encode(self, x, full: bool = False):
+        """x: [B, H, W, 3] float in [0, 1] on the codec's device. Returns
+        {"z", "y0", "y1": PassStream, "y_hat": [B, H/16, W/16, N]}.
+
+        ``full=True`` disables the stream cap (the overflow fallback)."""
+        cd = 1 if full else self.cap_divisor
+        y = self._transform(self._g_a, x)
+        z = self._transform(self._h_a, y)
+
+        z_bin = torch.round(z - self._med).to(torch.int32) - self._z_off
+        z_bin = torch.minimum(torch.clamp_min(z_bin, 0), self._z_maxbin)
+        zb = z_bin.reshape(-1).long()
+        ch = torch.arange(zb.shape[0], device=zb.device) % z.shape[-1]
+        z_start = self._z_rows[ch, zb]
+        z_freq = self._z_rows[ch, zb + 1] - z_start
+        # z is ~10% of the payload; not worth the overflow risk of capping
+        ps_z = _encode_pass(z_start, z_freq, self.lanes, 1)
+
+        sym = torch.clamp(torch.round(self._ckbd.unembed(y)).to(torch.int32),
+                          -self.max_abs, self.max_abs)  # [2, b, h, w/2, c]
+        y_hat = self._ckbd.embed(sym.float())
+
+        side = self._side(z_bin)
+        rows0 = self._rows0(side[0])
+        ps0 = self._encpass(rows0, sym[0].reshape(-1), cd)
+        rows1 = self._rows1(side[1], sym[0])
+        ps1 = self._encpass(rows1, sym[1].reshape(-1), cd)
+        return {"z": ps_z, "y0": ps0, "y1": ps1, "y_hat": y_hat}
+
+    @staticmethod
+    def _y_shape_parts(y_shape):
+        if len(y_shape) == 4:
+            return tuple(y_shape)
+        h, w, c = y_shape
+        return 1, h, w, c
+
+    @torch.inference_mode()
+    def decode_y_hat(self, streams, y_shape):
+        b, h, w, c = self._y_shape_parts(y_shape)
+        zh, zw, cz = h // 4, w // 4, self._z_channels()
+        n_z = b * zh * zw * cz
+        rows_z = self._z_rows[None].expand(b * zh * zw, cz, -1)
+        z_bin = _decode_pass(streams["z"], rows_z.reshape(n_z, -1), n_z, 0,
+                             self.lanes).reshape(b, zh, zw, cz)
+        side = self._side(z_bin)
+        lo, _ = self._lo_bins()
+        n = b * h * (w // 2) * c
+        rows0 = self._rows0(side[0])
+        sym0 = _decode_pass(streams["y0"], rows0, n, lo,
+                            self.lanes).reshape(b, h, w // 2, c)
+        rows1 = self._rows1(side[1], sym0)
+        sym1 = _decode_pass(streams["y1"], rows1, n, lo,
+                            self.lanes).reshape(b, h, w // 2, c)
+        return self._ckbd.embed(torch.stack([sym0, sym1]).float())
+
+    @torch.inference_mode()
+    def decode(self, streams, y_shape):
+        """Streams -> reconstructed images [B, H, W, 3] in [0, 1]."""
+        y_hat = self.decode_y_hat(streams, y_shape)
+        return torch.clamp(self._transform(self._g_s, y_hat), 0.0, 1.0)
+
+    def stream_capacities(self, y_shape):
+        """(cap_z, cap_y) capped stream lengths for latent y_shape =
+        (h, w, c) or (b, h, w, c)."""
+        b, h, w, c = self._y_shape_parts(y_shape)
+        n_y = b * h * (w // 2) * c
+        n_z = b * (h // 4) * (w // 4) * self._z_channels()
+        t_y, _ = il.layout(n_y, self.lanes)
+        t_z, _ = il.layout(n_z, self.lanes)
+        return (t_z * self.lanes,  # z is never capped
+                max(t_y * self.lanes // self.cap_divisor, self.lanes))
+
+    # -- bytes -------------------------------------------------------------------
+
+    def to_bytes(self, out) -> bytes:
+        """Fetch the three streams and pack them (docs/bitstream.md §2):
+        per pass u32 n_words, u32 x W states, u16 x n_words words."""
+        parts = []
+        for name in ("z", "y0", "y1"):
+            p = out[name]
+            n = int(p.n_words)
+            if n > p.stream.shape[0]:
+                raise StreamOverflow(
+                    f"pass stream overflow ({n} > {p.stream.shape[0]} words);"
+                    " re-encode with encode(x, full=True)")
+            parts.append(np.uint32(n).tobytes())
+            parts.append(p.states.cpu().numpy().astype(np.uint32).tobytes())
+            parts.append(p.stream[:n].cpu().numpy().astype(np.uint16).tobytes())
+        return b"".join(parts)
+
+    def from_bytes(self, data: bytes, y_shape):
+        """Parse ``to_bytes`` output back into pass streams on the device."""
+        cap_z, cap_y = self.stream_capacities(y_shape)
+        out = {}
+        off = 0
+        for name, cap in zip(("z", "y0", "y1"), (cap_z, cap_y, cap_y)):
+            n = int(np.frombuffer(data, np.uint32, 1, off)[0])
+            off += 4
+            states = np.frombuffer(data, np.uint32, self.lanes, off)
+            off += self.lanes * 4
+            words = np.frombuffer(data, np.uint16, n, off)
+            off += n * 2
+            if n > cap:
+                # overflow file: the single uncapped capacity
+                cap = max(cap * self.cap_divisor, -(-n // self.lanes) * self.lanes)
+            stream = np.zeros((cap,), np.int32)
+            stream[:n] = words
+            out[name] = PassStream(
+                torch.from_numpy(states.astype(np.int64)).to(self.device),
+                torch.from_numpy(stream).to(self.device),
+                torch.tensor(n, dtype=torch.int64, device=self.device))
+        return out
+
+    def decode_bytes(self, data: bytes, y_shape):
+        """Bytes -> reconstructed images."""
+        return self.decode(self.from_bytes(data, y_shape), y_shape)
+
+    def encode_to_bytes(self, x):
+        """encode + to_bytes with the automatic overflow fallback."""
+        out = self.encode(x)
+        try:
+            return self.to_bytes(out), out
+        except StreamOverflow:
+            out = self.encode(x, full=True)
+            return self.to_bytes(out), out
+
+    def num_bytes(self, out) -> int:
+        return sum(int(out[k].n_words) * 2 + self.lanes * 4
+                   for k in ("z", "y0", "y1"))

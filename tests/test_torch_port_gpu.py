@@ -1,0 +1,141 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: they skip without a CUDA device. This file imports no JAX
+(the machine with the card has none), so run it there without the repo's
+conftest, which imports JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py -q
+
+rANS encode and decode must be bit-exact; the conv within
+1e-4 * (1 + max|plain|) (float32 sums in another order than cuDNN's, TF32
+off), and bitwise batch-invariant.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from flashgmm_tpu_torch.ans import interleaved as il
+from flashgmm_tpu_torch.ans import rans_kernels
+from flashgmm_tpu_torch.ans.gaussian_cdf import gmm_guarded_rows
+from flashgmm_tpu_torch.ops import conv_kernel
+
+pytestmark = pytest.mark.gpu
+
+CONV_TOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _coder_case(n, w, num_bins, dev, seed=0):
+    rs = np.random.RandomState(seed)
+    k = 3
+    s = torch.from_numpy(rs.uniform(0.11, 10, (n, k)).astype(np.float32)).to(dev)
+    m = torch.from_numpy(rs.normal(0, 3, (n, k)).astype(np.float32)).to(dev)
+    wt = rs.uniform(0.1, 1, (n, k)).astype(np.float32)
+    wt = torch.from_numpy(wt / wt.sum(1, keepdims=True)).to(dev)
+    lo = -(num_bins // 2)
+    rows = gmm_guarded_rows(s, m, wt, lo, num_bins)
+    values = torch.from_numpy(np.clip(np.round(rs.normal(0, 4, n)), lo,
+                                      lo + num_bins - 1).astype(np.int64)).to(dev)
+    start = rows.gather(1, (values - lo)[:, None])[:, 0]
+    freq = rows.gather(1, (values - lo + 1)[:, None])[:, 0] - start
+    t, pad = il.layout(n, w)
+    active = il.active_mask(n, t, w, dev)
+    rows = torch.cat([rows, rows[-1:].expand(pad, -1)]) if pad else rows
+    return (il.to_lanes(start, w), il.to_lanes(freq, w), active,
+            rows.reshape(t, w, -1), values, lo)
+
+
+@pytest.mark.parametrize("w,n,num_bins", [(40, 1000, 19), (128, 5000, 97),
+                                          (1000, 9000, 33), (4096, 30000, 97)])
+def test_rans_kernels_match_plain(cuda, w, n, num_bins):
+    starts, freqs, active, rows, values, lo = _coder_case(n, w, num_bins, cuda)
+    before = rans_kernels.encode_scan.launches
+    st_k, wd_k, em_k = rans_kernels.encode_scan(starts, freqs, active)
+    st_p, wd_p, em_p = il.encode_scan(starts, freqs, active)
+    assert rans_kernels.encode_scan.launches == before + 1
+    assert torch.equal(st_k, st_p) and torch.equal(em_k, em_p)
+    s_k, n_k = il.pack_words(wd_k, em_k)
+    s_p, n_p = il.pack_words(wd_p, em_p)
+    assert int(n_k) == int(n_p) and torch.equal(s_k, s_p)
+
+    sym_k = rans_kernels.decode_scan(st_k, s_k[: int(n_k)], rows, active, lo)
+    sym_p = il.decode_scan(st_k, s_k, rows, active, lo)
+    assert torch.equal(sym_k, sym_p)
+    assert torch.equal(il.from_lanes(sym_k, n).long(), values)
+
+
+def test_rans_decode_desync_fails_instead_of_faulting(cuda):
+    starts, freqs, active, rows, _, lo = _coder_case(20000, 4096, 97, cuda)
+    states, words, emits = rans_kernels.encode_scan(starts, freqs, active)
+    stream, n_words = il.pack_words(words, emits)
+    with pytest.raises(RuntimeError, match="past its end"):
+        rans_kernels.decode_scan(states, stream[: int(n_words) // 2], rows,
+                                 active, lo)
+    torch.cuda.synchronize()  # the card is still healthy
+
+
+@pytest.mark.parametrize("k,width,c_in,c_out,leaky,res",
+                         [(1, 16, 768, 640, True, False),
+                          (3, 7, 5, 9, False, True),
+                          (5, 32, 192, 384, False, False),
+                          (7, 13, 16, 24, True, True)])
+def test_conv_kernel_matches_plain(cuda, k, width, c_in, c_out, leaky, res):
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randn(2, 6, width, c_in, device=cuda, generator=g)
+    w = torch.randn(k, k, c_in, c_out, device=cuda, generator=g) * 0.05
+    b = torch.randn(c_out, device=cuda, generator=g)
+    r = torch.randn(2, 6, width, c_out, device=cuda, generator=g) if res else None
+    slope = 0.01 if leaky else None
+    before = conv_kernel.conv2d_nhwc.launches
+    got = conv_kernel.conv2d_nhwc(x, w, b, negative_slope=slope, residual=r)
+    assert conv_kernel.conv2d_nhwc.launches == before + 1
+    ref = conv_kernel.conv2d_nhwc_plain(x, w, b, negative_slope=slope, residual=r)
+    err = float((got - ref).abs().max())
+    assert err <= CONV_TOL * (1 + float(ref.abs().max())), err
+    # bitwise: one image alone equals the same image inside the batch
+    one = conv_kernel.conv2d_nhwc(x[1:], w, b, negative_slope=slope,
+                                  residual=None if r is None else r[1:])
+    assert torch.equal(one, got[1:])
+
+
+def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 4, 4, 8, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        conv_kernel.conv2d_nhwc(x, torch.zeros(3, 3, 8, 8, device=cuda,
+                                                dtype=torch.float16))
+    with pytest.raises(ValueError):
+        conv_kernel.conv2d_nhwc(x.float(), torch.zeros(3, 3, 8, 8))  # mixed
+    with pytest.raises(ValueError):
+        rans_kernels.decode_scan(torch.zeros(8192, dtype=torch.int64, device=cuda),
+                                 torch.zeros(10, dtype=torch.int32, device=cuda),
+                                 torch.zeros(1, 8192, 4, dtype=torch.int32, device=cuda),
+                                 torch.zeros(1, 8192, dtype=torch.bool, device=cuda), 0)
+
+
+def test_codec_roundtrip_on_card(cuda):
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+    from flashgmm_tpu_torch.runtime import FastCheckerboardGmmCodec
+
+    model = Cheng2020AnchorCheckerboardGMMv2(N=32, K=2, seed=0, device=cuda)
+    model.update(update_quantiles=True)
+    codec = FastCheckerboardGmmCodec(model, lanes=256, cap_divisor=1)
+    x = torch.rand(2, 128, 128, 3, device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(1))
+    counts = (rans_kernels.encode_scan.launches, rans_kernels.decode_scan.launches,
+              conv_kernel.conv2d_nhwc.launches)
+    data, out = codec.encode_to_bytes(x)
+    y_shape = tuple(out["y_hat"].shape)
+    y_dec = codec.decode_y_hat(codec.from_bytes(data, y_shape), y_shape)
+    assert torch.equal(y_dec, out["y_hat"])
+    assert rans_kernels.encode_scan.launches == counts[0] + 3
+    assert rans_kernels.decode_scan.launches == counts[1] + 3
+    assert conv_kernel.conv2d_nhwc.launches == counts[2] + 24
