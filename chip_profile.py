@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's batched codec, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--batch 2 24] [--reps 3]
+    python3 chip_profile.py [--batch 2 24] [--reps 3] [--tiles]
 
 For each batch size: N=192, K=4 flagship with weights/ckbd_gmm_n192_k4_
 synthetic.npz, lanes=4096, cap_divisor=4, 768x512 textured-leaves images
@@ -11,6 +11,9 @@ synchronize; median of --reps), ms per image, bpp and PSNR, and the time of
 each codec stage (synchronized after each stage, so the stages add up to a
 little more than the unsynchronized total). Then one torch.profiler table
 of device time by kernel over one encode + decode at the last batch size.
+``--tiles`` instead times the rows-chain conv kernel at each of its shapes
+and batch sizes with every tile shape forced and with its own choice,
+beside ``F.conv2d`` in float32 (TF32 off): one JSON line per batch.
 Needs a CUDA device; imports no JAX.
 """
 
@@ -31,6 +34,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, nargs="+", default=[2, 24])
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--tiles", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -51,6 +55,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
+    if args.tiles:
+        conv_tiles(args.batch, dev, smi)
+        return 0
     model = Cheng2020AnchorCheckerboardGMMv2(N=192, K=4, seed=0, device=dev)
     load_npz(model, WEIGHTS)
     model.update(update_quantiles=True)
@@ -125,6 +132,61 @@ def main() -> int:
                                     row_limit=25, max_name_column_width=60),
           flush=True)
     return 0
+
+
+def conv_tiles(batches, dev, smi):
+    """Every rows-chain conv shape (N=192, K=4, 768x512 images) timed with
+    each tile shape forced, with the kernel's own choice and as F.conv2d."""
+    import torch
+    import torch.nn.functional as F
+
+    from flashgmm_tpu_torch.ops import conv_kernel
+
+    torch.backends.cudnn.allow_tf32 = False
+    n = 192
+    layers = [  # (h, w, c_in, c_out, k, launches in one encode + decode)
+        (12, 8, n, n, 3, 2), (12, 8, n, 4 * n, 3, 2),
+        (24, 16, n, 3 * n // 2, 3, 2), (24, 16, 3 * n // 2, 6 * n, 3, 2),
+        (48, 32, 3 * n // 2, 2 * n, 3, 2), (48, 32, n, 2 * n, 5, 2),
+        (48, 16, 4 * n, 10 * n // 3, 1, 4),
+        (48, 16, 10 * n // 3, 10 * n // 3, 1, 4),
+        (48, 16, 10 * n // 3, 12 * n, 1, 4)]
+
+    def ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    with torch.inference_mode():
+        for batch in batches:
+            rows, total = [], {"auto": 0.0, "best": 0.0, "F.conv2d": 0.0}
+            for h, w, c_in, c_out, k, launches in layers:
+                x = torch.randn(batch, h, w, c_in, device=dev)
+                wt = torch.randn(k, k, c_in, c_out, device=dev) * 0.05
+                bias = torch.randn(c_out, device=dev)
+                tiles = [ms(lambda: conv_kernel.conv2d_nhwc(x, wt, bias,
+                                                            tile=t))
+                         for t in range(conv_kernel.TILES)]
+                auto = ms(lambda: conv_kernel.conv2d_nhwc(x, wt, bias))
+                x_nchw = x.permute(0, 3, 1, 2)
+                w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+                lib = ms(lambda: F.conv2d(x_nchw, w_oihw, bias, padding=k // 2))
+                rows.append({"shape": [batch, h, w, c_in, c_out, k],
+                             "tiles_ms": tiles, "auto_ms": auto,
+                             "conv2d_ms": lib, "launches": launches})
+                total["auto"] += launches * auto
+                total["best"] += launches * min(tiles)
+                total["F.conv2d"] += launches * lib
+            print(json.dumps({"batch": batch, "layers": rows,
+                              "sum_ms_over_launches": total, "card": smi}),
+                  flush=True)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,9 @@ Phases, each ending in one flushed line with its seconds:
 2. build: the CUDA kernels from the sources in this checkout (nvcc, one
    shared library), with the -Xptxas -v register and shared-memory lines;
 3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes (rANS encode and decode bit-exact, the conv within a stated
-   tolerance, bitwise batch-invariant and repeatable);
+   path's shapes (the GMM rows kernel and rANS encode and decode bit-exact,
+   the conv within a stated tolerance, bitwise batch-invariant and
+   repeatable);
 4. codec: the batched checkerboard-GMM codec at N=192, K=4, lanes=4096,
    cap_divisor=4 on two 768x512 textured-leaves images: encode_to_bytes,
    then decode_bytes, y_hat exact through the bytes, bpp and PSNR, and
@@ -39,6 +40,12 @@ SEED0 = 500000  # bench.py's held-out image seeds: SEED0 + 1, SEED0 + 2, ...
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 CONV_TOL = 1e-4  # max|kernel - plain| <= CONV_TOL * (1 + max|plain|)
+# float32 operations of one mixture term of one rows entry, by APPROX_MODE
+# (each add, sub, mul, div, sqrt and floor 1, each FMA 2; XLA's exp is 22):
+# Pólya: sub, div, 2 mul, exp, sub, sqrt, add, and the mixture FMA = 31;
+# A&S: sub, div, FMA, div, 4 FMA, 2 mul, exp, 2 mul, FMA, sub, FMA = 44;
+# logistic: sub, div, mul, exp, add, div, FMA = 29.
+ROWS_FLOPS_PER_TERM = {0: 31, 1: 44, 2: 29}
 
 _t_phase = [time.perf_counter()]
 
@@ -74,8 +81,10 @@ def smoke():
 
     from flashgmm_tpu_torch import _build
     from flashgmm_tpu_torch.ans import interleaved as il
-    from flashgmm_tpu_torch.ans import rans_kernels
-    from flashgmm_tpu_torch.ans.gaussian_cdf import gmm_guarded_rows
+    from flashgmm_tpu_torch.ans import rans_kernels, rows_kernel
+    from flashgmm_tpu_torch.ans.gaussian_cdf import (get_approx_mode,
+                                                     gmm_guarded_rows,
+                                                     gmm_guarded_rows_plain)
     from flashgmm_tpu_torch.ops import conv_kernel
 
     torch.backends.cudnn.allow_tf32 = False
@@ -105,7 +114,14 @@ def smoke():
     means = torch.from_numpy(rng.normal(0, 2, (n_y, K)).astype(np.float32)).to(dev)
     wts = rng.uniform(0.05, 1.0, (n_y, K)).astype(np.float32)
     wts = torch.from_numpy(wts / wts.sum(1, keepdims=True)).to(dev)
-    rows = gmm_guarded_rows(scales, means, wts, lo, num_bins)
+    mode = get_approx_mode()  # the codec's
+    rows = gmm_guarded_rows(scales, means, wts, lo, num_bins, mode)
+    rows_p = gmm_guarded_rows_plain(scales, means, wts, lo, num_bins, mode)
+    torch.cuda.synchronize()
+    n_diff = int((rows != rows_p).sum())
+    print(f"  gmm rows N={n_y} K={K} L={num_bins + 1} mode {mode}: "
+          f"{n_diff} of {rows.numel()} entries differ from plain", flush=True)
+    require(n_diff == 0, "gmm rows: kernel differs from its plain version")
     values = torch.from_numpy(np.clip(np.round(rng.normal(0, 3, n_y)), -47, 47)
                               .astype(np.int64)).to(dev)
     start = rows.gather(1, (values - lo)[:, None])[:, 0]
@@ -198,10 +214,12 @@ def smoke():
     # recorder that keeps its inputs for the timing phase. The wrappers'
     # bodies count on the name their module binds, so during this run the
     # counts land on the recorders, which start at 0.
-    calls = {"rans_encode": [], "rans_decode": [], "conv2d_nhwc": []}
+    calls = {"rans_encode": [], "rans_decode": [], "conv2d_nhwc": [],
+             "gmm_rows": []}
     bound = {"rans_encode": (rans_kernels, "encode_scan"),
              "rans_decode": (rans_kernels, "decode_scan"),
-             "conv2d_nhwc": (conv_kernel, "conv2d_nhwc")}
+             "conv2d_nhwc": (conv_kernel, "conv2d_nhwc"),
+             "gmm_rows": (rows_kernel, "gmm_rows")}
     originals = {name: getattr(*where) for name, where in bound.items()}
 
     def recorder(name):
@@ -229,6 +247,10 @@ def smoke():
 
     for name, count in launches.items():
         require(count > 0, f"{name} was not launched on the main path")
+    # two rows passes for each encode and each decode (3 coder passes each)
+    require(3 * launches["gmm_rows"]
+            == 2 * (launches["rans_encode"] + launches["rans_decode"]),
+            "gmm_rows: not one launch per y pass of every encode and decode")
     y_dec = codec.decode_y_hat(codec.from_bytes(data, y_shape), y_shape)
     require(torch.equal(y_dec, out["y_hat"]), "y_hat differs after the bytes")
     require(tuple(x_hat.shape) == (BATCH, H, W, 3), f"x_hat {tuple(x_hat.shape)}")
@@ -276,6 +298,16 @@ def smoke():
                       abs(int(pk[1]) - int(pp[1])))
             # starts, freqs (int32), active (1 B); states; words, emits
             return t * w * 9 + 4 * w + t * w * 5, 0, err, None
+        if name == "gmm_rows":
+            sc, _, _, _, nb, md = args
+            n, k = sc.shape
+            L = nb + 1
+            err = int((originals[name](*args) - gmm_guarded_rows_plain(*args))
+                      .abs().max())
+            # rows out; scales, means, weights in; float32 operations of
+            # each entry's K terms plus its quantization
+            return (4 * n * L + 12 * n * k,
+                    n * L * (k * ROWS_FLOPS_PER_TERM[md] + 2), err, None)
         if name == "rans_decode":
             _, _, rws, act, _ = args
             t, w, _ = rws.shape
@@ -307,7 +339,8 @@ def smoke():
         return nbytes, flops, err, library
 
     plains = {"rans_encode": il.encode_scan, "rans_decode": il.decode_scan,
-              "conv2d_nhwc": conv_kernel.conv2d_nhwc_plain}
+              "conv2d_nhwc": conv_kernel.conv2d_nhwc_plain,
+              "gmm_rows": gmm_guarded_rows_plain}
     sources = {
         "rans_encode": ("flashgmm_tpu_torch/csrc/rans_kernels.cu",
                         "flashgmm_tpu/ans/pallas_coder.py:207"),
@@ -315,6 +348,9 @@ def smoke():
                         "flashgmm_tpu/ans/pallas_coder.py:75"),
         "conv2d_nhwc": ("flashgmm_tpu_torch/csrc/conv_kernel.cu",
                         "flashgmm_tpu/ops/pallas_conv.py:108"),
+        # not a Pallas kernel: the plain-XLA fusion of gmm_guarded_rows
+        "gmm_rows": ("flashgmm_tpu_torch/csrc/gmm_rows.cu",
+                     "flashgmm_tpu/ans/gaussian_cdf.py:114"),
     }
     results = []
     for name, kern in originals.items():

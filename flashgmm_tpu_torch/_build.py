@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``csrc/`` are compiled by ONE ``nvcc`` command into one
-shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers: a build takes seconds, not minutes). The library lands in
+Each source under ``csrc/`` is compiled by its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links them into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers: a
+build takes seconds, not minutes). The library lands in
 ``build/flashgmm_tpu_torch/`` at the repository root, named by a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one loads.
 The build happens at first use, never at import.
@@ -19,9 +20,11 @@ from pathlib import Path
 from typing import NamedTuple
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = ("csrc/rans_kernels.cu", "csrc/conv_kernel.cu")
+_SOURCES = ("csrc/rans_kernels.cu", "csrc/conv_kernel.cu",
+            "csrc/gmm_rows.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 BUILD_DIR = _PKG.parent / "build" / "flashgmm_tpu_torch"
 
 _P = ctypes.c_void_p
@@ -33,9 +36,12 @@ _SIGNATURES = {
     # stream
     "fg_rans_decode": (_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I,
                        _P, _P, _P),
-    # x, w, bias, res, y, N, H, W, Cin, Cout, K, leaky, neg_slope, stream
+    # x, w, bias, res, y, N, H, W, Cin, Cout, K, leaky, neg_slope, tile,
+    # stream
     "fg_conv2d_nhwc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       ctypes.c_float, _P),
+                       ctypes.c_float, _I, _P),
+    # scales, means, weights, N, K, lo, L, mode, rows, stream
+    "fg_gmm_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 
@@ -61,27 +67,48 @@ def _nvcc() -> str:
 def load() -> Kernels:
     """Build (if needed) and load the kernel library; cached per process."""
     sources = [_PKG / s for s in _SOURCES]
-    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_FLAGS + _LINK_FLAGS).encode())
     for src in sources:
         digest.update(src.read_bytes())
     path = BUILD_DIR / f"libflashgmm_kernels_{digest.hexdigest()[:16]}.so"
     seconds, ptxas = 0.0, ()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600)
+        # one nvcc per source, all at once; then one link
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True))
+                 for cmd in ([_nvcc(), *_FLAGS, "-c", "-o", str(obj), str(src)]
+                             for src, obj in zip(sources, objs))]
+        outs = []
+        try:
+            for cmd, proc in procs:
+                out, err = proc.communicate(timeout=600)
+                outs.append((cmd, proc.returncode, out, err))
+        finally:  # a timeout leaves no compiler running
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if all(rc == 0 for _, rc, _, _ in outs):
+            cmd = [_nvcc(), *_LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+            link = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=600)
+            outs.append((cmd, link.returncode, link.stdout, link.stderr))
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        for cmd, rc, out, err in outs:
+            if rc != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                                   f"{out}\n{err}")
         os.replace(tmp, path)
-        ptxas = tuple(line.strip() for line in proc.stderr.splitlines()
-                      if "ptxas" in line)
+        ptxas = tuple(line.strip() for _, _, _, err in outs
+                      for line in err.splitlines() if "ptxas" in line)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,23 +1,58 @@
-"""GMM probability math for the interleaved coder, as plain torch ops.
+"""GMM probability math for the interleaved coder: the plain version of the
+rows kernel, bit for bit XLA's CPU arithmetic.
 
-Port of flashgmm_tpu/ans/gaussian_cdf.py (there XLA, here eager torch, on
-whatever device the parameters live). The encoder and the decoder of the fast
-codec call :func:`gmm_guarded_rows` on the same tensors of the same shapes,
-so both compute the same integer rows. The op order follows the reference
-line by line, so the rows agree with JAX's up to the ulps in which the two
-libraries' ``exp``/``sqrt``/``sigmoid`` differ (measured in
-tests/test_torch_port_rows.py).
+Port of flashgmm_tpu/ans/gaussian_cdf.py. :func:`gmm_guarded_rows` is what
+the fast codec's encoder and decoder both call: on CPU tensors it runs the
+plain torch version below, on CUDA tensors the fused kernel of
+``rows_kernel.py`` (``csrc/gmm_rows.cu``), which performs the same float32
+operations with the same roundings. Both equal the JAX package's
+``gmm_guarded_rows`` on the CPU bit for bit, in all three modes.
+
+The plain version follows XLA's CPU code for that function (its optimized
+HLO and LLVM IR, jaxlib 0.9) op by op:
+
+- every add, sub, mul, div and sqrt is one correctly rounded float32
+  operation (the sqrt through float64: torch's float32 sqrt is not);
+- XLA's own exp and logistic (``entropy_models/xla_math.py``), not torch's;
+- XLA's algebraic simplifier turns the Pólya term ``w * 0.5 * (1 + c)``
+  into ``(1 + c) * (w * 0.5)``;
+- contraction: the x86 back end fuses each ``fmul`` whose only use is an
+  ``fadd`` or ``fsub`` into an FMA, the left operand first when both are
+  products. So the mixture is ``acc = fma(a0, b0, a1 * b1)``, then
+  ``acc = fma(ak, bk, acc)`` for k >= 2, and in A&S mode
+  ``1 + p|z|``, the Horner steps and ``1 - z * poly`` are FMAs too
+  (``xla_math._fma``, a true FMA emulated in float64);
+- flush to zero: XLA's CPU code runs with subnormal inputs read as zero
+  and subnormal results flushed (``xla_math._ftz``), so the parameters are
+  flushed on entry and every result that can be subnormal on its way out.
 
 ``APPROX_MODE`` selects the CDF approximation as in the reference:
 0 = Pólya (default), 1 = Abramowitz & Stegun, 2 = logistic.
 """
 
 import os
+import struct
 
 import torch
 
-_INV_SQRT_2PI = 0.3989422804014327
+from flashgmm_tpu_torch.ans import rows_kernel
+from flashgmm_tpu_torch.entropy_models.xla_math import _fma, _ftz
+from flashgmm_tpu_torch.entropy_models.xla_math import exp as _exp
+from flashgmm_tpu_torch.entropy_models.xla_math import logistic as _logistic
+
+
+def _f32(v: float) -> float:
+    """A Python constant as the float32 XLA computes with."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
 _PI = 3.14159265358979323846
+_POLYA_C = _f32(-2.0 / _PI)
+_INV_SQRT_2PI = _f32(0.3989422804014327)
+_AS_P = _f32(0.2316419)
+_AS_B = [_f32(b) for b in (0.319381530, -0.356563782, 1.781477937,
+                           -1.821255978, 1.330274429)]
+_LOGISTIC_K = _f32(1.702)
 
 
 def get_approx_mode() -> int:
@@ -28,46 +63,90 @@ def get_approx_mode() -> int:
     return mode if mode in (0, 1, 2) else 0
 
 
+def _sqrt(v):
+    """Correctly rounded float32 sqrt. torch's float32 sqrt on the CPU is
+    not (it misrounds near-ties); float64's, rounded to float32, is."""
+    return torch.sqrt(v.double()).float()
+
+
+def _polya(z):
+    """1 + sign(z) sqrt(1 - exp(-2z^2/pi)): twice the Pólya CDF."""
+    e = _exp(_ftz(_ftz(z * z) * _POLYA_C))
+    s = _sqrt(torch.clamp_min(1.0 - e, 0.0))
+    return 1.0 + torch.where(torch.signbit(z), -s, s)
+
+
+def _abramowitz_stegun(z):
+    """A&S 26.2.17 five-term polynomial."""
+    t = 1.0 / _fma(torch.abs(z), _AS_P, 1.0)
+    q = _fma(t, _AS_B[4], _AS_B[3])
+    for b in _AS_B[2::-1]:
+        q = _fma(t, q, b)
+    pdf = _ftz(_exp(_ftz(_ftz(z * -0.5) * z)) * _INV_SQRT_2PI)
+    res = _fma(-pdf, _ftz(t * q), 1.0)
+    return torch.where(z >= 0, res, 1.0 - res)
+
+
+def _logistic_1702(z):
+    return _logistic(_ftz(z * _LOGISTIC_K))
+
+
 def polya_cdf(x):
     """Phi(x) ~= 0.5*(1 + sign(x)*sqrt(1 - exp(-2x^2/pi)))."""
-    x = x.float()
-    e = torch.exp((-2.0 / _PI) * (x * x))
-    s = torch.sqrt(torch.clamp_min(1.0 - e, 0.0))
-    return 0.5 * (1.0 + torch.copysign(s, x))
+    return 0.5 * _polya(x.float())
 
 
 def abramowitz_stegun_cdf(x):
     """A&S 26.2.17 five-term polynomial approximation."""
-    x = x.float()
-    p = 0.2316419
-    b1, b2, b3, b4, b5 = (0.319381530, -0.356563782, 1.781477937,
-                          -1.821255978, 1.330274429)
-    abs_x = torch.abs(x)
-    z = _INV_SQRT_2PI * torch.exp(-0.5 * x * x)
-    t = 1.0 / (1.0 + p * abs_x)
-    poly = t * (b1 + t * (b2 + t * (b3 + t * (b4 + t * b5))))
-    res = 1.0 - z * poly
-    return torch.where(x >= 0, res, 1.0 - res)
+    return _abramowitz_stegun(x.float())
 
 
 def logistic_cdf(x):
     """Phi(x) ~= sigmoid(1.702 x)."""
-    return torch.sigmoid(1.702 * x.float())
+    return _logistic_1702(x.float())
 
 
 _CDF_FNS = {0: polya_cdf, 1: abramowitz_stegun_cdf, 2: logistic_cdf}
+# Each mixture term is a product a * b: the CDF part, and the weight (in
+# Pólya mode the 0.5 moves onto the weight, as XLA rewrites it).
+_TERM_A = {0: _polya, 1: _abramowitz_stegun, 2: _logistic_1702}
+_TERM_B = {0: lambda w: _ftz(w * 0.5), 1: lambda w: w, 2: lambda w: w}
 
 
 def _mixture_cdf(x, scales, means, weights, mode: int):
-    """Sum_k w_k Phi((x - mu_k)/sigma_k) with a FIXED sequential K-add
-    chain, as in the reference (gaussian_cdf.py:94)."""
-    cdf_fn = _CDF_FNS[mode]
-    acc = None
+    """Sum_k w_k Phi((x - mu_k)/sigma_k) with the reference's FIXED
+    sequential K-add chain (gaussian_cdf.py:94), contracted as XLA's x86
+    code contracts it: fma(a0, b0, a1*b1), then fma(ak, bk, acc)."""
+    terms = []
     for k in range(scales.shape[-1]):
-        term = weights[..., k:k + 1] * cdf_fn(
-            (x - means[..., k:k + 1]) / scales[..., k:k + 1])
-        acc = term if acc is None else acc + term
+        z = _ftz((x - means[..., k:k + 1]) / scales[..., k:k + 1])
+        terms.append((_TERM_A[mode](z), _TERM_B[mode](weights[..., k:k + 1])))
+    if len(terms) == 1:
+        return _ftz(terms[0][0] * terms[0][1])
+    acc = _ftz(_fma(*terms[0], _ftz(terms[1][0] * terms[1][1])))
+    for a, b in terms[2:]:
+        acc = _ftz(_fma(a, b, acc))
     return acc
+
+
+def gmm_guarded_rows_plain(scales, means, weights, lo: int, num_bins: int,
+                           mode: int = 0):
+    """The plain version of the rows kernel, on any device (see
+    :func:`gmm_guarded_rows`)."""
+    L = num_bins + 1
+    dev = scales.device
+    scales, means, weights = (_ftz(t.float()) for t in (scales, means, weights))
+    j = torch.arange(L, dtype=torch.float32, device=dev)
+    x = (float(lo) - 0.5) + j  # [L]
+    # boundaries [1, L, 1] against parameters [N, 1, K] -> [N, L]
+    cdf = _mixture_cdf(x[None, :, None], scales[:, None, :],
+                       means[:, None, :], weights[:, None, :], mode)[..., 0]
+    raw = torch.floor(torch.clamp(cdf, 0.0, 1.0) * float(65536 - L))
+    raw = torch.where(torch.isnan(raw), 0.0, raw)  # XLA's NaN -> 0
+    rows = raw.to(torch.int32) + torch.arange(L, dtype=torch.int32,
+                                              device=dev)[None, :]
+    rows[:, -1] = 65536
+    return rows
 
 
 def gmm_guarded_rows(scales, means, weights, lo: int, num_bins: int,
@@ -79,16 +158,10 @@ def gmm_guarded_rows(scales, means, weights, lo: int, num_bins: int,
     bypass escape is ever needed.
 
     Args: scales/means/weights float32 [N, K]; returns int32 [N, num_bins+1].
+    CPU tensors take the plain version; CUDA tensors launch the fused rows
+    kernel (``rows_kernel.gmm_rows``), which raises on what it cannot take.
     """
-    L = num_bins + 1
-    dev = scales.device
-    j = torch.arange(L, dtype=torch.float32, device=dev)
-    x = (float(lo) - 0.5) + j  # [L]
-    # boundaries [1, L, 1] against parameters [N, 1, K] -> [N, L]
-    cdf = _mixture_cdf(x[None, :, None], scales[:, None, :],
-                       means[:, None, :], weights[:, None, :], mode)[..., 0]
-    raw = torch.floor(torch.clamp(cdf, 0.0, 1.0) * float(65536 - L))
-    rows = raw.to(torch.int32) + torch.arange(L, dtype=torch.int32,
-                                              device=dev)[None, :]
-    rows[:, -1] = 65536
-    return rows
+    if scales.device.type == "cpu":
+        return gmm_guarded_rows_plain(scales, means, weights, lo, num_bins,
+                                      mode)
+    return rows_kernel.gmm_rows(scales, means, weights, lo, num_bins, mode)

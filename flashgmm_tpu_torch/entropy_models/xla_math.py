@@ -11,9 +11,9 @@ op (the op order and constants of XLA's emitted LLVM IR, jaxlib 0.9, and
 the multiply-adds its x86 code generator contracts into FMAs), they give the
 JAX package's tables bit for bit, and the same bits on the CPU and the GPU.
 An FMA is emulated in float64: the product of two float32 values is exact
-there, and the one float64 rounding of the sum before the float32 rounding
-differs from a true FMA only when it lands exactly on a float32 rounding
-tie (about one case in 2^29).
+there, and the float64 sum is rounded to odd (its exact error, from
+TwoSum, decides the last bit), so the one rounding to float32 that follows
+is that of a true FMA, ties included.
 """
 
 import struct
@@ -66,8 +66,22 @@ def _ftz(x):
 
 
 def _fma(a, b, c):
-    """round_f32(a * b + c) with one rounding of the exact product."""
-    return (a.double() * b + c).float()
+    """round_f32(a * b + c) with one rounding, as a hardware FMA computes it.
+
+    ``a`` is a float32 tensor, ``b`` and ``c`` float32 values (tensors, or
+    Python floats that are float32 constants). a * b is exact in float64;
+    the float64 sum s is rounded to odd: if it was inexact and its last
+    bit is even, it moves one ulp toward the exact sum. Rounding a
+    round-to-odd value with 29 spare bits to float32 rounds the exact sum.
+    """
+    p = a.double() * b
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)  # TwoSum: s + err == p + c exactly
+    bits = s.view(torch.int64)
+    fix = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(fix, bits + step, bits).view(torch.float64).float()
 
 
 def exp(x):

@@ -7,16 +7,20 @@ LeakyReLU and a residual add fused into the epilogue. It takes any width
 and channel count (the TPU kernel's ``w % 8`` and ``C >= 64`` rules do not
 apply).
 
-On the rows chain its job is bitwise reproducibility: each output is
-accumulated by one thread in the fixed order (dy, dx, c_in), so its bits
-depend only on its input neighbourhood and the weights, never on the batch
-size, the shapes around it or a library's algorithm choice. The encoder and
-the decoder therefore compute identical CDF rows.
+On the rows chain its job is bitwise reproducibility: each output is one
+float32 fmaf chain in the fixed order (dy, dx, c_in), in one thread, so its
+bits depend only on its input neighbourhood and the weights, never on the
+batch size, the tile shape, the shapes around it or a library's algorithm
+choice. The encoder and the decoder therefore compute identical CDF rows.
 
-What bounds it on the card: float32 FMA issue on the CUDA cores and the
-per-tap weight reads (no tiling, no tensor cores). ``conv2d_nhwc.launches``
-counts launches. The wrapper takes the plain version (``conv2d_nhwc_plain``,
-F.conv2d in float32 plus the epilogue) only for CPU tensors.
+Design: an implicit GEMM (M = output pixels, N = C_out, reduction over
+(dy, dx, c_in)) with a 4-deep cp.async pipeline of shared-memory tiles and
+8x8 (4x4 for the smaller tile shapes) register tiles per thread; the tile
+shape follows the problem's shape so the small rows-chain layers still
+fill the card. What bounds it: float32 FMA issue on the CUDA cores (no tensor
+cores). ``conv2d_nhwc.launches`` counts launches. The wrapper takes the
+plain version (``conv2d_nhwc_plain``, F.conv2d in float32 plus the
+epilogue) only for CPU tensors.
 """
 
 import ctypes
@@ -44,14 +48,23 @@ def conv2d_nhwc_plain(x, w, b=None, *, negative_slope=None, residual=None):
     return y.contiguous()
 
 
-def conv2d_nhwc(x, w, b=None, *, negative_slope=None, residual=None):
+TILES = 3  # the kernel's tile shapes: 128x64, 64x64, 32x32 outputs a block
+
+
+def conv2d_nhwc(x, w, b=None, *, negative_slope=None, residual=None,
+                tile=None):
     """Stride-1 'same' KxK conv: x [N, H, W, C_in], w [K, K, C_in, C_out]
     (HWIO), b [C_out] or None; LeakyReLU with ``negative_slope`` and then
-    ``residual`` [N, H, W, C_out] are applied in the epilogue. float32."""
+    ``residual`` [N, H, W, C_out] are applied in the epilogue. float32.
+
+    ``tile`` None lets the kernel pick its tile shape by the problem's
+    shape; 0..TILES-1 forces one (the output's bits must not change)."""
     if x.dim() != 4 or w.dim() != 4 or w.shape[0] != w.shape[1] \
             or w.shape[0] % 2 == 0 or w.shape[2] != x.shape[3]:
         raise ValueError(f"conv2d_nhwc: x {tuple(x.shape)}, w {tuple(w.shape)}"
                          " (need NHWC input and an odd square HWIO kernel)")
+    if tile is not None and not 0 <= tile < TILES:
+        raise ValueError(f"conv2d_nhwc: tile {tile} not in 0..{TILES - 1}")
     if x.device.type == "cpu":
         return conv2d_nhwc_plain(x, w, b, negative_slope=negative_slope,
                                  residual=residual)
@@ -80,7 +93,7 @@ def conv2d_nhwc(x, w, b=None, *, negative_slope=None, residual=None):
             ctypes.c_void_p(y.data_ptr()), n, h, wd, c_in, c_out, k,
             int(negative_slope is not None),
             0.0 if negative_slope is None else float(negative_slope),
-            _build.stream_ptr(x))
+            -1 if tile is None else int(tile), _build.stream_ptr(x))
     _build.check(rc, "conv2d_nhwc")
     conv2d_nhwc.launches += 1
     return y

@@ -182,10 +182,14 @@ def test_port_decodes_golden_jax_bytes_with_its_own_tables(models):
     (tests/expected/fast_format_ckbd_n32k2.bin: these N=32, K=2 weights,
     lanes=64, a 64x64 input) decoded by the port with ITS OWN tables and
     rows. z: EXACT (the EntropyBottleneck tables are bit-exact). y: a
-    measured parity gap, held under a bound. The GMM rows differ from JAX's
-    in ~0.1 % of entries (test_torch_port_rows.py) and one differing row
-    entry desynchronises the rest of its lane's chain; measured (torch 2.13
-    CPU, jax 0.9): 133 of 512 y symbols differ. Bound: 270 (about 2x)."""
+    measured parity gap, held under a bound. The rows FUNCTION is exact
+    (test_torch_port_rows.py: gmm_guarded_rows equals JAX's bit for bit on
+    the same parameters), so the gap comes from its inputs: the float32
+    conv chain h_s -> context -> entropy parameters sums in another order
+    than XLA's convs (ROADMAP C2), a parameter an ulp off moves a row
+    entry, and one differing entry desynchronises the rest of its lane's
+    chain. Measured (torch 2.13 CPU, jax 0.9): 133 of 512 y symbols
+    differ, with the old rows and with the exact ones. Bound: 266 (2x)."""
     from pathlib import Path
 
     jm, _, tm = models
@@ -204,4 +208,4 @@ def test_port_decodes_golden_jax_bytes_with_its_own_tables(models):
     np.testing.assert_array_equal(got_z.numpy(), ref_z.reshape(-1))
     got_y = codec.decode_y_hat(streams, y_shape).numpy()
     assert got_y.shape == ref_y.shape == (1, 4, 4, N)
-    assert int((got_y != ref_y).sum()) <= 270
+    assert int((got_y != ref_y).sum()) <= 266

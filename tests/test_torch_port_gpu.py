@@ -6,9 +6,10 @@ conftest, which imports JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py -q
 
-rANS encode and decode must be bit-exact; the conv within
-1e-4 * (1 + max|plain|) (float32 sums in another order than cuDNN's, TF32
-off), and bitwise batch-invariant.
+rANS encode and decode and the GMM rows kernel must be bit-exact (the rows
+kernel against the plain version, which is XLA's CPU arithmetic written
+out); the conv within 1e-4 * (1 + max|plain|) (float32 sums in another
+order than cuDNN's, TF32 off), and bitwise batch-invariant.
 """
 
 import numpy as np
@@ -16,8 +17,9 @@ import pytest
 import torch
 
 from flashgmm_tpu_torch.ans import interleaved as il
-from flashgmm_tpu_torch.ans import rans_kernels
-from flashgmm_tpu_torch.ans.gaussian_cdf import gmm_guarded_rows
+from flashgmm_tpu_torch.ans import rans_kernels, rows_kernel
+from flashgmm_tpu_torch.ans.gaussian_cdf import (gmm_guarded_rows,
+                                                 gmm_guarded_rows_plain)
 from flashgmm_tpu_torch.ops import conv_kernel
 
 pytestmark = pytest.mark.gpu
@@ -107,6 +109,75 @@ def test_conv_kernel_matches_plain(cuda, k, width, c_in, c_out, leaky, res):
     assert torch.equal(one, got[1:])
 
 
+def _rows_params(n, k, seed, edge):
+    rs = np.random.RandomState(seed)
+    s = rs.uniform(0.11, 20.0, (n, k))
+    m = rs.normal(0, 5, (n, k))
+    w = rs.uniform(0.05, 1.0, (n, k))
+    w /= w.sum(1, keepdims=True)
+    if edge:  # scales at the clamps, far means, subnormal weights
+        s = np.where(rs.rand(n, k) < 0.5, rs.choice([0.11, 256.0], (n, k)), s)
+        m = np.where(rs.rand(n, k) < 0.3, rs.choice([-1e3, -60, 60, 1e4],
+                                                    (n, k)), m)
+        w = np.where(rs.rand(n, k) < 0.3, rs.choice([1e-45, 1e-39, 1e-30],
+                                                    (n, k)), w)
+    return [torch.from_numpy(v.astype(np.float32)) for v in (s, m, w)]
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_rows_kernel_equals_plain(cuda, mode, k):
+    for edge in (False, True):
+        params = [t.to(cuda) for t in _rows_params(30000, k, mode, edge)]
+        before = rows_kernel.gmm_rows.launches
+        got = gmm_guarded_rows(*params, -48, 97, mode)
+        assert rows_kernel.gmm_rows.launches == before + 1
+        ref = gmm_guarded_rows_plain(*params, -48, 97, mode)
+        assert got.dtype == torch.int32 and got.shape == (30000, 98)
+        assert int((got != ref).sum()) == 0
+        # and the card's plain version equals the CPU's
+        cpu = gmm_guarded_rows_plain(*[t.cpu() for t in params], -48, 97, mode)
+        assert torch.equal(ref.cpu(), cpu)
+
+
+def test_rows_kernel_refuses_what_it_does_not_take(cuda):
+    s = torch.ones(8, 4, device=cuda)
+    with pytest.raises(TypeError):
+        rows_kernel.gmm_rows(s.double(), s.double(), s.double(), -48, 97)
+    with pytest.raises(ValueError):
+        rows_kernel.gmm_rows(s, s, s[:, :3], -48, 97)  # shapes differ
+    with pytest.raises(ValueError):
+        rows_kernel.gmm_rows(s.reshape(-1), s.reshape(-1), s.reshape(-1), -48, 97)
+    with pytest.raises(ValueError):
+        big = torch.ones(8, 9, device=cuda)  # K above the kernel's 8
+        rows_kernel.gmm_rows(big, big, big, -48, 97)
+    with pytest.raises(ValueError):
+        rows_kernel.gmm_rows(s.cpu(), s.cpu(), s.cpu(), -48, 97)  # not CUDA
+
+
+@pytest.mark.parametrize("n,h,width,c_in,c_out,k", [
+    (2, 12, 8, 192, 192, 3),  # the rows chain's smallest layer, M = 192
+    (2, 48, 16, 640, 2304, 1),  # the last entropy-parameter conv
+])
+def test_conv_kernel_rows_chain_shapes(cuda, n, h, width, c_in, c_out, k):
+    g = torch.Generator(device=cuda).manual_seed(c_out)
+    x = torch.randn(n, h, width, c_in, device=cuda, generator=g)
+    w = torch.randn(k, k, c_in, c_out, device=cuda, generator=g) * 0.05
+    b = torch.randn(c_out, device=cuda, generator=g)
+    got = conv_kernel.conv2d_nhwc(x, w, b)
+    ref = conv_kernel.conv2d_nhwc_plain(x, w, b)
+    err = float((got - ref).abs().max())
+    assert err <= CONV_TOL * (1 + float(ref.abs().max())), err
+    for i in range(n):  # each image alone equals itself in the batch
+        assert torch.equal(conv_kernel.conv2d_nhwc(x[i:i + 1], w, b),
+                           got[i:i + 1])
+    big = torch.cat([x] * 12)  # batch 24: other tile shapes, same bits
+    assert torch.equal(conv_kernel.conv2d_nhwc(big, w, b)[:n], got)
+    assert torch.equal(conv_kernel.conv2d_nhwc(x, w, b), got)
+    for tile in range(conv_kernel.TILES):  # every tile shape, same bits
+        assert torch.equal(conv_kernel.conv2d_nhwc(x, w, b, tile=tile), got)
+
+
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     x = torch.zeros(1, 4, 4, 8, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -114,6 +185,9 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
                                                 dtype=torch.float16))
     with pytest.raises(ValueError):
         conv_kernel.conv2d_nhwc(x.float(), torch.zeros(3, 3, 8, 8))  # mixed
+    with pytest.raises(ValueError):
+        conv_kernel.conv2d_nhwc(x.float(), torch.zeros(3, 3, 8, 8, device=cuda),
+                                tile=conv_kernel.TILES)
     with pytest.raises(ValueError):
         rans_kernels.decode_scan(torch.zeros(8192, dtype=torch.int64, device=cuda),
                                  torch.zeros(10, dtype=torch.int32, device=cuda),
@@ -131,7 +205,7 @@ def test_codec_roundtrip_on_card(cuda):
     x = torch.rand(2, 128, 128, 3, device=cuda,
                    generator=torch.Generator(device=cuda).manual_seed(1))
     counts = (rans_kernels.encode_scan.launches, rans_kernels.decode_scan.launches,
-              conv_kernel.conv2d_nhwc.launches)
+              conv_kernel.conv2d_nhwc.launches, rows_kernel.gmm_rows.launches)
     data, out = codec.encode_to_bytes(x)
     y_shape = tuple(out["y_hat"].shape)
     y_dec = codec.decode_y_hat(codec.from_bytes(data, y_shape), y_shape)
@@ -139,3 +213,4 @@ def test_codec_roundtrip_on_card(cuda):
     assert rans_kernels.encode_scan.launches == counts[0] + 3
     assert rans_kernels.decode_scan.launches == counts[1] + 3
     assert conv_kernel.conv2d_nhwc.launches == counts[2] + 24
+    assert rows_kernel.gmm_rows.launches == counts[3] + 4
