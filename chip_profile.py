@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's batched codec, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--batch 2 24] [--reps 3] [--tiles]
+    python3 chip_profile.py [--batch 2 24] [--reps 3] [--tiles | --decode]
 
 For each batch size: N=192, K=4 flagship with weights/ckbd_gmm_n192_k4_
 synthetic.npz, lanes=4096, cap_divisor=4, 768x512 textured-leaves images
 (bench.py's seeds). Prints one JSON line per batch with the steady-state
 encode and decode times (host clock around work that ends in a
-synchronize; median of --reps), ms per image, bpp and PSNR, and the time of
-each codec stage (synchronized after each stage, so the stages add up to a
-little more than the unsynchronized total). Then one torch.profiler table
+synchronize; median of --reps), ms per image, bpp and PSNR, the peak device
+memory of that batch's runs, and the time of each codec stage (synchronized
+after each stage, so the stages add up to a little more than the
+unsynchronized total). Then one torch.profiler table
 of device time by kernel over one encode + decode at the last batch size.
 ``--tiles`` instead times the rows-chain conv kernel at each of its shapes
 and batch sizes with every tile shape forced and with its own choice,
 beside ``F.conv2d`` in float32 (TF32 off): one JSON line per batch.
+``--decode`` instead times the on-demand GMM decoder on one y pass of
+batch 24 (T=864 steps): at W=4096 with its own cluster of 16 CTAs and with
+``rans_kernels.MAX_CLUSTER`` lowered to 8 and 1, beside the decoder over
+materialized rows; its serial floor, one active lane on each CTA of the
+W=4096 cluster, and 16 lanes on one CTA (no cluster barrier); and that
+floor at K = 3, which takes the runtime-K code: one JSON line.
 Needs a CUDA device; imports no JAX.
 """
 
@@ -35,6 +42,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, nargs="+", default=[2, 24])
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--tiles", action="store_true")
+    ap.add_argument("--decode", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -47,7 +55,6 @@ def main() -> int:
     from flashgmm_tpu_torch.datasets import textured_leaves
     from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
     from flashgmm_tpu_torch.runtime import FastCheckerboardGmmCodec
-    from flashgmm_tpu_torch.runtime.fast_codec import _decode_pass
     from flashgmm_tpu_torch.zoo import load_npz
 
     dev = torch.device("cuda", 0)
@@ -57,6 +64,9 @@ def main() -> int:
     print(smi, flush=True)
     if args.tiles:
         conv_tiles(args.batch, dev, smi)
+        return 0
+    if args.decode:
+        decode_steps(dev, smi)
         return 0
     model = Cheng2020AnchorCheckerboardGMMv2(N=192, K=4, seed=0, device=dev)
     load_npz(model, WEIGHTS)
@@ -77,7 +87,6 @@ def main() -> int:
         c = codec
         b, h, w, ch = y_shape
         n = b * h * (w // 2) * ch
-        lo, _ = c._lo_bins()
         ms = {}
         with torch.inference_mode():
             y, ms["g_a (bf16, cuDNN)"] = timed(lambda: c._transform(c._g_a, x))
@@ -87,21 +96,22 @@ def main() -> int:
             sym = torch.clamp(torch.round(c._ckbd.unembed(y)).to(torch.int32),
                               -c.max_abs, c.max_abs)
             side, ms["h_s (conv kernel)"] = timed(lambda: c._side(z_bin))
-            rows0, ms["rows0 (EP convs + CDF rows)"] = timed(
-                lambda: c._rows0(side[0]))
-            rows1, ms["rows1 (context + EP convs + CDF rows)"] = timed(
-                lambda: c._rows1(side[1], sym[0]))
-            _, ms["y pass encode (gather + kernel + pack)"] = timed(
-                lambda: c._encpass(rows0, sym[0].reshape(-1), c.cap_divisor))
+            params0, ms["params0 (EP convs)"] = timed(
+                lambda: c._params0(side[0]))
+            _, ms["params1 (context + EP convs)"] = timed(
+                lambda: c._params1(side[1], sym[0]))
+            _, ms["y pass encode (bounds + kernel + pack)"] = timed(
+                lambda: c._encpass(params0, sym[0].reshape(-1), c.cap_divisor))
             streams = c.from_bytes(data, y_shape)
-            _, ms["y pass decode (dummy rows + kernel)"] = timed(
-                lambda: _decode_pass(streams["y0"], rows0, n, lo, c.lanes))
+            _, ms["y pass decode (GMM rows on demand)"] = timed(
+                lambda: c._decpass(streams["y0"], params0, n))
             y_hat = c._ckbd.embed(sym.float())
             _, ms["g_s (bf16, cuDNN)"] = timed(lambda: c._transform(c._g_s, y_hat))
         return ms
 
     for b in args.batch:
         x = torch.from_numpy(np.stack(images[:b])).to(dev)
+        torch.cuda.reset_peak_memory_stats()
         data, out = codec.encode_to_bytes(x)  # warm-up
         y_shape = tuple(out["y_hat"].shape)
         codec.decode_bytes(data, y_shape)
@@ -134,6 +144,88 @@ def main() -> int:
     return 0
 
 
+def _cuda_ms(fn, reps):
+    """Mean ms of fn over reps calls after one warm-up, by CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def decode_steps(dev, smi, steps=864):
+    """The decoders on `steps` steps of seeded parameters and symbols (L=98
+    as the codec's; the search depth depends on L and the symbols)."""
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.ans import interleaved as il
+    from flashgmm_tpu_torch.ans import rans_kernels
+    from flashgmm_tpu_torch.ans.gaussian_cdf import (gmm_guarded_bounds,
+                                                     gmm_guarded_rows)
+
+    lo, num_bins = -48, 97
+
+    def case(w, k, every=1):
+        """An encoded pass of `steps` steps of w lanes, lanes 0, every,
+        2 * every, ... active (the rest carry parameters, never searched)."""
+        n = steps * w
+        rs = np.random.RandomState(k)
+        p = [rs.uniform(0.11, 8, (n, k)), rs.normal(0, 3, (n, k)),
+             rs.uniform(0.05, 1, (n, k))]
+        p[2] /= p[2].sum(1, keepdims=True)
+        p = [torch.from_numpy(v.astype(np.float32)).to(dev) for v in p]
+        v = np.clip(np.round(rs.normal(0, 4, n)), lo, lo + num_bins - 1)
+        v = torch.from_numpy(v.astype(np.int64)).to(dev)
+        st, fq = gmm_guarded_bounds(v, *p, lo, num_bins)
+        act = torch.zeros((steps, w), dtype=torch.bool, device=dev)
+        act[:, ::every] = True
+        states, words, emits = rans_kernels.encode_scan(
+            st.reshape(steps, w), fq.reshape(steps, w), act)
+        stream, _ = il.pack_words(words, emits)
+        return v, p, act, states, stream
+
+    def gmm_ms(c):
+        v, p, act, states, stream = c
+        on = act.reshape(-1)
+
+        def run():
+            return rans_kernels.decode_scan_gmm(states, stream, *p, act, lo,
+                                                num_bins)
+        if not torch.equal(run().reshape(-1)[on].long(), v[on]):
+            raise RuntimeError("decode_scan_gmm: wrong symbols")
+        return _cuda_ms(run, 3)
+
+    with torch.inference_mode():
+        out = {"steps": steps, "card": smi, "w4096": {}, "floor": {}}
+        wide = case(4096, 4)
+        rows = gmm_guarded_rows(*wide[1], lo, num_bins).reshape(steps, 4096, -1)
+        # the cluster is min(MAX_CLUSTER, W / 256) CTAs: 16 is W's own size
+        for cap in (16, 8, 1):
+            rans_kernels.MAX_CLUSTER = cap
+            out["w4096"][f"cluster {cap}"] = {
+                "gmm_ms": gmm_ms(wide), "rows_ms": _cuda_ms(
+                    lambda: rans_kernels.decode_scan(wide[3], wide[4], rows,
+                                                     wide[2], lo), 3)}
+        rans_kernels.MAX_CLUSTER = 16
+        del rows, wide
+        for name, w, k, every in (
+                ("K=4, 16 CTAs, one active lane each", 4096, 4, 256),
+                ("K=4, 1 CTA of 16 lanes", 16, 4, 1),
+                ("K=3 (runtime K), 16 CTAs, one active lane each", 4096, 3,
+                 256)):
+            ms = gmm_ms(case(w, k, every))
+            out["floor"][name] = {"ms": ms, "us_per_step": 1e3 * ms / steps}
+        print(json.dumps(out), flush=True)
+
+
 def conv_tiles(batches, dev, smi):
     """Every rows-chain conv shape (N=192, K=4, 768x512 images) timed with
     each tile shape forced, with the kernel's own choice and as F.conv2d."""
@@ -152,18 +244,6 @@ def conv_tiles(batches, dev, smi):
         (48, 16, 10 * n // 3, 10 * n // 3, 1, 4),
         (48, 16, 10 * n // 3, 12 * n, 1, 4)]
 
-    def ms(fn, reps=20):
-        fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
-
     with torch.inference_mode():
         for batch in batches:
             rows, total = [], {"auto": 0.0, "best": 0.0, "F.conv2d": 0.0}
@@ -171,13 +251,13 @@ def conv_tiles(batches, dev, smi):
                 x = torch.randn(batch, h, w, c_in, device=dev)
                 wt = torch.randn(k, k, c_in, c_out, device=dev) * 0.05
                 bias = torch.randn(c_out, device=dev)
-                tiles = [ms(lambda: conv_kernel.conv2d_nhwc(x, wt, bias,
-                                                            tile=t))
-                         for t in range(conv_kernel.TILES)]
-                auto = ms(lambda: conv_kernel.conv2d_nhwc(x, wt, bias))
+                tiles = [_cuda_ms(lambda: conv_kernel.conv2d_nhwc(
+                    x, wt, bias, tile=t), 20) for t in range(conv_kernel.TILES)]
+                auto = _cuda_ms(lambda: conv_kernel.conv2d_nhwc(x, wt, bias), 20)
                 x_nchw = x.permute(0, 3, 1, 2)
                 w_oihw = wt.permute(3, 2, 0, 1).contiguous()
-                lib = ms(lambda: F.conv2d(x_nchw, w_oihw, bias, padding=k // 2))
+                lib = _cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, bias,
+                                                padding=k // 2), 20)
                 rows.append({"shape": [batch, h, w, c_in, c_out, k],
                              "tiles_ms": tiles, "auto_ms": auto,
                              "conv2d_ms": lib, "launches": launches})

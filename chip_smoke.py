@@ -9,16 +9,22 @@ Phases, each ending in one flushed line with its seconds:
 2. build: the CUDA kernels from the sources in this checkout (nvcc, one
    shared library), with the -Xptxas -v register and shared-memory lines;
 3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes (the GMM rows kernel and rANS encode and decode bit-exact,
-   the conv within a stated tolerance, bitwise batch-invariant and
-   repeatable);
+   path's shapes, all bit-exact: the GMM rows and bounds kernels, rANS
+   encode, the cluster decoder over materialized rows and over the GMM
+   rows on demand, also one W=8192 pass, and the conv (the same fmaf
+   chain), which is also bitwise batch-invariant and repeatable;
 4. codec: the batched checkerboard-GMM codec at N=192, K=4, lanes=4096,
    cap_divisor=4 on two 768x512 textured-leaves images: encode_to_bytes,
    then decode_bytes, y_hat exact through the bytes, bpp and PSNR, and
-   every kernel's launch count from that run;
-5. timing: every kernel call of that run timed again by CUDA events, beside
+   every kernel's launch count from that run (the y passes go through the
+   bounds kernel and the on-demand decoder, never the full rows);
+5. paths: the same batch encoded and decoded along the full-rows path
+   (rows kernel, gather, decoder over materialized rows): identical bytes
+   and identical y_hat;
+6. timing: every kernel call of that run timed again by CUDA events, beside
    its plain version, a library call where one computes the same function,
-   and its bound.
+   and its bound; the rows kernel, off the path, on the path's parameters;
+   the on-demand decoder also beside its serial latency floor.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -39,7 +45,7 @@ H, W, BATCH, N, K, LANES, CAP_DIVISOR = 768, 512, 2, 192, 4, 4096, 4
 SEED0 = 500000  # bench.py's held-out image seeds: SEED0 + 1, SEED0 + 2, ...
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-CONV_TOL = 1e-4  # max|kernel - plain| <= CONV_TOL * (1 + max|plain|)
+W_WIDE = 8192  # the widest lanes the JAX bench swept: one pass decodes
 # float32 operations of one mixture term of one rows entry, by APPROX_MODE
 # (each add, sub, mul, div, sqrt and floor 1, each FMA 2; XLA's exp is 22):
 # Pólya: sub, div, 2 mul, exp, sub, sqrt, add, and the mixture FMA = 31;
@@ -82,9 +88,9 @@ def smoke():
     from flashgmm_tpu_torch import _build
     from flashgmm_tpu_torch.ans import interleaved as il
     from flashgmm_tpu_torch.ans import rans_kernels, rows_kernel
-    from flashgmm_tpu_torch.ans.gaussian_cdf import (get_approx_mode,
-                                                     gmm_guarded_rows,
-                                                     gmm_guarded_rows_plain)
+    from flashgmm_tpu_torch.ans.gaussian_cdf import (
+        get_approx_mode, gmm_guarded_bounds, gmm_guarded_bounds_plain,
+        gmm_guarded_rows, gmm_guarded_rows_plain)
     from flashgmm_tpu_torch.ops import conv_kernel
 
     torch.backends.cudnn.allow_tf32 = False
@@ -126,6 +132,17 @@ def smoke():
                               .astype(np.int64)).to(dev)
     start = rows.gather(1, (values - lo)[:, None])[:, 0]
     freq = rows.gather(1, (values - lo + 1)[:, None])[:, 0] - start
+    start_b, freq_b = gmm_guarded_bounds(values, scales, means, wts, lo,
+                                         num_bins, mode)
+    start_p, freq_p = gmm_guarded_bounds_plain(values, scales, means, wts, lo,
+                                               num_bins, mode)
+    torch.cuda.synchronize()
+    n_diff = int((start_b != start_p).sum() + (freq_b != freq_p).sum())
+    n_gather = int((start_b != start).sum() + (freq_b != freq).sum())
+    print(f"  gmm bounds N={n_y}: {n_diff} of {2 * n_y} values differ from "
+          f"plain, {n_gather} from the rows' gather", flush=True)
+    require(n_diff == 0, "gmm bounds: kernel differs from its plain version")
+    require(n_gather == 0, "gmm bounds: kernel differs from the rows' gather")
     t_steps, _ = il.layout(n_y, LANES)
     active = il.active_mask(n_y, t_steps, LANES, dev)
     enc_args = (il.to_lanes(start, LANES), il.to_lanes(freq, LANES), active)
@@ -137,15 +154,36 @@ def smoke():
     require(torch.equal(st_k, st_p), "rans encode: states differ")
     require(int(n_k) == int(n_p), "rans encode: n_words differ")
     require(torch.equal(s_k, s_p), "rans encode: streams differ")
-    rows_l = rows.reshape(t_steps, LANES, num_bins + 1)
-    sym_k = rans_kernels.decode_scan(st_k, s_k, rows_l, active, lo)
-    sym_p = il.decode_scan(st_k, s_k, rows_l, active, lo)
-    torch.cuda.synchronize()
-    require(torch.equal(sym_k, sym_p), "rans decode: symbols differ from plain")
-    require(torch.equal(il.from_lanes(sym_k, n_y).long(), values),
-            "rans decode: symbols differ from the encoded values")
-    print(f"  rans encode/decode T={t_steps} W={LANES} L={num_bins + 1}: "
-          f"bit-exact, {int(n_k)} words", flush=True)
+
+    def decoders_agree(w, states, stream, act, tag):
+        """Both row sources of the cluster decoder against the plain
+        decoder on the full rows; returns the plain symbols."""
+        t, pad = il.layout(n_y, w)
+        rows_l = torch.cat([rows, rows.new_zeros(pad, num_bins + 1)]
+                           ).reshape(t, w, num_bins + 1)
+        sym_p = il.decode_scan(states, stream, rows_l, act, lo)
+        sym_r = rans_kernels.decode_scan(states, stream, rows_l, act, lo)
+        sym_g = rans_kernels.decode_scan_gmm(states, stream, scales, means,
+                                             wts, act, lo, num_bins, mode)
+        torch.cuda.synchronize()
+        d_r = int((sym_r != sym_p).sum())
+        d_g = int((sym_g != sym_p).sum())
+        print(f"  {tag} T={t} W={w} (a cluster of up to "
+              f"{min(rans_kernels.MAX_CLUSTER, -(-w // 256))} CTAs): decoder "
+              f"over rows {d_r}, over GMM rows on demand {d_g} of "
+              f"{sym_p.numel()} symbols differ from plain", flush=True)
+        require(d_r == 0, f"rans decode W={w}: symbols differ from plain")
+        require(d_g == 0, f"rans decode gmm W={w}: symbols differ from plain")
+        require(torch.equal(il.from_lanes(sym_p, n_y).long(), values),
+                f"rans decode W={w}: symbols differ from the encoded values")
+
+    decoders_agree(LANES, st_k, s_k, active, "rans encode bit-exact; decode")
+    t_wide, _ = il.layout(n_y, W_WIDE)
+    act_wide = il.active_mask(n_y, t_wide, W_WIDE, dev)
+    st_w, wd_w, em_w = rans_kernels.encode_scan(
+        il.to_lanes(start_b, W_WIDE), il.to_lanes(freq_b, W_WIDE), act_wide)
+    s_w, _ = il.pack_words(wd_w, em_w)
+    decoders_agree(W_WIDE, st_w, s_w, act_wide, "one wide pass")
 
     conv_shapes = [  # (batch, h, w, c_in, c_out, k, leaky): the rows chain
         (BATCH, 12, 8, N, N, 3, True), (BATCH, 12, 8, N, 4 * N, 3, False),
@@ -157,7 +195,6 @@ def smoke():
         (BATCH, 48, 16, 10 * N // 3, 10 * N // 3, 1, True),
         (BATCH, 48, 16, 10 * N // 3, 3 * K * N, 1, False),
     ]
-    conv_err = 0.0
     for i, (b, h, w, ci, co, k, leaky) in enumerate(conv_shapes):
         x = torch.randn(b, h, w, ci, device=dev)
         wt = torch.randn(k, k, ci, co, device=dev) * 0.05
@@ -173,15 +210,13 @@ def smoke():
         y_again = conv_kernel.conv2d_nhwc(x, wt, bias, negative_slope=slope,
                                           residual=res)
         torch.cuda.synchronize()
-        err = float((y_k - y_p).abs().max())
-        require(err <= CONV_TOL * (1 + float(y_p.abs().max())),
-                f"conv {b}x{h}x{w} {ci}->{co} k{k}: max|d| {err}")
+        require(torch.equal(y_k, y_p),
+                f"conv {b}x{h}x{w} {ci}->{co} k{k}: kernel != plain, max|d| "
+                f"{float((y_k - y_p).abs().max())}")
         require(torch.equal(y_1, y_k[1:2]), "conv: image alone != in batch")
         require(torch.equal(y_again, y_k), "conv: two calls differ")
-        conv_err = max(conv_err, err)
-    print(f"  conv: {len(conv_shapes)} rows-chain shapes, max|kernel - plain| "
-          f"{conv_err:.3g} (tol {CONV_TOL} x (1 + max|plain|)), bitwise "
-          "batch-invariant and repeatable", flush=True)
+    print(f"  conv: {len(conv_shapes)} rows-chain shapes, kernel == plain bit "
+          "for bit, bitwise batch-invariant and repeatable", flush=True)
     phase("kernels")
 
     # 4. the codec --------------------------------------------------------
@@ -214,12 +249,13 @@ def smoke():
     # recorder that keeps its inputs for the timing phase. The wrappers'
     # bodies count on the name their module binds, so during this run the
     # counts land on the recorders, which start at 0.
-    calls = {"rans_encode": [], "rans_decode": [], "conv2d_nhwc": [],
-             "gmm_rows": []}
     bound = {"rans_encode": (rans_kernels, "encode_scan"),
              "rans_decode": (rans_kernels, "decode_scan"),
-             "conv2d_nhwc": (conv_kernel, "conv2d_nhwc"),
-             "gmm_rows": (rows_kernel, "gmm_rows")}
+             "rans_decode_gmm": (rans_kernels, "decode_scan_gmm"),
+             "gmm_bounds": (rows_kernel, "gmm_bounds"),
+             "gmm_rows": (rows_kernel, "gmm_rows"),
+             "conv2d_nhwc": (conv_kernel, "conv2d_nhwc")}
+    calls = {name: [] for name in bound}
     originals = {name: getattr(*where) for name, where in bound.items()}
 
     def recorder(name):
@@ -246,11 +282,15 @@ def smoke():
         setattr(module, attr, originals[name])
 
     for name, count in launches.items():
-        require(count > 0, f"{name} was not launched on the main path")
-    # two rows passes for each encode and each decode (3 coder passes each)
-    require(3 * launches["gmm_rows"]
-            == 2 * (launches["rans_encode"] + launches["rans_decode"]),
-            "gmm_rows: not one launch per y pass of every encode and decode")
+        if name != "gmm_rows":
+            require(count > 0, f"{name} was not launched on the main path")
+    # per encode: 3 encode passes, 2 of them y passes with their bounds; per
+    # decode: the z pass over its tables, 2 y passes over the GMM rows
+    require(launches["gmm_rows"] == 0, "the main path built full GMM rows")
+    require(launches["gmm_bounds"] * 3 == launches["rans_encode"] * 2,
+            "gmm_bounds: not one launch per encoded y pass")
+    require(launches["rans_decode_gmm"] == 2 * launches["rans_decode"],
+            "decode: the y passes did not go through the GMM decoder")
     y_dec = codec.decode_y_hat(codec.from_bytes(data, y_shape), y_shape)
     require(torch.equal(y_dec, out["y_hat"]), "y_hat differs after the bytes")
     require(tuple(x_hat.shape) == (BATCH, H, W, 3), f"x_hat {tuple(x_hat.shape)}")
@@ -268,7 +308,53 @@ def smoke():
     print(f"  launches in one encode + decode: {launches}", flush=True)
     phase("codec")
 
-    # 5. timing of every recorded call ------------------------------------
+    # 5. the full-rows path: same bytes, same y_hat ------------------------
+    lo_c, bins_c = codec._lo_bins()
+    with_rows = {}  # pass -> (params, rows)
+
+    def rows_path(x_in, full):
+        """codec.encode with the y passes' (start, freq) gathered from the
+        full rows instead of the bounds kernel."""
+        cd = 1 if full else codec.cap_divisor
+        y = codec._transform(codec._g_a, x_in)
+        z = codec._transform(codec._h_a, y)
+        z_bin = torch.round(z - codec._med).to(torch.int32) - codec._z_off
+        z_bin = torch.minimum(torch.clamp_min(z_bin, 0), codec._z_maxbin)
+        sym = torch.clamp(torch.round(codec._ckbd.unembed(y)).to(torch.int32),
+                          -codec.max_abs, codec.max_abs)
+        side = codec._side(z_bin)
+        enc = {}
+        for name, params, s_pass in (
+                ("y0", codec._params0(side[0]), sym[0]),
+                ("y1", codec._params1(side[1], sym[0]), sym[1])):
+            rows_p = gmm_guarded_rows(*params, lo_c, bins_c, codec.mode)
+            j = (s_pass.reshape(-1).long() - lo_c)[:, None]
+            st = rows_p.gather(1, j)[:, 0]
+            enc[name] = fast_codec._encode_pass(
+                st, rows_p.gather(1, j + 1)[:, 0] - st, codec.lanes, cd)
+            with_rows[name] = (params, rows_p)
+        return enc
+
+    from flashgmm_tpu_torch.runtime import fast_codec
+
+    try:
+        data_rows = codec.to_bytes({"z": out["z"], **rows_path(x, False)})
+    except fast_codec.StreamOverflow:
+        data_rows = codec.to_bytes({"z": out["z"], **rows_path(x, True)})
+    require(data_rows == data, "full-rows path bytes differ from the codec's")
+    streams = codec.from_bytes(data, y_shape)
+    n_pass = out["y_hat"].numel() // 2  # symbols of one y pass
+    syms = [fast_codec._decode_pass(streams[name], with_rows[name][1], n_pass,
+                                    lo_c, codec.lanes) for name in ("y0", "y1")]
+    b_, h_, w_, c_ = y_shape
+    y_rows = codec._ckbd.embed(torch.stack(
+        [s_.reshape(b_, h_, w_ // 2, c_) for s_ in syms]).float())
+    require(torch.equal(y_rows, y_dec), "full-rows decoder y_hat differs")
+    print(f"  full-rows path: the same {len(data_rows)} bytes; its decoder "
+          "gives the same y_hat", flush=True)
+    phase("paths")
+
+    # 6. timing of every recorded call ------------------------------------
     def cuda_ms(fn, reps):
         fn()
         torch.cuda.synchronize()
@@ -282,6 +368,19 @@ def smoke():
         return a.elapsed_time(b) / reps
 
     pass_words = [int(out[k].n_words) for k in ("z", "y0", "y1")]
+
+    def probes_by_count(L):
+        """Entries the bisection evaluates for each count 0..L-1 (the probe
+        at L-1 is the guard 65536 and costs nothing)."""
+        probes = []
+        for c in range(L):
+            a, b, n_eval = 0, L, 0
+            while a < b:
+                mid = (a + b) >> 1
+                n_eval += mid != L - 1
+                a, b = (mid + 1, b) if mid < c else (a, mid)
+            probes.append(n_eval)
+        return probes
 
     def stats(name, i, args, kwargs):
         """(bytes, flops, max|kernel - plain|, library call or None) of one
@@ -308,6 +407,17 @@ def smoke():
             # each entry's K terms plus its quantization
             return (4 * n * L + 12 * n * k,
                     n * L * (k * ROWS_FLOPS_PER_TERM[md] + 2), err, None)
+        if name == "gmm_bounds":
+            vals, sc, _, _, _, _, md = args
+            n, k = sc.shape
+            got = originals[name](*args)
+            ref = gmm_guarded_bounds_plain(*args)
+            err = max(int((got[0] - ref[0]).abs().max()),
+                      int((got[1] - ref[1]).abs().max()))
+            # values (at the width given: int32 on the path) and parameters
+            # in, start and freq (int32) out; two entries a symbol
+            return ((vals.element_size() + 8) * n + 12 * n * k,
+                    2 * n * (k * ROWS_FLOPS_PER_TERM[md] + 2), err, None)
         if name == "rans_decode":
             _, _, rws, act, _ = args
             t, w, _ = rws.shape
@@ -315,16 +425,29 @@ def smoke():
                       .abs().max())
             # states, the consumed words, the two row entries that bound each
             # active symbol's bin, active (1 B), symbols out (int32)
-            n_words = pass_words[i % 3]
-            return (4 * w + 4 * n_words + 8 * int(act.sum()) + t * w * 5,
-                    0, err, None)
+            return (4 * w + 4 * pass_words[0] + 8 * int(act.sum())
+                    + t * w * 5, 0, err, None)
+        if name == "rans_decode_gmm":
+            _, _, sc, _, _, act, lo_, nb, md = args
+            t, w = act.shape
+            n, k = sc.shape
+            got = originals[name](*args)
+            err = int((got - rans_kernels.decode_scan_gmm_plain(*args))
+                      .abs().max())
+            # entries evaluated: the bisection's probes for each symbol
+            probes = torch.tensor(probes_by_count(nb + 1), device=dev)
+            count = (il.from_lanes(got, n).long() - lo_ + 1).clamp(0, nb)
+            n_eval = int(probes[count].sum())
+            # states, the consumed words, each symbol's parameters, active
+            # (1 B), symbols out (int32)
+            return (4 * w + 4 * pass_words[1 + i % 2] + 12 * n * k
+                    + t * w * 5, n_eval * (k * ROWS_FLOPS_PER_TERM[md] + 2),
+                    err, None)
         xi, wi, bi = args
         res = kwargs.get("residual")
         got = originals[name](*args, **kwargs)
         ref = conv_kernel.conv2d_nhwc_plain(*args, **kwargs)
-        err = float((got - ref).abs().max())
-        require(err <= CONV_TOL * (1 + float(ref.abs().max())),
-                f"conv on the main path: max|d| {err}")
+        require(torch.equal(got, ref), "conv on the main path: kernel != plain")
         flops = 2 * xi.shape[0] * xi.shape[1] * xi.shape[2] * int(
             torch.count_nonzero(wi))  # masked taps are not work
         nbytes = 4 * (xi.numel() + wi.numel() + got.numel()
@@ -336,46 +459,93 @@ def smoke():
 
         def library():
             return torch.nn.functional.conv2d(x_nchw, w_oihw, bi, padding=pad)
-        return nbytes, flops, err, library
+        return nbytes, flops, 0.0, library
+
+    def serial_floor(args):
+        """The on-demand decoder's latency floor for one recorded call: the
+        same T steps over the same parameters in a pass of 16 * 256 lanes
+        with one active lane on each of the 16 CTAs of its cluster, so a
+        step is one search, the scan and one cluster barrier, with nothing
+        to wait behind (ms, CUDA events)."""
+        _, _, sc, mu, wt, act, lo_, nb, md = args
+        t, w = act.shape
+        n = sc.shape[0]
+        wide, one = 16 * 256, 256  # lanes of the pass, lanes a CTA
+        idx = (torch.arange(t, device=dev)[:, None] * w
+               + torch.arange(16, device=dev)[None, :]).reshape(-1).clamp(max=n - 1)
+        sym = il.from_lanes(originals["rans_decode_gmm"](*args), n)[idx]
+        sub = [p[idx] for p in (sc, mu, wt)]
+        st, fq = gmm_guarded_bounds(sym, *sub, lo_, nb, md)
+        act_f = torch.zeros((t, wide), dtype=torch.bool, device=dev)
+        act_f[:, ::one] = True
+        lanes = torch.nonzero(act_f.reshape(-1))[:, 0]  # step-major, as idx
+        full = [torch.ones((t * wide, p.shape[1]), device=dev) for p in sub]
+        st_f = torch.zeros(t * wide, dtype=torch.int32, device=dev)
+        fq_f = torch.zeros(t * wide, dtype=torch.int32, device=dev)
+        for dst, src in zip(full + [st_f, fq_f], sub + [st, fq]):
+            dst[lanes] = src
+        states_f, wd, em = rans_kernels.encode_scan(
+            st_f.reshape(t, wide), fq_f.reshape(t, wide), act_f)
+        stream_f, _ = il.pack_words(wd, em)
+
+        def run():
+            return originals["rans_decode_gmm"](states_f, stream_f, *full,
+                                                act_f, lo_, nb, md)
+        require(torch.equal(run().reshape(-1)[lanes].long(), sym.long()),
+                "serial floor: the one-lane-per-CTA decode is wrong")
+        return cuda_ms(run, 20)  # as many calls as the kernel is timed over
 
     plains = {"rans_encode": il.encode_scan, "rans_decode": il.decode_scan,
-              "conv2d_nhwc": conv_kernel.conv2d_nhwc_plain,
-              "gmm_rows": gmm_guarded_rows_plain}
+              "rans_decode_gmm": rans_kernels.decode_scan_gmm_plain,
+              "gmm_bounds": gmm_guarded_bounds_plain,
+              "gmm_rows": gmm_guarded_rows_plain,
+              "conv2d_nhwc": conv_kernel.conv2d_nhwc_plain}
     sources = {
         "rans_encode": ("flashgmm_tpu_torch/csrc/rans_kernels.cu",
                         "flashgmm_tpu/ans/pallas_coder.py:207"),
         "rans_decode": ("flashgmm_tpu_torch/csrc/rans_kernels.cu",
                         "flashgmm_tpu/ans/pallas_coder.py:75"),
-        "conv2d_nhwc": ("flashgmm_tpu_torch/csrc/conv_kernel.cu",
-                        "flashgmm_tpu/ops/pallas_conv.py:108"),
-        # not a Pallas kernel: the plain-XLA fusion of gmm_guarded_rows
+        "rans_decode_gmm": ("flashgmm_tpu_torch/csrc/rans_kernels.cu",
+                            "flashgmm_tpu/ans/pallas_coder.py:75"),
+        # not Pallas kernels: the plain-XLA fusions of gmm_guarded_bounds
+        # and gmm_guarded_rows
+        "gmm_bounds": ("flashgmm_tpu_torch/csrc/gmm_rows.cu",
+                       "flashgmm_tpu/ans/gaussian_cdf.py:150"),
         "gmm_rows": ("flashgmm_tpu_torch/csrc/gmm_rows.cu",
                      "flashgmm_tpu/ans/gaussian_cdf.py:114"),
+        "conv2d_nhwc": ("flashgmm_tpu_torch/csrc/conv_kernel.cu",
+                        "flashgmm_tpu/ops/pallas_conv.py:108"),
     }
+    # the rows kernel is off the path: time it on the path's parameters
+    calls["gmm_rows"] = [(a[1:], {}) for a, _ in calls["gmm_bounds"]]
     results = []
     for name, kern in originals.items():
         ms = plain_ms = 0.0
         lib_ms = None
         err = 0.0
         by = {"bytes": 0.0, "operations": 0.0}
+        floor_ms = 0.0
         for i, (args, kwargs) in enumerate(calls[name]):
             nbytes, flops, e, library = stats(name, i, args, kwargs)
             err = max(err, e)
             ms += cuda_ms(lambda: kern(*args, **kwargs), 20)
-            plain_ms += cuda_ms(lambda: plains[name](*args, **kwargs), 3)
+            plain_ms += cuda_ms(lambda: plains[name](*args, **kwargs), 1)
             if library is not None:
                 lib_ms = (lib_ms or 0.0) + cuda_ms(library, 20)
+            if name == "rans_decode_gmm":
+                floor_ms += serial_floor(args)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / F32_FLOP_PER_S * 1e3
             by["bytes" if t_bytes >= t_ops else "operations"] += max(t_bytes, t_ops)
-        if name != "conv2d_nhwc":
-            require(err == 0, f"{name} differs from its plain version")
+        require(err == 0, f"{name} differs from its plain version")
         results.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": by["bytes"] + by["operations"],
             "bound_by": max(by, key=by.get), "library_ms": lib_ms})
+        if name == "rans_decode_gmm":
+            results[-1]["serial_floor_ms"] = floor_ms
     phase("timing", "(sums over every launch of one encode + decode)")
 
     print(json.dumps({"kernels": results, "card": kind,

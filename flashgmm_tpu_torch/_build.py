@@ -22,6 +22,7 @@ from typing import NamedTuple
 _PKG = Path(__file__).resolve().parent
 _SOURCES = ("csrc/rans_kernels.cu", "csrc/conv_kernel.cu",
             "csrc/gmm_rows.cu")
+_HEADERS = ("csrc/gmm_entry.cuh",)  # included by the sources: hashed too
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
@@ -32,16 +33,23 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # starts, freqs, active, T, W, states, words, emits, stream
     "fg_rans_encode": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
-    # states, stream words, n_stream, rows, active, lo, T, W, L, out, err,
-    # stream
-    "fg_rans_decode": (_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I,
+    # states, stream words, n_stream, rows, active, lo, T, W, L,
+    # max cluster, out, err, stream
+    "fg_rans_decode": (_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I,
                        _P, _P, _P),
+    # states, stream words, n_stream, scales, means, weights, n, K, active,
+    # lo, T, W, L, mode, max cluster, out, err, stream
+    "fg_rans_decode_gmm": (_P, _P, ctypes.c_longlong, _P, _P, _P,
+                           ctypes.c_longlong, _I, _P, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P),
     # x, w, bias, res, y, N, H, W, Cin, Cout, K, leaky, neg_slope, tile,
     # stream
     "fg_conv2d_nhwc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        ctypes.c_float, _I, _P),
     # scales, means, weights, N, K, lo, L, mode, rows, stream
     "fg_gmm_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    # values, scales, means, weights, N, K, lo, L, mode, start, freq, stream
+    "fg_gmm_bounds": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 
@@ -68,7 +76,7 @@ def load() -> Kernels:
     """Build (if needed) and load the kernel library; cached per process."""
     sources = [_PKG / s for s in _SOURCES]
     digest = hashlib.sha256(" ".join(_FLAGS + _LINK_FLAGS).encode())
-    for src in sources:
+    for src in sources + [_PKG / h for h in _HEADERS]:
         digest.update(src.read_bytes())
     path = BUILD_DIR / f"libflashgmm_kernels_{digest.hexdigest()[:16]}.so"
     seconds, ptxas = 0.0, ()

@@ -1,12 +1,15 @@
 """GMM probability math for the interleaved coder: the plain version of the
 rows kernel, bit for bit XLA's CPU arithmetic.
 
-Port of flashgmm_tpu/ans/gaussian_cdf.py. :func:`gmm_guarded_rows` is what
-the fast codec's encoder and decoder both call: on CPU tensors it runs the
-plain torch version below, on CUDA tensors the fused kernel of
-``rows_kernel.py`` (``csrc/gmm_rows.cu``), which performs the same float32
-operations with the same roundings. Both equal the JAX package's
-``gmm_guarded_rows`` on the CPU bit for bit, in all three modes.
+Port of flashgmm_tpu/ans/gaussian_cdf.py. :func:`gmm_guarded_rows` gives
+the full rows, :func:`gmm_guarded_bounds` only the two entries that bound
+each symbol's bin (what the fast codec's encoder takes; its decoder
+evaluates the entries its search probes, ``rans_kernels.decode_scan_gmm``).
+On CPU tensors they run the plain torch versions below, on CUDA tensors
+the kernels of ``rows_kernel.py`` (``csrc/gmm_rows.cu``, every entry from
+``csrc/gmm_entry.cuh``), which perform the same float32 operations with
+the same roundings. All equal the JAX package's on the CPU bit for bit, in
+all three modes.
 
 The plain version follows XLA's CPU code for that function (its optimized
 HLO and LLVM IR, jaxlib 0.9) op by op:
@@ -129,6 +132,12 @@ def _mixture_cdf(x, scales, means, weights, mode: int):
     return acc
 
 
+def _quantize(cdf, L: int):
+    """floor(clip(cdf, 0, 1) * (65536 - L)) as int32, NaN -> 0 (XLA's)."""
+    raw = torch.floor(torch.clamp(cdf, 0.0, 1.0) * float(65536 - L))
+    return torch.where(torch.isnan(raw), 0.0, raw).to(torch.int32)
+
+
 def gmm_guarded_rows_plain(scales, means, weights, lo: int, num_bins: int,
                            mode: int = 0):
     """The plain version of the rows kernel, on any device (see
@@ -141,12 +150,28 @@ def gmm_guarded_rows_plain(scales, means, weights, lo: int, num_bins: int,
     # boundaries [1, L, 1] against parameters [N, 1, K] -> [N, L]
     cdf = _mixture_cdf(x[None, :, None], scales[:, None, :],
                        means[:, None, :], weights[:, None, :], mode)[..., 0]
-    raw = torch.floor(torch.clamp(cdf, 0.0, 1.0) * float(65536 - L))
-    raw = torch.where(torch.isnan(raw), 0.0, raw)  # XLA's NaN -> 0
-    rows = raw.to(torch.int32) + torch.arange(L, dtype=torch.int32,
-                                              device=dev)[None, :]
+    rows = _quantize(cdf, L) + torch.arange(L, dtype=torch.int32,
+                                            device=dev)[None, :]
     rows[:, -1] = 65536
     return rows
+
+
+def gmm_guarded_bounds_plain(values, scales, means, weights, lo: int,
+                             num_bins: int, mode: int = 0):
+    """The plain version of the bounds kernel, on any device (see
+    :func:`gmm_guarded_bounds`): the rows' entry math at each symbol's two
+    boundaries only, x = (lo - 0.5) + j in float32 as the rows compute it."""
+    L = num_bins + 1
+    scales, means, weights = (_ftz(t.float()) for t in (scales, means, weights))
+    j = (values.long() - lo).to(torch.int32)
+
+    def entry(jj):
+        x = (float(lo) - 0.5) + jj.float()  # [N]
+        cdf = _mixture_cdf(x[:, None], scales, means, weights, mode)[:, 0]
+        return torch.where(jj == L - 1, 65536, _quantize(cdf, L) + jj)
+
+    start = entry(j)
+    return start, entry(j + 1) - start
 
 
 def gmm_guarded_rows(scales, means, weights, lo: int, num_bins: int,
@@ -165,3 +190,21 @@ def gmm_guarded_rows(scales, means, weights, lo: int, num_bins: int,
         return gmm_guarded_rows_plain(scales, means, weights, lo, num_bins,
                                       mode)
     return rows_kernel.gmm_rows(scales, means, weights, lo, num_bins, mode)
+
+
+def gmm_guarded_bounds(values, scales, means, weights, lo: int,
+                       num_bins: int, mode: int = 0):
+    """(start, freq) int32 [N] of each symbol's bin in its guarded row:
+    ``rows[i, v - lo]`` and ``rows[i, v - lo + 1] - rows[i, v - lo]`` of
+    :func:`gmm_guarded_rows`, computed without the rest of the row.
+
+    Args: values int [N] in [lo, lo + num_bins); scales/means/weights
+    float32 [N, K]. CPU tensors take the plain version; CUDA tensors launch
+    the bounds kernel (``rows_kernel.gmm_bounds``), which raises on what it
+    cannot take.
+    """
+    if scales.device.type == "cpu":
+        return gmm_guarded_bounds_plain(values, scales, means, weights, lo,
+                                        num_bins, mode)
+    return rows_kernel.gmm_bounds(values, scales, means, weights, lo,
+                                  num_bins, mode)

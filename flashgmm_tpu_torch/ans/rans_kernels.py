@@ -7,12 +7,21 @@ version in ``interleaved.py`` only for tensors on the CPU; for CUDA tensors
 it launches its kernel or raises. ``<wrapper>.launches`` counts the kernel
 launches.
 
+``decode_scan_gmm`` is the same decoder with the rows evaluated on demand
+from each symbol's [K] mixture parameters at the probes of its search
+(``gaussian_cdf.gmm_guarded_rows``'s entries, by the code the encoder's
+bounds and the full rows come from, ``csrc/gmm_entry.cuh``), so no rows
+tensor is built: the batched codec's y passes decode through it.
+
 What bounds them on the card: encode is one thread per lane, a serial walk
 over T with a few bytes read and written per step (memory bound, and
-latency bound at small T). Decode is one CTA per pass stream (one SM), a
-serial walk over T whose every step ends in a CTA-wide scan and a dependent
-stream read: latency bound, and using 1 of the 132 SMs is this version's
-known limit.
+latency bound at small T). Decode spreads the W lanes over one
+thread-block cluster of up to 16 CTAs (one SM each); its steps are serial,
+each a dependent row search, a cluster-wide scan with one cluster barrier
+and a dependent stream read: latency bound. The cluster has
+min(MAX_CLUSTER, ceil(W / 256)) CTAs (8 where more do not fit on the
+card); the tests and ``chip_profile.py --decode`` lower ``MAX_CLUSTER`` to
+reach the smaller sizes at a given W, whose symbols must be equal.
 """
 
 import ctypes
@@ -21,8 +30,10 @@ import torch
 
 from flashgmm_tpu_torch import _build
 from flashgmm_tpu_torch.ans import interleaved as il
+from flashgmm_tpu_torch.ans.gaussian_cdf import gmm_guarded_rows_plain
+from flashgmm_tpu_torch.ans.rows_kernel import MAX_K
 
-MAX_DECODE_LANES = 4096  # 4 lanes for each of 1024 threads in one CTA
+MAX_CLUSTER = 16  # the decoder's cluster size cap (Hopper's non-portable max)
 
 
 def _ptr(t) -> ctypes.c_void_p:
@@ -68,40 +79,119 @@ def encode_scan(starts, freqs, active):
 encode_scan.launches = 0
 
 
-def decode_scan(states, stream, rows, active, lo: int):
-    """T decode steps of W lanes, one CTA for the whole stream.
+def _check_decode_args(name, states, stream, active):
+    """(T, W) of a decode; refuses shapes the kernel does not take."""
+    if active.dim() != 2:
+        raise ValueError(f"{name}: active {tuple(active.shape)} (need [T, W])")
+    T, W = active.shape
+    if states.shape != (W,) or stream.dim() != 1:
+        raise ValueError(f"{name}: shapes {tuple(states.shape)}, "
+                         f"{tuple(stream.shape)}, {tuple(active.shape)}")
+    return T, W
 
-    Same contract as :func:`interleaved.decode_scan`: returns int32 [T, W]
-    symbols. Raises if the stream desynchronised and read past its end.
-    """
-    if rows.device.type == "cpu":
-        return il.decode_scan(states, stream, rows, active, lo)
-    _build.require_cuda("rans decode", states, stream, rows, active)
-    T, W, L = rows.shape
-    if states.shape != (W,) or active.shape != (T, W) or stream.dim() != 1:
-        raise ValueError(f"rans decode: shapes {tuple(states.shape)}, "
-                         f"{tuple(stream.shape)}, {tuple(rows.shape)}, "
-                         f"{tuple(active.shape)}")
-    if W > MAX_DECODE_LANES or L < 2:
-        raise ValueError(f"rans decode: W={W} (max {MAX_DECODE_LANES}), "
-                         f"L={L} (min 2)")
+
+def _launch_decode(name, entry, states, stream, source, active, tail):
+    """Launch a decoder entry, whose arguments are (states, stream,
+    n_stream, *source, active, *tail, MAX_CLUSTER, out, err, stream);
+    returns int32 [T, W] symbols. Raises on a refused launch and on a
+    desynchronised stream."""
+    T, W = active.shape
+    dev = active.device
     states32 = _u32_as_i32(states).contiguous()
     stream = stream.to(torch.int32).contiguous()
-    rows = rows.to(torch.int32).contiguous()
     active = active.to(torch.bool).contiguous()
-    out = torch.empty((T, W), dtype=torch.int32, device=rows.device)
-    err = torch.zeros(1, dtype=torch.int32, device=rows.device)
+    out = torch.empty((T, W), dtype=torch.int32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _build.load().lib
-    with torch.cuda.device(rows.device):
-        rc = lib.fg_rans_decode(_ptr(states32), _ptr(stream), stream.numel(),
-                                _ptr(rows), _ptr(active), int(lo), T, W, L,
-                                _ptr(out), _ptr(err), _build.stream_ptr(rows))
-    _build.check(rc, "rans decode")
-    decode_scan.launches += 1
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            _ptr(states32), _ptr(stream), stream.numel(), *source,
+            _ptr(active), *tail, MAX_CLUSTER, _ptr(out), _ptr(err),
+            _build.stream_ptr(active))
+    _build.check(rc, name)
     if int(err.item()):
-        raise RuntimeError("rans decode: stream read past its end "
+        raise RuntimeError(f"{name}: stream read past its end "
                            "(desynchronised or truncated stream)")
     return out
 
 
+def decode_scan(states, stream, rows, active, lo: int):
+    """T decode steps of W lanes over materialized rows int32 [T, W, L].
+
+    Same contract as :func:`interleaved.decode_scan` for rows that never
+    decrease along L, as every row of the codec does: returns int32 [T, W]
+    symbols. The kernel finds each count by bisection and the plain version
+    counts directly, so on a row that decreases the two may differ. Raises
+    if the stream desynchronised and read past its end.
+    """
+    if rows.device.type == "cpu":
+        return il.decode_scan(states, stream, rows, active, lo)
+    _build.require_cuda("rans decode", states, stream, rows, active)
+    T, W = _check_decode_args("rans decode", states, stream, active)
+    if rows.dim() != 3 or rows.shape[:2] != (T, W) or rows.shape[2] < 2:
+        raise ValueError(f"rans decode: rows {tuple(rows.shape)} for "
+                         f"[T, W] = {[T, W]} (need [T, W, L >= 2])")
+    rows = rows.to(torch.int32).contiguous()
+    out = _launch_decode("rans decode", "fg_rans_decode", states, stream,
+                         (_ptr(rows),), active, (int(lo), T, W, rows.shape[2]))
+    decode_scan.launches += 1
+    return out
+
+
 decode_scan.launches = 0
+
+
+def decode_scan_gmm_plain(states, stream, scales, means, weights, active,
+                          lo: int, num_bins: int, mode: int = 0):
+    """The plain version: the full rows of the n symbols (padding lanes past
+    n get zero rows; they are inactive), then the plain decoder."""
+    T, W = active.shape
+    rows = gmm_guarded_rows_plain(scales, means, weights, lo, num_bins, mode)
+    pad = T * W - rows.shape[0]
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad, rows.shape[1]))])
+    return il.decode_scan(states, stream, rows.reshape(T, W, -1), active, lo)
+
+
+def decode_scan_gmm(states, stream, scales, means, weights, active, lo: int,
+                    num_bins: int, mode: int = 0):
+    """T decode steps of W lanes whose rows are the guarded GMM rows of
+    symbols 0..n-1 (symbol i at step i // W, lane i % W), evaluated on
+    demand. scales/means/weights float32 [n, K] with n <= T * W; lanes at
+    or past n must be inactive. Returns int32 [T, W] symbols, equal to
+    ``il.decode_scan(states, stream, gmm_guarded_rows_plain(...), active,
+    lo)`` on the rows padded to [T, W, L]. The guarded rows never decrease
+    along L (CDF entries plus j, capped by 65536), as the kernel's bisection
+    needs; see :func:`decode_scan`."""
+    if scales.device.type == "cpu":
+        return decode_scan_gmm_plain(states, stream, scales, means, weights,
+                                     active, lo, num_bins, mode)
+    name = "rans decode gmm"
+    _build.require_cuda(name, states, stream, scales, means, weights, active)
+    T, W = _check_decode_args(name, states, stream, active)
+    if any(t.dtype != torch.float32 for t in (scales, means, weights)):
+        raise TypeError(f"{name}: scales, means and weights must be float32")
+    if scales.dim() != 2 or means.shape != scales.shape \
+            or weights.shape != scales.shape:
+        raise ValueError(f"{name}: parameters {tuple(scales.shape)}, "
+                         f"{tuple(means.shape)}, {tuple(weights.shape)} "
+                         "(need three equal [n, K])")
+    n, k = scales.shape
+    if not 1 <= n <= T * W or not 1 <= k <= MAX_K:
+        raise ValueError(f"{name}: n={n}, K={k} for T*W={T * W}")
+    if mode not in (0, 1, 2):
+        raise ValueError(f"{name}: APPROX_MODE {mode}")
+    L = num_bins + 1
+    if not 2 <= L < 65536 or abs(int(lo)) >= 1 << 22:
+        raise ValueError(f"{name}: lo={lo}, num_bins={num_bins}")
+    scales, means, weights = (t.contiguous() for t in (scales, means, weights))
+    out = _launch_decode(
+        name, "fg_rans_decode_gmm", states, stream,
+        (_ptr(scales), _ptr(means), _ptr(weights), n, k), active,
+        (int(lo), T, W, L, int(mode)))
+    decode_scan_gmm.launches += 1
+    return out
+
+
+decode_scan_gmm.launches = 0
+

@@ -19,8 +19,10 @@ Design: an implicit GEMM (M = output pixels, N = C_out, reduction over
 shape follows the problem's shape so the small rows-chain layers still
 fill the card. What bounds it: float32 FMA issue on the CUDA cores (no tensor
 cores). ``conv2d_nhwc.launches`` counts launches. The wrapper takes the
-plain version (``conv2d_nhwc_plain``, F.conv2d in float32 plus the
-epilogue) only for CPU tensors.
+plain version only for CPU tensors. ``conv2d_nhwc_plain`` is the kernel's
+arithmetic, so the two are equal bit for bit and the port's CPU codec and
+its card codec compute the same rows: the same fmaf chain per output (a
+true FMA, emulated exactly by ``xla_math._fma``), then the same epilogue.
 """
 
 import ctypes
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from flashgmm_tpu_torch import _build
+from flashgmm_tpu_torch.entropy_models.xla_math import _fma
 
 
 def leaky_relu(x, negative_slope: float = 0.01):
@@ -36,16 +39,30 @@ def leaky_relu(x, negative_slope: float = 0.01):
 
 
 def conv2d_nhwc_plain(x, w, b=None, *, negative_slope=None, residual=None):
-    """The plain version: F.conv2d in float32, then the epilogue."""
-    k = w.shape[0]
-    y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
-                 None if b is None else b.float(), padding=k // 2)
-    y = y.permute(0, 2, 3, 1)
+    """The plain version, the kernel's arithmetic (csrc/conv_kernel.cu):
+    each output is one float32 FMA chain over k = (dy, dx, c_in) in that
+    order from +0, taps outside the image included as zeros (fma(0, w,
+    acc) == acc), then the epilogue rounded as the kernel rounds it: + bias,
+    LeakyReLU (slope * v for v < 0), + residual. Vectorized over pixels and
+    C_out, sequential over k."""
+    n, h, wd, _ = x.shape
+    k, c_in, c_out = w.shape[0], w.shape[2], w.shape[3]
+    p = k // 2
+    xp = F.pad(x.float(), (0, 0, p, p, p, p))  # the zero-filled taps
+    w = w.float()
+    acc = torch.zeros((n, h, wd, c_out), dtype=torch.float32, device=x.device)
+    for dy in range(k):
+        for dx in range(k):
+            win = xp[:, dy:dy + h, dx:dx + wd, :]
+            for ci in range(c_in):
+                acc = _fma(win[..., ci:ci + 1], w[dy, dx, ci], acc)
+    if b is not None:
+        acc = acc + b.float()
     if negative_slope is not None:
-        y = leaky_relu(y, negative_slope)
+        acc = leaky_relu(acc, negative_slope)
     if residual is not None:
-        y = y + residual.float()
-    return y.contiguous()
+        acc = acc + residual.float()
+    return acc.contiguous()
 
 
 TILES = 3  # the kernel's tile shapes: 128x64, 64x64, 32x32 outputs a block

@@ -2,19 +2,25 @@
 flashgmm_tpu/runtime/fast_codec.py:133-677, ``FastCheckerboardGmmCodec``).
 
 Encode: g_a -> h_a -> z quantized against the EntropyBottleneck tables ->
-z pass; then the shared stages side (h_s) -> rows0 -> anchor pass ->
-rows1 (5x5 checkerboard context) -> non-anchor pass. Decode runs the same
-order and ends in g_s. Only the stream words cross to the host. The byte
-format is the interleaved one of docs/bitstream.md §2, with the JAX
+z pass; then the shared stages side (h_s) -> params0 -> anchor pass ->
+params1 (5x5 checkerboard context) -> non-anchor pass. Decode runs the same
+order and ends in g_s. The y passes never build CDF rows: the encoder takes
+each symbol's (start, freq) from ``gmm_guarded_bounds`` and the decoder
+evaluates the rows' entries at the probes of its search
+(``rans_kernels.decode_scan_gmm``), both from the same entry arithmetic.
+Only the stream words cross to the host. The byte format is the interleaved one of docs/bitstream.md §2, with the JAX
 package's lanes, stream caps, StreamOverflow fallback and NHWC-ravel symbol
 order, so the bytes of either package decode in the other when their rows
 agree.
 
 Correctness by construction: the encoder and the decoder call the SAME
-functions (``_side``, ``_rows0``, ``_rows1``) on tensors of the same
+functions (``_side``, ``_params0``, ``_params1``) on tensors of the same
 shapes. Their convs go through the hand conv kernel in float32, whose bits
-depend on nothing but the input neighbourhood and the weights, and the CDF
-rows are elementwise torch ops. So both directions compute identical rows.
+depend on nothing but the input neighbourhood and the weights (its CPU
+twin is the same fmaf chain), and every row entry, the encoder's bounds
+and the decoder's probes alike, is one elementwise function of its
+symbol's parameters with fixed roundings (``csrc/gmm_entry.cuh`` and its
+plain twin). So both directions compute identical integers.
 g_a, h_a and g_s never need bit-equality (their outputs are rounded or are
 pixels) and run as library convs, in bfloat16 by default.
 """
@@ -27,7 +33,8 @@ import torch
 
 from flashgmm_tpu_torch.ans import interleaved as il
 from flashgmm_tpu_torch.ans import rans_kernels
-from flashgmm_tpu_torch.ans.gaussian_cdf import get_approx_mode, gmm_guarded_rows
+from flashgmm_tpu_torch.ans.gaussian_cdf import (get_approx_mode,
+                                                 gmm_guarded_bounds)
 from flashgmm_tpu_torch.layers import run_canonical
 
 
@@ -57,8 +64,9 @@ def _encode_pass(start, freq, w: int, cap_divisor: int = 4) -> PassStream:
 
 
 def _decode_pass(ps: PassStream, rows, n: int, lo: int, w: int):
-    """Decode n symbols through the rANS decode kernel. Padding lanes get
-    valid monotone dummy rows so every lane's math stays in range."""
+    """Decode n symbols with materialized rows [n, L] (the z pass) through
+    the rANS decode kernel. Padding lanes get valid monotone dummy rows so
+    every lane's math stays in range."""
     t, pad = il.layout(n, w)
     active = il.active_mask(n, t, w, rows.device)
     L = rows.shape[-1]
@@ -74,9 +82,13 @@ def _decode_pass(ps: PassStream, rows, n: int, lo: int, w: int):
 
 class FastCheckerboardGmmCodec:
     """Batched encode/decode around a Cheng2020AnchorCheckerboardGMMv2 (run
-    ``model.update()`` first). Works on the model's device."""
+    ``model.update()`` first). Works on the model's device.
 
-    def __init__(self, model, lanes: int = 4096, max_abs: int = 47,
+    ``lanes`` (W) is not written into the bytes: a decoder must use the
+    encoder's. The default is the JAX package's (128); the batched
+    benchmark configuration uses 4096."""
+
+    def __init__(self, model, lanes: int = 128, max_abs: int = 47,
                  cap_divisor: int = 4, bf16_transforms: bool = True):
         self.lanes = int(lanes)
         self.max_abs = int(max_abs)  # symbols clamped to [-max_abs, max_abs]
@@ -137,29 +149,36 @@ class FastCheckerboardGmmCodec:
         z_hat = (z_bin + self._z_off).float() + self._med
         return self._ckbd.unembed(run_canonical(self._hyper.h_s, z_hat))
 
-    def _rows0(self, side0):
-        """SHARED enc/dec: anchor-pass GMM rows (context is zero)."""
-        lo, num_bins = self._lo_bins()
-        params = self._gmm_pass_params(torch.zeros_like(side0), side0)
-        return gmm_guarded_rows(*params, lo, num_bins, self.mode)
+    def _params0(self, side0):
+        """SHARED enc/dec: anchor-pass GMM parameters (context is zero)."""
+        return self._gmm_pass_params(torch.zeros_like(side0), side0)
 
-    def _rows1(self, side1, sym0):
-        """SHARED enc/dec: non-anchor-pass GMM rows conditioned on the
+    def _params1(self, side1, sym0):
+        """SHARED enc/dec: non-anchor-pass GMM parameters conditioned on the
         decoded anchors (integer symbols -> deterministic input)."""
-        lo, num_bins = self._lo_bins()
         y_hat_ = torch.stack([sym0.float(), torch.zeros_like(sym0, dtype=torch.float32)])
         ctx = self._ckbd.unembed(run_canonical(
             self._ckbd.context_prediction, self._ckbd.embed(y_hat_)))[1]
-        params = self._gmm_pass_params(ctx, side1)
-        return gmm_guarded_rows(*params, lo, num_bins, self.mode)
+        return self._gmm_pass_params(ctx, side1)
 
-    def _encpass(self, rows, sym_flat, cap_divisor):
-        """Select (start, freq) of each symbol's bin and encode."""
-        lo, _ = self._lo_bins()
-        jbin = (sym_flat - lo).long()[:, None]
-        start = rows.gather(1, jbin)[:, 0]
-        freq = rows.gather(1, jbin + 1)[:, 0] - start
+    def _encpass(self, params, sym_flat, cap_divisor):
+        """(start, freq) of each symbol's bin under its pass's parameters,
+        then encode."""
+        lo, num_bins = self._lo_bins()
+        start, freq = gmm_guarded_bounds(sym_flat, *params, lo, num_bins,
+                                         self.mode)
         return _encode_pass(start, freq, self.lanes, cap_divisor)
+
+    def _decpass(self, ps, params, n):
+        """Decode one y pass of n symbols whose rows are the guarded GMM
+        rows of its parameters, evaluated on demand by the decoder. Padding
+        lanes are inactive and need no parameters."""
+        lo, num_bins = self._lo_bins()
+        t, _ = il.layout(n, self.lanes)
+        active = il.active_mask(n, t, self.lanes, params[0].device)
+        symbols = rans_kernels.decode_scan_gmm(ps.states, ps.stream, *params,
+                                               active, lo, num_bins, self.mode)
+        return il.from_lanes(symbols, n)
 
     def _z_channels(self):
         return self._eb.channels
@@ -190,10 +209,9 @@ class FastCheckerboardGmmCodec:
         y_hat = self._ckbd.embed(sym.float())
 
         side = self._side(z_bin)
-        rows0 = self._rows0(side[0])
-        ps0 = self._encpass(rows0, sym[0].reshape(-1), cd)
-        rows1 = self._rows1(side[1], sym[0])
-        ps1 = self._encpass(rows1, sym[1].reshape(-1), cd)
+        ps0 = self._encpass(self._params0(side[0]), sym[0].reshape(-1), cd)
+        ps1 = self._encpass(self._params1(side[1], sym[0]),
+                            sym[1].reshape(-1), cd)
         return {"z": ps_z, "y0": ps0, "y1": ps1, "y_hat": y_hat}
 
     @staticmethod
@@ -212,14 +230,11 @@ class FastCheckerboardGmmCodec:
         z_bin = _decode_pass(streams["z"], rows_z.reshape(n_z, -1), n_z, 0,
                              self.lanes).reshape(b, zh, zw, cz)
         side = self._side(z_bin)
-        lo, _ = self._lo_bins()
         n = b * h * (w // 2) * c
-        rows0 = self._rows0(side[0])
-        sym0 = _decode_pass(streams["y0"], rows0, n, lo,
-                            self.lanes).reshape(b, h, w // 2, c)
-        rows1 = self._rows1(side[1], sym0)
-        sym1 = _decode_pass(streams["y1"], rows1, n, lo,
-                            self.lanes).reshape(b, h, w // 2, c)
+        sym0 = self._decpass(streams["y0"], self._params0(side[0]),
+                             n).reshape(b, h, w // 2, c)
+        sym1 = self._decpass(streams["y1"], self._params1(side[1], sym0),
+                             n).reshape(b, h, w // 2, c)
         return self._ckbd.embed(torch.stack([sym0, sym1]).float())
 
     @torch.inference_mode()

@@ -6,10 +6,13 @@ conftest, which imports JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py -q
 
-rANS encode and decode and the GMM rows kernel must be bit-exact (the rows
-kernel against the plain version, which is XLA's CPU arithmetic written
-out); the conv within 1e-4 * (1 + max|plain|) (float32 sums in another
-order than cuDNN's, TF32 off), and bitwise batch-invariant.
+Every kernel must equal its plain version bit for bit: rANS encode, both
+row sources of the cluster decoder (materialized rows, and the GMM rows
+evaluated on demand) at cluster sizes up to 16 (``MAX_CLUSTER`` lowered
+to reach the smaller ones), the GMM rows and bounds
+kernels (against the plain version, which is XLA's CPU arithmetic written
+out), and the conv (against its plain version, the same fmaf chain with
+an exact FMA), which is also bitwise batch-invariant.
 """
 
 import numpy as np
@@ -18,13 +21,13 @@ import torch
 
 from flashgmm_tpu_torch.ans import interleaved as il
 from flashgmm_tpu_torch.ans import rans_kernels, rows_kernel
-from flashgmm_tpu_torch.ans.gaussian_cdf import (gmm_guarded_rows,
+from flashgmm_tpu_torch.ans.gaussian_cdf import (gmm_guarded_bounds,
+                                                 gmm_guarded_bounds_plain,
+                                                 gmm_guarded_rows,
                                                  gmm_guarded_rows_plain)
 from flashgmm_tpu_torch.ops import conv_kernel
 
 pytestmark = pytest.mark.gpu
-
-CONV_TOL = 1e-4
 
 
 @pytest.fixture
@@ -44,7 +47,8 @@ def _coder_case(n, w, num_bins, dev, seed=0):
     wt = rs.uniform(0.1, 1, (n, k)).astype(np.float32)
     wt = torch.from_numpy(wt / wt.sum(1, keepdims=True)).to(dev)
     lo = -(num_bins // 2)
-    rows = gmm_guarded_rows(s, m, wt, lo, num_bins)
+    params = (s, m, wt)
+    rows = gmm_guarded_rows(*params, lo, num_bins)
     values = torch.from_numpy(np.clip(np.round(rs.normal(0, 4, n)), lo,
                                       lo + num_bins - 1).astype(np.int64)).to(dev)
     start = rows.gather(1, (values - lo)[:, None])[:, 0]
@@ -53,13 +57,16 @@ def _coder_case(n, w, num_bins, dev, seed=0):
     active = il.active_mask(n, t, w, dev)
     rows = torch.cat([rows, rows[-1:].expand(pad, -1)]) if pad else rows
     return (il.to_lanes(start, w), il.to_lanes(freq, w), active,
-            rows.reshape(t, w, -1), values, lo)
+            rows.reshape(t, w, -1), values, lo, params)
 
 
-@pytest.mark.parametrize("w,n,num_bins", [(40, 1000, 19), (128, 5000, 97),
-                                          (1000, 9000, 33), (4096, 30000, 97)])
-def test_rans_kernels_match_plain(cuda, w, n, num_bins):
-    starts, freqs, active, rows, values, lo = _coder_case(n, w, num_bins, cuda)
+# the W/T grid; T = n / W steps, T = 1 in the last rows
+@pytest.mark.parametrize("w,n,num_bins", [
+    (40, 1000, 19), (128, 5000, 97), (1000, 9000, 33), (4096, 30000, 97),
+    (8192, 40000, 97), (1000, 1000, 97), (4096, 4000, 97), (8192, 8192, 97)])
+def test_rans_kernels_match_plain(cuda, monkeypatch, w, n, num_bins):
+    starts, freqs, active, rows, values, lo, params = _coder_case(
+        n, w, num_bins, cuda)
     before = rans_kernels.encode_scan.launches
     st_k, wd_k, em_k = rans_kernels.encode_scan(starts, freqs, active)
     st_p, wd_p, em_p = il.encode_scan(starts, freqs, active)
@@ -69,20 +76,74 @@ def test_rans_kernels_match_plain(cuda, w, n, num_bins):
     s_p, n_p = il.pack_words(wd_p, em_p)
     assert int(n_k) == int(n_p) and torch.equal(s_k, s_p)
 
-    sym_k = rans_kernels.decode_scan(st_k, s_k[: int(n_k)], rows, active, lo)
     sym_p = il.decode_scan(st_k, s_k, rows, active, lo)
-    assert torch.equal(sym_k, sym_p)
-    assert torch.equal(il.from_lanes(sym_k, n).long(), values)
+    assert torch.equal(il.from_lanes(sym_p, n).long(), values)
+    before = (rans_kernels.decode_scan.launches,
+              rans_kernels.decode_scan_gmm.launches)
+    # every cluster size gives the same symbols: the cap lowers the
+    # cluster min(cap, ceil(W / 256)) that W alone would pick
+    for cap in (16, 8, 2, 1):
+        monkeypatch.setattr(rans_kernels, "MAX_CLUSTER", cap)
+        sym_k = rans_kernels.decode_scan(st_k, s_k[: int(n_k)], rows, active,
+                                         lo)
+        assert torch.equal(sym_k, sym_p), ("rows", cap)
+        sym_g = rans_kernels.decode_scan_gmm(st_k, s_k[: int(n_k)], *params,
+                                             active, lo, num_bins)
+        assert torch.equal(sym_g, sym_p), ("gmm", cap)
+    assert rans_kernels.decode_scan.launches == before[0] + 4
+    assert rans_kernels.decode_scan_gmm.launches == before[1] + 4
+    ref = rans_kernels.decode_scan_gmm_plain(st_k, s_k, *params, active, lo,
+                                             num_bins)
+    assert torch.equal(ref, sym_p)
 
 
-def test_rans_decode_desync_fails_instead_of_faulting(cuda):
-    starts, freqs, active, rows, _, lo = _coder_case(20000, 4096, 97, cuda)
+@pytest.mark.parametrize("source", ["rows", "gmm"])
+def test_rans_decode_desync_fails_instead_of_faulting(cuda, source):
+    starts, freqs, active, rows, _, lo, params = _coder_case(
+        20000, 4096, 97, cuda)
     states, words, emits = rans_kernels.encode_scan(starts, freqs, active)
     stream, n_words = il.pack_words(words, emits)
+    cut = stream[: int(n_words) // 2]
     with pytest.raises(RuntimeError, match="past its end"):
-        rans_kernels.decode_scan(states, stream[: int(n_words) // 2], rows,
-                                 active, lo)
+        if source == "rows":
+            rans_kernels.decode_scan(states, cut, rows, active, lo)
+        else:
+            rans_kernels.decode_scan_gmm(states, cut, *params, active, lo, 97)
     torch.cuda.synchronize()  # the card is still healthy
+
+
+def test_rans_decode_searches_rows_that_never_decrease(cuda):
+    """The kernel finds each count by bisection, the plain version counts
+    directly: they agree on rows that never decrease (every row of the
+    codec), and on a row that decreases the kernel returns the bisection's
+    symbol. This records that behaviour for one step of 64 lanes."""
+    row = torch.tensor([0, 100, 50000, 200, 300, 400, 500, 65536],
+                       dtype=torch.int32)
+    L = row.numel()
+    cf = torch.arange(64) * 1031 % 65536  # one x & 0xFFFF a lane
+    states = (1 << 16) + cf  # x >> 16 == 1
+    stream = torch.arange(64, dtype=torch.int32) + 1
+    active = torch.ones(1, 64, dtype=torch.bool)
+
+    def bisect(c):
+        a, b = 0, L
+        while a < b:
+            mid = (a + b) >> 1
+            a, b = (mid + 1, b) if int(row[mid]) <= c else (a, mid)
+        return min(max(a - 1, 0), L - 2)
+
+    rows = row.expand(1, 64, L).contiguous()
+    got = rans_kernels.decode_scan(states.to(cuda), stream.to(cuda),
+                                   rows.to(cuda), active.to(cuda), -3)
+    plain = il.decode_scan(states, stream, rows, active, -3)
+    assert got.cpu()[0].tolist() == [bisect(int(c)) - 3 for c in cf]
+    assert int((got.cpu() != plain).sum()) > 0
+    # a row that never decreases: the two agree
+    mono = torch.sort(row).values.expand(1, 64, L).contiguous()
+    assert torch.equal(
+        rans_kernels.decode_scan(states.to(cuda), stream.to(cuda),
+                                 mono.to(cuda), active.to(cuda), -3).cpu(),
+        il.decode_scan(states, stream, mono, active, -3))
 
 
 @pytest.mark.parametrize("k,width,c_in,c_out,leaky,res",
@@ -101,8 +162,7 @@ def test_conv_kernel_matches_plain(cuda, k, width, c_in, c_out, leaky, res):
     got = conv_kernel.conv2d_nhwc(x, w, b, negative_slope=slope, residual=r)
     assert conv_kernel.conv2d_nhwc.launches == before + 1
     ref = conv_kernel.conv2d_nhwc_plain(x, w, b, negative_slope=slope, residual=r)
-    err = float((got - ref).abs().max())
-    assert err <= CONV_TOL * (1 + float(ref.abs().max())), err
+    assert torch.equal(got, ref)  # the same fmaf chain and epilogue
     # bitwise: one image alone equals the same image inside the batch
     one = conv_kernel.conv2d_nhwc(x[1:], w, b, negative_slope=slope,
                                   residual=None if r is None else r[1:])
@@ -165,9 +225,7 @@ def test_conv_kernel_rows_chain_shapes(cuda, n, h, width, c_in, c_out, k):
     w = torch.randn(k, k, c_in, c_out, device=cuda, generator=g) * 0.05
     b = torch.randn(c_out, device=cuda, generator=g)
     got = conv_kernel.conv2d_nhwc(x, w, b)
-    ref = conv_kernel.conv2d_nhwc_plain(x, w, b)
-    err = float((got - ref).abs().max())
-    assert err <= CONV_TOL * (1 + float(ref.abs().max())), err
+    assert torch.equal(got, conv_kernel.conv2d_nhwc_plain(x, w, b))
     for i in range(n):  # each image alone equals itself in the batch
         assert torch.equal(conv_kernel.conv2d_nhwc(x[i:i + 1], w, b),
                            got[i:i + 1])
@@ -176,6 +234,27 @@ def test_conv_kernel_rows_chain_shapes(cuda, n, h, width, c_in, c_out, k):
     assert torch.equal(conv_kernel.conv2d_nhwc(x, w, b), got)
     for tile in range(conv_kernel.TILES):  # every tile shape, same bits
         assert torch.equal(conv_kernel.conv2d_nhwc(x, w, b, tile=tile), got)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_bounds_kernel_equals_rows_gather_and_plain(cuda, mode, k):
+    for edge in (False, True):
+        params = [t.to(cuda) for t in _rows_params(30000, k, mode + 7, edge)]
+        rs = np.random.RandomState(mode)
+        v = rs.randint(-48, 49, 30000)
+        v[:100], v[100:200] = -48, 48  # both ends of the range
+        values = torch.from_numpy(v).to(cuda)
+        before = (rows_kernel.gmm_bounds.launches, rows_kernel.gmm_rows.launches)
+        start, freq = gmm_guarded_bounds(values, *params, -48, 97, mode)
+        rows = gmm_guarded_rows(*params, -48, 97, mode)
+        assert rows_kernel.gmm_bounds.launches == before[0] + 1
+        assert rows_kernel.gmm_rows.launches == before[1] + 1
+        j = (values - -48)[:, None]
+        assert torch.equal(start, rows.gather(1, j)[:, 0])
+        assert torch.equal(freq, rows.gather(1, j + 1)[:, 0] - start)
+        ps, pf = gmm_guarded_bounds_plain(values, *params, -48, 97, mode)
+        assert torch.equal(start, ps) and torch.equal(freq, pf)
 
 
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
@@ -188,11 +267,29 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         conv_kernel.conv2d_nhwc(x.float(), torch.zeros(3, 3, 8, 8, device=cuda),
                                 tile=conv_kernel.TILES)
-    with pytest.raises(ValueError):
-        rans_kernels.decode_scan(torch.zeros(8192, dtype=torch.int64, device=cuda),
-                                 torch.zeros(10, dtype=torch.int32, device=cuda),
-                                 torch.zeros(1, 8192, 4, dtype=torch.int32, device=cuda),
-                                 torch.zeros(1, 8192, dtype=torch.bool, device=cuda), 0)
+    states = torch.zeros(64, dtype=torch.int64, device=cuda)
+    stream = torch.zeros(10, dtype=torch.int32, device=cuda)
+    active = torch.zeros(2, 64, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):  # rows not [T, W, L]
+        rans_kernels.decode_scan(states, stream, torch.zeros(
+            2, 32, 4, dtype=torch.int32, device=cuda), active, 0)
+    p = torch.ones(100, 4, device=cuda)
+    with pytest.raises(ValueError):  # more symbols than T * W lanes
+        rans_kernels.decode_scan_gmm(states, stream, p, p, p[:, :3], active,
+                                     -48, 97)
+    with pytest.raises(ValueError):  # K above the kernel's 8
+        q = torch.ones(100, 9, device=cuda)
+        rans_kernels.decode_scan_gmm(states, stream, q, q, q, active, -48, 97)
+    with pytest.raises(TypeError):
+        rans_kernels.decode_scan_gmm(states, stream, p[:64].double(),
+                                     p[:64].double(), p[:64].double(), active,
+                                     -48, 97)
+    with pytest.raises(ValueError):  # values not [N]
+        rows_kernel.gmm_bounds(torch.zeros(8, 2, dtype=torch.int32, device=cuda),
+                               p[:8], p[:8], p[:8], -48, 97)
+    with pytest.raises(ValueError):  # not CUDA
+        rows_kernel.gmm_bounds(torch.zeros(8, dtype=torch.int32),
+                               p[:8], p[:8], p[:8], -48, 97)
 
 
 def test_codec_roundtrip_on_card(cuda):
@@ -204,13 +301,15 @@ def test_codec_roundtrip_on_card(cuda):
     codec = FastCheckerboardGmmCodec(model, lanes=256, cap_divisor=1)
     x = torch.rand(2, 128, 128, 3, device=cuda,
                    generator=torch.Generator(device=cuda).manual_seed(1))
-    counts = (rans_kernels.encode_scan.launches, rans_kernels.decode_scan.launches,
-              conv_kernel.conv2d_nhwc.launches, rows_kernel.gmm_rows.launches)
+    wrappers = (rans_kernels.encode_scan, rans_kernels.decode_scan,
+                rans_kernels.decode_scan_gmm, conv_kernel.conv2d_nhwc,
+                rows_kernel.gmm_bounds, rows_kernel.gmm_rows)
+    counts = [f.launches for f in wrappers]
     data, out = codec.encode_to_bytes(x)
     y_shape = tuple(out["y_hat"].shape)
     y_dec = codec.decode_y_hat(codec.from_bytes(data, y_shape), y_shape)
     assert torch.equal(y_dec, out["y_hat"])
-    assert rans_kernels.encode_scan.launches == counts[0] + 3
-    assert rans_kernels.decode_scan.launches == counts[1] + 3
-    assert conv_kernel.conv2d_nhwc.launches == counts[2] + 24
-    assert rows_kernel.gmm_rows.launches == counts[3] + 4
+    # 3 encode passes; z decodes over its tables, the y passes over the
+    # GMM rows on demand; bounds for the 2 encoded y passes; no full rows
+    assert [f.launches - c for f, c in zip(wrappers, counts)] == \
+        [3, 1, 2, 24, 2, 0]
