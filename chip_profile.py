@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's batched codec, on one NVIDIA GPU.
 
-    python3 chip_profile.py [--batch 2 24] [--reps 3] [--tiles | --decode]
+    python3 chip_profile.py [--batch 2 24] [--reps 3]
+                            [--tiles | --decode | --kernel-transforms]
 
 For each batch size: N=192, K=4 flagship with weights/ckbd_gmm_n192_k4_
 synthetic.npz, lanes=4096, cap_divisor=4, 768x512 textured-leaves images
@@ -21,6 +22,13 @@ batch 24 (T=864 steps): at W=4096 with its own cluster of 16 CTAs and with
 materialized rows; its serial floor, one active lane on each CTA of the
 W=4096 cluster, and 16 lanes on one CTA (no cluster barrier); and that
 floor at K = 3, which takes the runtime-K code: one JSON line.
+``--kernel-transforms`` instead runs the codec along both transform routes,
+the default (cuDNN bf16) and ``kernel_transforms=True`` (the bf16 conv
+kernel), in alternating pairs (default, kernel, kernel, default, ...;
+--reps pairs) at each batch size: one JSON line per batch with each route's
+encode and decode runs, ms per image, g_a, h_a and g_s stage ms, bytes, bpp,
+PSNR and peak memory; then, for each route, a torch.profiler table of its
+device time by kernel over one encode + decode at the last batch size.
 Needs a CUDA device; imports no JAX.
 """
 
@@ -43,6 +51,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--tiles", action="store_true")
     ap.add_argument("--decode", action="store_true")
+    ap.add_argument("--kernel-transforms", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -73,6 +82,12 @@ def main() -> int:
     model.update(update_quantiles=True)
     codec = FastCheckerboardGmmCodec(model, lanes=4096, cap_divisor=4)
     images = [textured_leaves(H, W, seed=500001 + i) for i in range(max(args.batch))]
+    if args.kernel_transforms:
+        kcodec = FastCheckerboardGmmCodec(model, lanes=4096, cap_divisor=4,
+                                          kernel_transforms=True)
+        both_routes({"default": codec, "kernel_transforms": kcodec},
+                    images, args.batch, args.reps, dev, smi)
+        return 0
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -142,6 +157,78 @@ def main() -> int:
                                     row_limit=25, max_name_column_width=60),
           flush=True)
     return 0
+
+
+def both_routes(codecs, images, batches, reps, dev, smi):
+    """Each codec's encode + decode in alternating pairs at each batch."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    for b in batches:
+        x = torch.from_numpy(np.stack(images[:b])).to(dev)
+        res = {}
+        for name, c in codecs.items():  # warm-up, peak memory, the result
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.inference_mode():
+                data, out = c.encode_to_bytes(x)
+                y_shape = tuple(out["y_hat"].shape)
+                x_hat = c.decode_bytes(data, y_shape)
+                y_dec = c.decode_y_hat(c.from_bytes(data, y_shape), y_shape)
+            torch.cuda.synchronize()
+            if not torch.equal(y_dec, out["y_hat"]):
+                raise RuntimeError(f"{name}: y_hat differs after the bytes")
+            mse = ((x_hat - x) ** 2).mean(dim=(1, 2, 3)).double().cpu().numpy()
+            res[name] = {
+                "bytes": len(data), "bpp": len(data) * 8 / (b * H * W),
+                "psnr_db": float(np.mean(-10 * np.log10(np.maximum(mse, 1e-12)))),
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "encode_runs_ms": [], "decode_runs_ms": [], "stages_ms": {}}
+            with torch.inference_mode():
+                y = c._transform(c._g_a, x)
+                for stage, mod, inp in (("g_a", c._g_a, x), ("h_a", c._h_a, y),
+                                        ("g_s", c._g_s, out["y_hat"])):
+                    res[name]["stages_ms"][stage] = statistics.median(
+                        timed(lambda: c._transform(mod, inp))[1]
+                        for _ in range(3))
+        order = []
+        for r in range(reps):
+            names = list(codecs)
+            for name in (names if r % 2 == 0 else names[::-1]):
+                c = codecs[name]
+                with torch.inference_mode():
+                    (data, out), t_e = timed(lambda: c.encode_to_bytes(x))
+                    _, t_d = timed(lambda: c.decode_bytes(
+                        data, tuple(out["y_hat"].shape)))
+                res[name]["encode_runs_ms"].append(t_e)
+                res[name]["decode_runs_ms"].append(t_d)
+                order.append(name)
+        for v in res.values():
+            v["ms_per_image_runs"] = [(e + d) / b for e, d in
+                                      zip(v["encode_runs_ms"], v["decode_runs_ms"])]
+            v["ms_per_image_median"] = statistics.median(v["ms_per_image_runs"])
+        print(json.dumps({"batch": b, "order": order, "routes": res,
+                          "card": smi}), flush=True)
+
+    for name, c in codecs.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with torch.inference_mode():
+                data, out = c.encode_to_bytes(x)
+                c.decode_bytes(data, tuple(out["y_hat"].shape))
+            torch.cuda.synchronize()
+        print(f"route {name}, batch {b}:", flush=True)
+        print(prof.key_averages().table(sort_by="self_device_time_total",
+                                        row_limit=25, max_name_column_width=60),
+              flush=True)
 
 
 def _cuda_ms(fn, reps):

@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 _PKG = Path(__file__).resolve().parent
 _SOURCES = ("csrc/rans_kernels.cu", "csrc/conv_kernel.cu",
-            "csrc/gmm_rows.cu")
+            "csrc/conv_bf16.cu", "csrc/gmm_rows.cu")
 _HEADERS = ("csrc/gmm_entry.cuh",)  # included by the sources: hashed too
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,6 +46,10 @@ _SIGNATURES = {
     # stream
     "fg_conv2d_nhwc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        ctypes.c_float, _I, _P),
+    # x, w, bias, res, res f32, y, y f32, N, H, W, Cin, Cout, K, leaky,
+    # neg_slope, stream
+    "fg_conv2d_nhwc_bf16": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, ctypes.c_float, _P),
     # scales, means, weights, N, K, lo, L, mode, rows, stream
     "fg_gmm_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     # values, scales, means, weights, N, K, lo, L, mode, start, freq, stream

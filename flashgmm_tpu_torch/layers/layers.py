@@ -9,6 +9,12 @@ NCHW with channels-last strides (no copy) for ``F.conv2d``.
 :func:`run_canonical` is the rows-chain forward: every stride-1 "same" conv
 goes through the hand conv kernel in float32, so the encoder and the decoder
 compute bitwise-identical entropy parameters.
+
+:func:`route_bf16_kernel` marks a bf16 transform (the port's counterpart of
+the reference's ``use_pallas_conv`` at trace time): its stride-1 "same"
+convs of at least 64 channels then run the bf16 conv kernel (whatever the
+input's float type: the kernel computes in bf16), and the blocks fuse their LeakyReLU and residual add into the
+kernel's epilogue.
 """
 
 import math
@@ -49,8 +55,18 @@ class Sequential(nn.Module):
         self.layers = nn.ModuleList(layers)
 
     def forward(self, x):
-        for layer in self.layers:
-            x = layer(x)
+        layers = list(self.layers)
+        i = 0
+        while i < len(layers):
+            layer = layers[i]
+            nxt = layers[i + 1] if i + 1 < len(layers) else None
+            if (isinstance(layer, Conv2d) and layer.kernel_route
+                    and isinstance(nxt, LeakyReLU)):
+                x = layer.forward_fused(x, negative_slope=nxt.negative_slope)
+                i += 2
+            else:
+                x = layer(x)
+                i += 1
         return x
 
     def __iter__(self):
@@ -82,10 +98,39 @@ class Conv2d(nn.Module):
                                            generator))
                      if use_bias else None)
 
+    kernel_route = False  # set by route_bf16_kernel
+
     def _weight(self):
         return self.weight
 
+    def route_bf16_kernel(self):
+        """Send this conv through the bf16 conv kernel from now on, if the
+        kernel's rule takes it; the weights are frozen in its layout."""
+        k = tuple(self.weight.shape[-2:])
+        if not conv_kernel.bf16_route_takes(self.in_ch, self.out_ch, k,
+                                            self.stride, self.padding):
+            return
+        self._kernel_w = self.kernel_hwio().to(torch.bfloat16)
+        self._kernel_b = (None if self.bias is None
+                          else self.bias.detach().float())
+        self.kernel_route = True
+
+    def forward_fused(self, x, negative_slope=None, residual=None):
+        """conv -> LeakyReLU (if ``negative_slope``) -> + ``residual``: one
+        kernel launch with a bf16 result on a routed conv, else the library
+        conv and the elementwise ops."""
+        if self.kernel_route:
+            return conv_kernel.conv2d_nhwc_bf16(
+                x, self._kernel_w, self._kernel_b,
+                negative_slope=negative_slope, residual=residual)
+        y = self(x)
+        if negative_slope is not None:
+            y = leaky_relu(y, negative_slope)
+        return y if residual is None else y + residual
+
     def forward(self, x):
+        if self.kernel_route:
+            return self.forward_fused(x)
         w = self._weight()
         y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype),
                      None if self.bias is None else self.bias.to(x.dtype),
@@ -94,7 +139,7 @@ class Conv2d(nn.Module):
 
     def kernel_hwio(self):
         """The (masked) weight as a contiguous float32 HWIO kernel."""
-        return self._weight().float().permute(2, 3, 1, 0).contiguous()
+        return self._weight().detach().float().permute(2, 3, 1, 0).contiguous()
 
     def canonical(self, x, negative_slope=None):
         """Rows-chain forward through the hand conv kernel (float32)."""
@@ -194,7 +239,7 @@ class ResidualBlockWithStride(nn.Module):
 
     def forward(self, x):
         identity = x if self.skip is None else self.skip(x)
-        out = leaky_relu(self.conv1(x))
+        out = self.conv1.forward_fused(x, negative_slope=0.01)
         out = self.gdn(self.conv2(out))
         return out + identity
 
@@ -217,15 +262,33 @@ class ResidualBlockUpsample(nn.Module):
         self.upsample = subpel_conv3x3(in_ch, out_ch, upsample,
                                        generator=generator)
         self.fuse = bool(fuse)
+        self.kernel_route = False  # set by route_bf16_kernel
+
+    def route_bf16_kernel(self):
+        """Send the fused subpel conv through the bf16 conv kernel from now
+        on, if the kernel's rule takes it (the unfused convs route alone)."""
+        c1, c2 = self.subpel_conv.layers[0], self.upsample.layers[0]
+        if not (self.fuse and conv_kernel.bf16_route_takes(
+                c1.in_ch, c1.out_ch + c2.out_ch, tuple(c1.weight.shape[-2:]),
+                c1.stride, c1.padding)):
+            return
+        self._kernel_w = torch.cat([c1.kernel_hwio(), c2.kernel_hwio()],
+                                   dim=-1).to(torch.bfloat16).contiguous()
+        self._kernel_b = torch.cat([c1.bias, c2.bias]).detach().float()
+        self.kernel_route = True
 
     def forward(self, x):
         if self.fuse:
             c1, c2 = self.subpel_conv.layers[0], self.upsample.layers[0]
             r = self.subpel_conv.layers[1].r
-            w = torch.cat([c1.weight, c2.weight]).to(x.dtype)
-            b = torch.cat([c1.bias, c2.bias]).to(x.dtype)
-            y = F.conv2d(x.permute(0, 3, 1, 2), w, b, c1.stride, c1.padding)
-            y = y.permute(0, 2, 3, 1)
+            if self.kernel_route:
+                y = conv_kernel.conv2d_nhwc_bf16(x, self._kernel_w,
+                                                 self._kernel_b)
+            else:
+                w = torch.cat([c1.weight, c2.weight]).to(x.dtype)
+                b = torch.cat([c1.bias, c2.bias]).to(x.dtype)
+                y = F.conv2d(x.permute(0, 3, 1, 2), w, b, c1.stride,
+                             c1.padding).permute(0, 2, 3, 1)
             n_out = c1.weight.shape[0]
             out = pixel_shuffle(y[..., :n_out], r)
             identity = pixel_shuffle(y[..., n_out:], r)
@@ -249,9 +312,21 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x):
         identity = x if self.skip is None else self.skip(x)
-        out = leaky_relu(self.conv1(x))
-        out = leaky_relu(self.conv2(out))
-        return out + identity
+        out = self.conv1.forward_fused(x, negative_slope=0.01)
+        return self.conv2.forward_fused(out, negative_slope=0.01,
+                                        residual=identity)
+
+
+def route_bf16_kernel(module):
+    """Mark every conv of ``module`` that the bf16 conv kernel takes
+    (``conv_kernel.bf16_route_takes``), and the fused subpel convs of its
+    ResidualBlockUpsamples, to run through that kernel from now on. Call
+    it on a transform whose parameters are final (the codec's bf16
+    snapshots): the kernel's weights are frozen at this call."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, ResidualBlockUpsample)):
+            m.route_bf16_kernel()
+    return module
 
 
 def run_canonical(module, x):

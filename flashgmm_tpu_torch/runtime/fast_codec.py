@@ -22,7 +22,11 @@ and the decoder's probes alike, is one elementwise function of its
 symbol's parameters with fixed roundings (``csrc/gmm_entry.cuh`` and its
 plain twin). So both directions compute identical integers.
 g_a, h_a and g_s never need bit-equality (their outputs are rounded or are
-pixels) and run as library convs, in bfloat16 by default.
+pixels) and run in bfloat16 by default: as library convs, or with
+``kernel_transforms=True`` (the reference's
+``FLASHGMM_PALLAS_CONV_TRANSFORMS=1``) with their stride-1 convs of at least
+64 channels, and the fused subpel convs of g_s, on the bf16 conv kernel
+(``layers.route_bf16_kernel``).
 """
 
 import copy
@@ -35,7 +39,7 @@ from flashgmm_tpu_torch.ans import interleaved as il
 from flashgmm_tpu_torch.ans import rans_kernels
 from flashgmm_tpu_torch.ans.gaussian_cdf import (get_approx_mode,
                                                  gmm_guarded_bounds)
-from flashgmm_tpu_torch.layers import run_canonical
+from flashgmm_tpu_torch.layers import route_bf16_kernel, run_canonical
 
 
 class StreamOverflow(RuntimeError):
@@ -86,10 +90,17 @@ class FastCheckerboardGmmCodec:
 
     ``lanes`` (W) is not written into the bytes: a decoder must use the
     encoder's. The default is the JAX package's (128); the batched
-    benchmark configuration uses 4096."""
+    benchmark configuration uses 4096.
+
+    ``kernel_transforms=True`` sends the bf16 transforms' eligible convs
+    through the bf16 conv kernel (off by default, as the reference's
+    ``FLASHGMM_PALLAS_CONV_TRANSFORMS``). It changes pixels and the
+    quantized latents by bf16 roundings, never the rows chain, the coder
+    or the byte format."""
 
     def __init__(self, model, lanes: int = 128, max_abs: int = 47,
-                 cap_divisor: int = 4, bf16_transforms: bool = True):
+                 cap_divisor: int = 4, bf16_transforms: bool = True,
+                 kernel_transforms: bool = False):
         self.lanes = int(lanes)
         self.max_abs = int(max_abs)  # symbols clamped to [-max_abs, max_abs]
         self.cap_divisor = int(cap_divisor)
@@ -106,6 +117,12 @@ class FastCheckerboardGmmCodec:
         self._g_a, self._h_a, self._g_s = (
             copy.deepcopy(m).to(self._dtype).requires_grad_(False)
             for m in (model.g_a, self._hyper.h_a, model.g_s))
+        if kernel_transforms:
+            if not bf16_transforms:
+                raise ValueError("kernel_transforms needs bf16_transforms: "
+                                 "the conv kernel's transform route is bf16")
+            for m in (self._g_a, self._h_a, self._g_s):
+                route_bf16_kernel(m)
         if self._eb.quantized_cdf.numel() == 0:
             raise ValueError("EntropyBottleneck tables are empty: run "
                              "model.update() before building the codec")

@@ -16,6 +16,7 @@ What is exact and what is held to a tolerance:
   atol 2e-4 (float32 conv chains summed in different orders).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -250,3 +251,78 @@ def test_port_decodes_golden_jax_bytes_with_its_own_tables(models):
     got_y = codec.decode_y_hat(streams, y_shape).numpy()
     assert got_y.shape == ref_y.shape == (1, 4, 4, N)
     assert int((got_y != ref_y).sum()) <= 266
+
+
+def test_which_stage_moves_a_row_entry(models):
+    """ROADMAP C2's step: the rows chain h_s -> context -> entropy
+    parameters -> GMM rows, with the port handed JAX's output of one stage
+    after another, counting the row entries that differ from JAX's rows
+    (its codec's own jitted stages) on seeded z bins and anchor symbols.
+
+    Handed JAX's entropy parameters, the port's rows are EXACT in both
+    passes. Handed JAX's side (and, in the non-anchor pass, JAX's context
+    output too), most of the gap stays: the 1x1 entropy-parameter convs
+    alone move entries, being float32 sums in another order than XLA's.
+    Measured (torch 2.13 CPU, jax 0.9, of 200,704 entries a pass): anchor
+    pass 15,726 differ with the port's own side, 12,929 with JAX's side;
+    non-anchor pass 16,598 own, 13,675 with JAX's side, 12,465 with JAX's
+    side and context; 0 with JAX's parameters. Bounds: 2x those counts."""
+    from flashgmm_tpu_torch.ans.gaussian_cdf import gmm_guarded_rows
+
+    jm, _, tm = models
+    jc = JCodec(jm, lanes=LANES, cap_divisor=1)
+    codec = TCodec(tm, lanes=LANES, cap_divisor=1, bf16_transforms=False)
+    rs = np.random.RandomState(5)
+    b, h, w = 2, 8, 8  # y latent 8x8 from z 2x2
+    z_max = np.asarray(codec._z_maxbin)
+    z_bin = np.stack([rs.randint(0, z_max + 1) for _ in range(b * 4)]
+                     ).reshape(b, h // 4, w // 4, N).astype(np.int32)
+    sym0 = rs.randint(-4, 5, (b, h, w // 2, N)).astype(np.int32)
+    lo, num_bins = codec._lo_bins()
+
+    side_j = jc._side_jit(jc._state, jnp.asarray(z_bin))
+    rows_j = [np.asarray(jc._rows0_jit(jc._state, side_j[0])),
+              np.asarray(jc._rows1_jit(jc._state, side_j[1],
+                                       jnp.asarray(sym0)))]
+
+    def ctx_impl(state, s0):  # the context stage of _rows1_impl
+        _, ckbd, _, _ = jc._modules(state)
+        y_ = jnp.stack([s0.astype(jnp.float32),
+                        jnp.zeros_like(s0, jnp.float32)])
+        return ckbd.unembed(ckbd.context_prediction(ckbd.embed(y_)))[1]
+
+    def params_impl(state, ctx, side):  # the entropy-parameter stage
+        _, ckbd, _, gmm_lc = jc._modules(state)
+        return jc._gmm_pass_params(ckbd, gmm_lc, ctx, side)
+
+    ctx_j = jax.jit(ctx_impl)(jc._state, jnp.asarray(sym0))
+    params_j = [jax.jit(params_impl)(jc._state, jnp.zeros_like(side_j[0]),
+                                     side_j[0]),
+                jax.jit(params_impl)(jc._state, ctx_j, side_j[1])]
+
+    def t(a):
+        return torch.from_numpy(np.array(a))
+
+    def moved(params, p):
+        rows = gmm_guarded_rows(*params, lo, num_bins, codec.mode).numpy()
+        assert rows.shape == rows_j[p].shape
+        return int((rows != rows_j[p]).sum())
+
+    with torch.no_grad():
+        side_p = codec._side(t(z_bin))
+        counts = {
+            "anchor, own side": moved(codec._params0(side_p[0]), 0),
+            "anchor, JAX side": moved(codec._params0(t(side_j[0])), 0),
+            "anchor, JAX parameters": moved([t(v) for v in params_j[0]], 0),
+            "non-anchor, own side": moved(
+                codec._params1(side_p[1], t(sym0)), 1),
+            "non-anchor, JAX side": moved(
+                codec._params1(t(side_j[1]), t(sym0)), 1),
+            "non-anchor, JAX side and context": moved(
+                codec._gmm_pass_params(t(ctx_j), t(side_j[1])), 1),
+            "non-anchor, JAX parameters": moved(
+                [t(v) for v in params_j[1]], 1),
+        }
+    measured = [15726, 12929, 0, 16598, 13675, 12465, 0]
+    for (stage, count), bound in zip(counts.items(), measured):
+        assert count <= 2 * bound, (stage, count, counts)

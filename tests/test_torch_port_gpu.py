@@ -12,7 +12,10 @@ evaluated on demand) at cluster sizes up to 16 (``MAX_CLUSTER`` lowered
 to reach the smaller ones), the GMM rows and bounds
 kernels (against the plain version, which is XLA's CPU arithmetic written
 out), and the conv (against its plain version, the same fmaf chain with
-an exact FMA), which is also bitwise batch-invariant.
+an exact FMA), which is also bitwise batch-invariant. The bf16 conv (the
+transforms' route) is held to one bf16 ulp of its plain version, which
+sums in another order (1e-5 of max|plain| for an f32 result), at every
+shape the N=192 transforms route to it and at ragged edges.
 """
 
 import numpy as np
@@ -292,24 +295,119 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
                                p[:8], p[:8], p[:8], -48, 97)
 
 
-def test_codec_roundtrip_on_card(cuda):
+@pytest.mark.parametrize("n,kernel_transforms", [(32, False), (64, True)])
+def test_codec_roundtrip_on_card(cuda, n, kernel_transforms):
     from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
     from flashgmm_tpu_torch.runtime import FastCheckerboardGmmCodec
 
-    model = Cheng2020AnchorCheckerboardGMMv2(N=32, K=2, seed=0, device=cuda)
+    model = Cheng2020AnchorCheckerboardGMMv2(N=n, K=2, seed=0, device=cuda)
     model.update(update_quantiles=True)
-    codec = FastCheckerboardGmmCodec(model, lanes=256, cap_divisor=1)
+    codec = FastCheckerboardGmmCodec(model, lanes=256, cap_divisor=1,
+                                     kernel_transforms=kernel_transforms)
     x = torch.rand(2, 128, 128, 3, device=cuda,
                    generator=torch.Generator(device=cuda).manual_seed(1))
     wrappers = (rans_kernels.encode_scan, rans_kernels.decode_scan,
                 rans_kernels.decode_scan_gmm, conv_kernel.conv2d_nhwc,
-                rows_kernel.gmm_bounds, rows_kernel.gmm_rows)
+                rows_kernel.gmm_bounds, rows_kernel.gmm_rows,
+                conv_kernel.conv2d_nhwc_bf16)
     counts = [f.launches for f in wrappers]
     data, out = codec.encode_to_bytes(x)
     y_shape = tuple(out["y_hat"].shape)
+    x_hat = codec.decode_bytes(data, y_shape)
+    # 3 encode passes; z decodes over its tables, the y passes over the
+    # GMM rows on demand; bounds for the 2 encoded y passes; no full rows;
+    # with kernel_transforms, g_a (9), h_a (3) and g_s (14) convs on the
+    # bf16 conv kernel
+    assert [f.launches - c for f, c in zip(wrappers, counts)] == \
+        [3, 1, 2, 24, 2, 0, 26 if kernel_transforms else 0]
     y_dec = codec.decode_y_hat(codec.from_bytes(data, y_shape), y_shape)
     assert torch.equal(y_dec, out["y_hat"])
-    # 3 encode passes; z decodes over its tables, the y passes over the
-    # GMM rows on demand; bounds for the 2 encoded y passes; no full rows
-    assert [f.launches - c for f, c in zip(wrappers, counts)] == \
-        [3, 1, 2, 24, 2, 0]
+    assert x_hat.shape == x.shape and bool(torch.isfinite(x_hat).all())
+
+
+def _bf16_case(dev, n, h, w, c_in, c_out, k, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, h, w, c_in, device=dev, generator=g).bfloat16()
+    wt = (torch.randn(k, k, c_in, c_out, device=dev, generator=g)
+          * 0.03).bfloat16()
+    b = torch.randn(c_out, device=dev, generator=g) * 0.1
+    r = torch.randn(n, h, w, c_out, device=dev, generator=g)
+    return x, wt, b, r
+
+
+def _bf16_close(got, ref):
+    """One bf16 ulp (2**-7 relative, with 1e-3 x max|plain| absolute) for a
+    bf16 result; 1e-5 of max|plain| for an f32 one."""
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    top = float(r.abs().max())
+    if got.dtype == torch.bfloat16:
+        assert bool((d <= 1e-3 * top + 2 ** -7 * r.abs()).all()), float(d.max())
+    else:
+        assert float(d.max()) < 1e-5 * top, float(d.max()) / top
+
+
+# every (H, W, C_out) the N=192 transforms route at 768x512, batch 2, with
+# each epilogue the path gives it: (slope, residual)
+_ROUTED = [(384, 256, 192), (192, 128, 192), (96, 64, 192), (48, 32, 192),
+           (24, 16, 192), (48, 32, 1536), (96, 64, 1536), (192, 128, 1536)]
+
+
+@pytest.mark.parametrize("h,w,c_out", _ROUTED)
+@pytest.mark.parametrize("slope,res", [(None, False), (0.01, False),
+                                       (0.01, True)])
+def test_conv_bf16_kernel_matches_plain_at_routed_shapes(cuda, h, w, c_out,
+                                                         slope, res):
+    x, wt, b, r = _bf16_case(cuda, 2, h, w, 192, c_out, 3, h + c_out)
+    kw = dict(negative_slope=slope, residual=r.bfloat16() if res else None)
+    before = conv_kernel.conv2d_nhwc_bf16.launches
+    got = conv_kernel.conv2d_nhwc_bf16(x, wt, b, **kw)
+    assert conv_kernel.conv2d_nhwc_bf16.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (2, h, w, c_out)
+    _bf16_close(got, conv_kernel.conv2d_nhwc_bf16_plain(x, wt, b, **kw))
+
+
+@pytest.mark.parametrize("n,h,w,c_in,c_out,k,res_f32", [
+    (2, 37, 23, 192, 192, 3, False),  # ragged M: edge tiles
+    (1, 5, 3, 64, 8, 1, True),  # C_out 8: columns past C_out masked
+    (2, 13, 11, 64, 136, 5, True),  # C_out not a multiple of the tile
+    (1, 9, 17, 8, 64, 7, False),  # C_in 8: taps change inside a tile
+    (3, 16, 24, 128, 1536, 3, True),
+])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_conv_bf16_kernel_edges_and_f32_out(cuda, n, h, w, c_in, c_out, k,
+                                            res_f32, out_dtype):
+    x, wt, b, r = _bf16_case(cuda, n, h, w, c_in, c_out, k, c_in + c_out + k)
+    kw = dict(negative_slope=0.2, residual=r if res_f32 else r.bfloat16(),
+              out_dtype=out_dtype)
+    got = conv_kernel.conv2d_nhwc_bf16(x, wt, b, **kw)
+    assert got.dtype == out_dtype
+    _bf16_close(got, conv_kernel.conv2d_nhwc_bf16_plain(x, wt, b, **kw))
+    # no bias, no epilogue; float32 inputs are rounded to bf16 first
+    _bf16_close(conv_kernel.conv2d_nhwc_bf16(x.float(), wt.float()),
+                conv_kernel.conv2d_nhwc_bf16_plain(x, wt))
+    # input that starts off the 16-byte boundary is copied, not refused
+    flat = torch.empty(x.numel() + 4, dtype=x.dtype, device=cuda)
+    flat[4:] = x.reshape(-1)
+    off = flat[4:].view(x.shape)
+    assert off.data_ptr() % 16 != 0
+    assert torch.equal(conv_kernel.conv2d_nhwc_bf16(off, wt, b),
+                       conv_kernel.conv2d_nhwc_bf16(x, wt, b))
+
+
+def test_conv_bf16_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 4, 4, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 64, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # C_out not a multiple of 8
+        conv_kernel.conv2d_nhwc_bf16(x, w[..., :60])
+    with pytest.raises(ValueError):  # even K
+        conv_kernel.conv2d_nhwc_bf16(x, w[:2, :2])
+    with pytest.raises(ValueError):  # mixed devices
+        conv_kernel.conv2d_nhwc_bf16(x, w.cpu())
+    with pytest.raises(ValueError):  # residual shape
+        conv_kernel.conv2d_nhwc_bf16(x, w, residual=x[..., :8])
+    with pytest.raises(TypeError):
+        conv_kernel.conv2d_nhwc_bf16(x.half(), w)
+    with pytest.raises(TypeError):
+        conv_kernel.conv2d_nhwc_bf16(x, w, out_dtype=torch.float16)
+    torch.cuda.synchronize()  # the card is still healthy
