@@ -27,7 +27,12 @@ the default (cuDNN bf16) and ``kernel_transforms=True`` (the bf16 conv
 kernel), in alternating pairs (default, kernel, kernel, default, ...;
 --reps pairs) at each batch size: one JSON line per batch with each route's
 encode and decode runs, ms per image, g_a, h_a and g_s stage ms, bytes, bpp,
-PSNR and peak memory; then, for each route, a torch.profiler table of its
+PSNR and peak memory; then one JSON line per batch with the routed convs of
+one encode + decode timed shape by shape by CUDA events on the path's own
+tensors: the kernel (its epilogue fused), cuDNN's conv as the default route
+calls it (OIHW weights), the same with channels-last weights, and the
+default route's conv with its separate LeakyReLU and residual add, each
+with its TFLOP/s; then, for each route, a torch.profiler table of its
 device time by kernel over one encode + decode at the last batch size.
 Needs a CUDA device; imports no JAX.
 """
@@ -217,6 +222,8 @@ def both_routes(codecs, images, batches, reps, dev, smi):
             v["ms_per_image_median"] = statistics.median(v["ms_per_image_runs"])
         print(json.dumps({"batch": b, "order": order, "routes": res,
                           "card": smi}), flush=True)
+        print(json.dumps({"batch": b, "routed_convs": routed_convs(
+            codecs["kernel_transforms"], x), "card": smi}), flush=True)
 
     for name, c in codecs.items():
         with profile(activities=[ProfilerActivity.CPU,
@@ -229,6 +236,97 @@ def both_routes(codecs, images, batches, reps, dev, smi):
         print(prof.key_averages().table(sort_by="self_device_time_total",
                                         row_limit=25, max_name_column_width=60),
               flush=True)
+
+
+def routed_convs(codec, x, reps=5):
+    """The bf16 kernel's calls in one encode + decode through ``codec``
+    (kernel route), grouped by shape and epilogue, each timed on its own
+    inputs beside the default route's cuDNN conv on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from flashgmm_tpu_torch.ops import conv_kernel
+
+    kernel = conv_kernel.conv2d_nhwc_bf16
+    calls = []
+
+    def recording(*args, **kwargs):
+        calls.append((args, kwargs))
+        return kernel(*args, **kwargs)
+
+    recording.launches = 0  # the wrapper counts on the name it is bound to
+    conv_kernel.conv2d_nhwc_bf16 = recording
+    try:
+        with torch.inference_mode():
+            data, out = codec.encode_to_bytes(x)
+            codec.decode_bytes(data, tuple(out["y_hat"].shape))
+    finally:
+        conv_kernel.conv2d_nhwc_bf16 = kernel
+    groups = {}
+    for args, kwargs in calls:
+        xi, wi, bi = args
+        slope, res = kwargs.get("negative_slope"), kwargs.get("residual")
+        key = (tuple(xi.shape), tuple(wi.shape), slope, res is not None)
+        groups.setdefault(key, []).append((args, kwargs))
+    rows, total = [], dict.fromkeys(
+        ("kernel_ms", "cudnn_ms", "cudnn_cl_ms", "default_ms"), 0.0)
+    flops_total = 0
+    # the card's SM clock (MHz) and power draw (W) while the convs run
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    with torch.inference_mode():
+        for (xs, ws, slope, with_res), group in groups.items():
+            args, kwargs = group[0]
+            xi, wi, bi = args
+            res = kwargs.get("residual")
+            w_hwio = wi.hwio() if isinstance(
+                wi, conv_kernel.PackedBf16Weight) else wi
+            # NHWC memory seen as NCHW: channels-last, as the route calls it
+            x_nchw = xi.to(torch.bfloat16).permute(0, 3, 1, 2)
+            w_oihw = w_hwio.permute(3, 2, 0, 1).contiguous()  # as the route
+            w_cl = w_oihw.contiguous(memory_format=torch.channels_last)
+            b16 = bi.to(torch.bfloat16)
+            pad = w_hwio.shape[0] // 2
+
+            def default():
+                y = F.conv2d(x_nchw, w_oihw, b16, padding=pad)
+                if slope is not None:
+                    y = conv_kernel.leaky_relu(y, slope)
+                return y if res is None else y + res.permute(0, 3, 1, 2)
+            t = {"kernel_ms": _cuda_ms(lambda: kernel(*args, **kwargs), reps),
+                 "cudnn_ms": _cuda_ms(lambda: F.conv2d(
+                     x_nchw, w_oihw, b16, padding=pad), reps),
+                 "cudnn_cl_ms": _cuda_ms(lambda: F.conv2d(
+                     x_nchw, w_cl, b16, padding=pad), reps),
+                 "default_ms": _cuda_ms(default, reps)}
+            flops = 2 * xs[0] * xs[1] * xs[2] * w_hwio.numel()
+            n = len(group)
+            rows.append({"x": list(xs), "w_hwio": list(w_hwio.shape),
+                         "slope": slope, "residual": with_res, "calls": n,
+                         **t, **{k.replace("_ms", "_tflop_per_s"):
+                                 flops / v / 1e9 for k, v in t.items()}})
+            for k, v in t.items():
+                total[k] += n * v
+            flops_total += n * flops
+    smi.terminate()
+    samples = []
+    for line in smi.communicate(timeout=60)[0].splitlines():
+        fields = line.split(",")
+        if len(fields) == 2 and all(f.strip().replace(".", "").isdigit()
+                                    for f in fields):
+            samples.append((float(fields[0]), float(fields[1])))
+    clocks = sorted(c for c, _ in samples) or [0.0]
+    power = sorted(w for _, w in samples) or [0.0]
+    return {"calls": len(calls), "shapes": rows, "sum_ms": total,
+            "sm_clock_mhz": {"min": clocks[0],
+                             "median": statistics.median(clocks),
+                             "max": clocks[-1]},
+            "power_w": {"median": statistics.median(power), "max": power[-1]},
+            "tflop": flops_total / 1e12,
+            "tflop_per_s": {k.replace("_ms", ""): flops_total / v / 1e9
+                            for k, v in total.items()}}
 
 
 def _cuda_ms(fn, reps):

@@ -7,18 +7,23 @@ Phases, each ending in one flushed line with its seconds:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: the CUDA kernels from the sources in this checkout (nvcc, one
-   shared library), with the -Xptxas -v register and shared-memory lines
-   and the tensor-core (HMMA) instructions of the bf16 conv kernel, read
-   from the library by cuobjdump (none fails the run);
+   shared library), with the -Xptxas -v register and shared-memory lines;
+   the bf16 conv kernel's SASS, read from the library by cuobjdump, must
+   hold wgmma (HGMMA) and TMA loads (UTMALDG), ptxas must report no spill
+   stores or loads for it, and the library must hold no mma.sync conv
+   kernel;
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, all bit-exact: the GMM rows and bounds kernels, rANS
    encode, the cluster decoder over materialized rows and over the GMM
    rows on demand, also one W=8192 pass, and the conv (the same fmaf
    chain), which is also bitwise batch-invariant and repeatable; then the
    bf16 conv at every shape the transforms route to it, with each of its
-   epilogues, in f32 out and on a ragged shape, within a bf16 ulp
+   epilogues, and once in each shape class the wrapper takes (C_in and
+   C_out not multiples of 64, K = 1, 5 and 7, H and W not multiples of the
+   8 x 16 tile, N = 1, f32 out, each residual type), within a bf16 ulp
    (``BF16_RTOL`` with an atol of ``BF16_ATOL`` x max|plain|; f32 out
-   within ``F32_REL`` of max|plain|);
+   within ``F32_REL`` of max|plain|); each routed shape's kernel ms and
+   TFLOP/s beside F.conv2d's (cuDNN) on the same inputs;
 4. codec: the batched checkerboard-GMM codec at N=192, K=4, lanes=4096,
    cap_divisor=4 on two 768x512 textured-leaves images: encode_to_bytes,
    then decode_bytes, y_hat exact through the bytes, bpp and PSNR, and
@@ -44,6 +49,7 @@ traceback. Needs a CUDA device and this repository; imports no JAX.
 
 import faulthandler
 import json
+import re
 import subprocess
 import sys
 import time
@@ -102,9 +108,9 @@ def bf16_conv_ok(got, ref):
     return ok, float(d.max()), float((d > 0).float().mean())
 
 
-def hmma_count(lib_path, name_part):
-    """Tensor-core MMA instructions (HMMA) in the SASS of every function of
-    the built library whose name contains ``name_part`` (cuobjdump)."""
+def sass_counts(lib_path, name_part, ops):
+    """{function: {op: instructions}} of the SASS of every function of the
+    built library whose name contains ``name_part`` (cuobjdump)."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -116,10 +122,43 @@ def hmma_count(lib_path, name_part):
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             if name_part in fn:
-                counts[fn] = 0
-        elif fn in counts and "HMMA" in line:
-            counts[fn] += 1
+                counts[fn] = dict.fromkeys(ops, 0)
+        elif fn in counts:
+            for op in ops:
+                counts[fn][op] += op in line
     return counts
+
+
+def ptxas_spills(lines):
+    """{function: (spill store bytes, spill load bytes)} from the -Xptxas -v
+    lines: each "Function properties for F" line, then its counts."""
+    spills, fn = {}, None
+    for line in lines:
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif fn is not None and "bytes spill" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            require(m is not None, f"ptxas line not understood: {line}")
+            spills[fn] = (int(m.group(1)), int(m.group(2)))
+            fn = None
+    return spills
+
+
+def cuda_ms(fn, reps):
+    """Mean ms of fn over reps calls after one warm-up, by CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def main() -> int:
@@ -163,13 +202,21 @@ def smoke():
     # 2. build ----------------------------------------------------------
     kernels = _build.load()
     for line in kernels.ptxas:
-        if "registers" in line or "smem" in line or "Compiling" in line:
+        if any(k in line for k in ("registers", "smem", "spill",
+                                   "Compiling")):
             print("  " + line, flush=True)
-    hmma = hmma_count(kernels.path, "conv2d_bf16_mma_kernel")
-    require(len(hmma) > 0, "the bf16 conv kernel is not in the library")
-    for fn, count in hmma.items():
-        print(f"  {count} HMMA in {fn}", flush=True)
-        require(count > 0, f"{fn}: no tensor-core instructions")
+    ops = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")
+    sass = sass_counts(kernels.path, "conv2d_bf16", ops)
+    require(len(sass) > 0, "the bf16 conv kernel is not in the library")
+    spills = ptxas_spills(kernels.ptxas)
+    for fn, count in sass.items():
+        print(f"  {fn}: {count}, spills {spills.get(fn)}", flush=True)
+        require(spills.get(fn) == (0, 0),
+                f"{fn}: spills (stores, loads) {spills.get(fn)}, not (0, 0)")
+        require("wgmma" in fn, f"{fn}: a bf16 conv kernel other than wgmma")
+        require(count["HGMMA"] > 0, f"{fn}: no wgmma (HGMMA) instructions")
+        require(count["UTMALDG"] > 0, f"{fn}: no TMA loads (UTMALDG)")
+        require(count["HMMA"] == 0, f"{fn}: mma.sync (HMMA) instructions")
     phase("build", f"nvcc {kernels.seconds:.2f} s -> {kernels.path.name}")
 
     # 3. each kernel against its plain version at the main path's shapes --
@@ -279,7 +326,8 @@ def smoke():
           "for bit, bitwise batch-invariant and repeatable", flush=True)
 
     # the bf16 conv at the shapes g_a, h_a and g_s route to it (768x512
-    # images, N=192): (h, w, c_out, epilogues as (slope, residual))
+    # images, N=192): (h, w, c_out, epilogues as (slope, residual)); each
+    # routed shape also timed beside F.conv2d (cuDNN) on the same inputs
     plain_only, leaky, leaky_res = (None, False), (0.01, False), (0.01, True)
     bf16_shapes = [
         (H // 2, W // 2, N, (plain_only, leaky, leaky_res)),  # g_a, g_s
@@ -314,6 +362,47 @@ def smoke():
                   flush=True)
             require(ok, f"{tag}: kernel differs from plain beyond tolerance")
             n_bf16 += 1
+        if (h, w) != (37, 23):
+            packed = conv_kernel.pack_bf16_weight(wt)
+            flops = 2 * BATCH * h * w * 9 * N * co
+            x_nchw = x.permute(0, 3, 1, 2)  # channels-last, as cuDNN likes
+            w_cl = wt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            b16 = bias.bfloat16()
+            t_k = cuda_ms(lambda: conv_kernel.conv2d_nhwc_bf16(x, packed,
+                                                               bias), 20)
+            t_l = cuda_ms(lambda: torch.nn.functional.conv2d(
+                x_nchw, w_cl, b16, padding=1), 20)
+            print(f"  bf16 conv {BATCH}x{h}x{w} {N}->{co}: kernel {t_k:.4f} "
+                  f"ms ({flops / t_k / 1e9:.1f} TFLOP/s), F.conv2d {t_l:.4f} "
+                  f"ms ({flops / t_l / 1e9:.1f} TFLOP/s)", flush=True)
+    # once in each shape class the wrapper takes: (n, h, w, c_in, c_out, k,
+    # slope, residual type, output type)
+    bf16, f32 = torch.bfloat16, torch.float32
+    edge_cases = [
+        (1, 37, 23, 72, 136, 3, 0.01, bf16, bf16),  # N = 1, ragged, C % 64
+        (BATCH, 24, 40, N, N, 1, 0.01, None, bf16),  # K = 1
+        (BATCH, 21, 35, 64, 200, 5, None, f32, bf16),  # K = 5
+        (1, 9, 17, 8, 64, 7, 0.2, bf16, f32),  # K = 7, C_in = 8
+        (BATCH, 13, 11, 64, 136, 5, 0.2, f32, f32),
+    ]
+    for n, h, w, ci, co, k, slope, res_t, out_dtype in edge_cases:
+        x = torch.randn(n, h, w, ci, device=dev).bfloat16()
+        wt = (torch.randn(k, k, ci, co, device=dev) * 0.05).bfloat16()
+        kw = dict(negative_slope=slope, out_dtype=out_dtype,
+                  residual=None if res_t is None else torch.randn(
+                      n, h, w, co, device=dev).to(res_t))
+        bias = torch.randn(co, device=dev) * 0.1
+        got = conv_kernel.conv2d_nhwc_bf16(x, wt, bias, **kw)
+        ref = conv_kernel.conv2d_nhwc_bf16_plain(x, wt, bias, **kw)
+        torch.cuda.synchronize()
+        ok, err, share = bf16_conv_ok(got, ref)
+        tag = (f"bf16 conv {n}x{h}x{w} {ci}->{co} k{k} slope {slope} "
+               f"residual {res_t} out {out_dtype}")
+        print(f"  {tag}: max|d| {err:.3g}, {100 * share:.3f} % differ",
+              flush=True)
+        require(ok, f"{tag}: kernel differs from plain beyond tolerance")
+        n_bf16 += 1
     print(f"  bf16 conv: {n_bf16} cases within tolerance of plain", flush=True)
     phase("kernels")
 
@@ -517,18 +606,6 @@ def smoke():
     phase("paths")
 
     # 6. timing of every recorded call ------------------------------------
-    def cuda_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
-
     pass_words = [int(out[k].n_words) for k in ("z", "y0", "y1")]
 
     def probes_by_count(L):
@@ -612,6 +689,8 @@ def smoke():
             ok, err, _ = bf16_conv_ok(
                 got, conv_kernel.conv2d_nhwc_bf16_plain(*args, **kwargs))
             require(ok, "bf16 conv on the path: beyond tolerance")
+            if isinstance(wi, conv_kernel.PackedBf16Weight):
+                wi = wi.hwio()  # the routed convs' packed weights
             flops = 2 * xi.shape[0] * xi.shape[1] * xi.shape[2] * wi.numel()
             nbytes = (2 * (xi.numel() + wi.numel()) + got.numel()
                       * got.element_size() + (0 if bi is None else

@@ -46,10 +46,10 @@ _SIGNATURES = {
     # stream
     "fg_conv2d_nhwc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        ctypes.c_float, _I, _P),
-    # x, w, bias, res, res f32, y, y f32, N, H, W, Cin, Cout, K, leaky,
+    # x, packed w, bias, res, y, y f32, N, H, W, Cin, Cout, K, leaky,
     # neg_slope, stream
-    "fg_conv2d_nhwc_bf16": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, ctypes.c_float, _P),
+    "fg_conv2d_nhwc_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, ctypes.c_float, _P),
     # scales, means, weights, N, K, lo, L, mode, rows, stream
     "fg_gmm_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     # values, scales, means, weights, N, K, lo, L, mode, start, freq, stream
@@ -61,7 +61,7 @@ class Kernels(NamedTuple):
     lib: ctypes.CDLL
     path: Path
     seconds: float  # build time; 0.0 when an earlier build was loaded
-    ptxas: tuple  # the -Xptxas -v lines of this build
+    ptxas: tuple  # the -Xptxas -v lines of the library's build
 
 
 def _nvcc() -> str:
@@ -83,7 +83,8 @@ def load() -> Kernels:
     for src in sources + [_PKG / h for h in _HEADERS]:
         digest.update(src.read_bytes())
     path = BUILD_DIR / f"libflashgmm_kernels_{digest.hexdigest()[:16]}.so"
-    seconds, ptxas = 0.0, ()
+    log = path.with_suffix(".ptxas")  # kept beside the library
+    seconds = 0.0
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
@@ -118,9 +119,14 @@ def load() -> Kernels:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
                                    f"{out}\n{err}")
+        # "ptxas info" lines, and the spill counts under each function's
+        ptxas = [line.strip() for _, _, _, err in outs
+                 for line in err.splitlines()
+                 if "ptxas" in line or "bytes spill" in line]
+        tmp.with_suffix(".ptxas").write_text("\n".join(ptxas) + "\n")
+        os.replace(tmp.with_suffix(".ptxas"), log)
         os.replace(tmp, path)
-        ptxas = tuple(line.strip() for _, _, _, err in outs
-                      for line in err.splitlines() if "ptxas" in line)
+    ptxas = tuple(log.read_text().splitlines()) if log.exists() else ()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

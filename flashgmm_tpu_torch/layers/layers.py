@@ -110,7 +110,7 @@ class Conv2d(nn.Module):
         if not conv_kernel.bf16_route_takes(self.in_ch, self.out_ch, k,
                                             self.stride, self.padding):
             return
-        self._kernel_w = self.kernel_hwio().to(torch.bfloat16)
+        self._kernel_w = conv_kernel.pack_bf16_weight(self.kernel_hwio())
         self._kernel_b = (None if self.bias is None
                           else self.bias.detach().float())
         self.kernel_route = True
@@ -272,8 +272,8 @@ class ResidualBlockUpsample(nn.Module):
                 c1.in_ch, c1.out_ch + c2.out_ch, tuple(c1.weight.shape[-2:]),
                 c1.stride, c1.padding)):
             return
-        self._kernel_w = torch.cat([c1.kernel_hwio(), c2.kernel_hwio()],
-                                   dim=-1).to(torch.bfloat16).contiguous()
+        self._kernel_w = conv_kernel.pack_bf16_weight(
+            torch.cat([c1.kernel_hwio(), c2.kernel_hwio()], dim=-1))
         self._kernel_b = torch.cat([c1.bias, c2.bias]).detach().float()
         self.kernel_route = True
 

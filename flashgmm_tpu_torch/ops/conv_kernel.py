@@ -27,15 +27,18 @@ true FMA, emulated exactly by ``xla_math._fma``), then the same epilogue.
 
 ``conv2d_nhwc_bf16`` is the same kernel's bf16 route (its default
 ``compute_dtype``; source ``flashgmm_tpu_torch/csrc/conv_bf16.cu``): x and
-w in bf16 on the tensor cores, an f32 accumulator, the epilogue in f32 and
-one rounding to the output type. The transforms g_a, h_a and g_s take it
-when the codec is built with ``kernel_transforms=True``
-(``bf16_route_takes`` is the rule). No bit-equality is asked of it: its
-plain version sums in another order and the two agree within a bf16 ulp.
+w in bf16 on the tensor cores (wgmma, fed by TMA in a persistent,
+warp-specialised kernel), an f32 accumulator, the epilogue in f32 and one
+rounding to the output type. The transforms g_a, h_a and g_s take it when
+the codec is built with ``kernel_transforms=True`` (``bf16_route_takes`` is
+the rule); they hand it weights packed once in the kernel's layout
+(``pack_bf16_weight``). No bit-equality is asked of it: its plain version
+sums in another order and the two agree within a bf16 ulp.
 """
 
 import ctypes
 from contextlib import contextmanager
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -134,9 +137,10 @@ def bf16_route_takes(c_in, c_out, kernel_size, stride, padding) -> bool:
     stride 1, "same" padding, a square odd K up to 7 (the TPU kernel's
     rule, flashgmm_tpu/ops/pallas_conv.py:90-105), C_in and C_out at least
     64 (the reference's channel rule: narrower convs stay on the library)
-    and multiples of 8 (the kernel's 16-byte copies). The reference's VMEM
-    tile rule belongs to the TPU and does not carry over. ``kernel_size``,
-    ``stride`` and ``padding`` are (height, width) pairs."""
+    and multiples of 8 (rows of 16 bytes, as TMA reads and writes them).
+    The reference's VMEM tile rule belongs to the TPU and does not carry
+    over. ``kernel_size``, ``stride`` and ``padding`` are (height, width)
+    pairs."""
     kh, kw = kernel_size
     return (tuple(stride) == (1, 1) and kh == kw and kh % 2 == 1 and kh <= 7
             and tuple(padding) == (kh // 2, kh // 2) and c_in >= 64
@@ -153,13 +157,76 @@ def _no_tf32():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+class PackedBf16Weight(NamedTuple):
+    """HWIO conv weights packed once in the bf16 kernel's layout: ``kio``
+    [K*K, C_out, C_in] bf16, contiguous (tap dy * K + dx, output channel,
+    input channel), so that one tap's weights for 64 input channels are one
+    TMA box with the input channels contiguous."""
+
+    kio: torch.Tensor
+
+    @property
+    def k(self) -> int:
+        return int(round(self.kio.shape[0] ** 0.5))
+
+    @property
+    def c_in(self) -> int:
+        return self.kio.shape[2]
+
+    @property
+    def c_out(self) -> int:
+        return self.kio.shape[1]
+
+    @property
+    def shape(self):
+        """The HWIO shape (K, K, C_in, C_out) of the weights it holds."""
+        return torch.Size((self.k, self.k, self.c_in, self.c_out))
+
+    def hwio(self):
+        """The HWIO weights [K, K, C_in, C_out] again (bf16)."""
+        k = self.k
+        return self.kio.reshape(k, k, self.c_out, self.c_in).permute(
+            0, 1, 3, 2)
+
+
+def pack_bf16_weight(w) -> PackedBf16Weight:
+    """HWIO weights [K, K, C_in, C_out] (float32 is rounded to bf16, as the
+    wrapper rounds it) in the kernel's layout; ``.hwio()`` gives them back
+    exactly."""
+    if w.dim() != 4 or w.shape[0] != w.shape[1]:
+        raise ValueError(f"pack_bf16_weight: w {tuple(w.shape)} is not a "
+                         "square HWIO kernel")
+    k, _, c_in, c_out = w.shape
+    return PackedBf16Weight(w.to(torch.bfloat16).permute(0, 1, 3, 2)
+                            .reshape(k * k, c_out, c_in).contiguous())
+
+
+def _weight_geometry(w):
+    """(K, C_in, C_out) of HWIO or packed weights; raises on anything else."""
+    if isinstance(w, PackedBf16Weight):
+        if w.kio.dim() != 3 or w.k * w.k != w.kio.shape[0]:
+            raise ValueError(f"conv2d_nhwc_bf16: packed w "
+                             f"{tuple(w.kio.shape)} is not [K*K, C_out, C_in]")
+        if w.kio.dtype != torch.bfloat16:
+            raise TypeError(f"conv2d_nhwc_bf16: packed w is {w.kio.dtype}")
+        return w.k, w.c_in, w.c_out
+    if not isinstance(w, torch.Tensor) or w.dim() != 4 \
+            or w.shape[0] != w.shape[1]:
+        raise ValueError(f"conv2d_nhwc_bf16: w {getattr(w, 'shape', w)} is "
+                         "not a square HWIO kernel")
+    return w.shape[0], w.shape[2], w.shape[3]
+
+
 def conv2d_nhwc_bf16_plain(x, w, b=None, *, negative_slope=None,
                            residual=None, out_dtype=torch.bfloat16):
     """The plain version of the bf16 route: x and w rounded to bf16, the
     conv in float32 (TF32 off; the bf16 products are exact in float32, so
     only the order of the sums differs from the kernel's), the epilogue in
     float32 (+ bias, LeakyReLU, + residual read at its own type, as the TPU
-    kernel reads it) and one rounding to ``out_dtype``."""
+    kernel reads it) and one rounding to ``out_dtype``. ``w`` is HWIO or
+    packed (``pack_bf16_weight``)."""
+    if isinstance(w, PackedBf16Weight):
+        w = w.hwio()
     k = w.shape[0]
     xr = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
     wr = w.to(torch.bfloat16).float().permute(3, 2, 0, 1)
@@ -183,20 +250,21 @@ def _aligned(t, bytes_):
 def conv2d_nhwc_bf16(x, w, b=None, *, negative_slope=None, residual=None,
                      out_dtype=torch.bfloat16):
     """Stride-1 "same" KxK conv on the tensor cores: x [N, H, W, C_in] and
-    w [K, K, C_in, C_out] (HWIO) in bf16 (float32 is rounded to bf16 first,
-    as the TPU kernel casts to its compute dtype), b [C_out] or None (f32),
-    then LeakyReLU with ``negative_slope`` and + ``residual`` [N, H, W,
-    C_out] (bf16 or f32) on the f32 accumulator, rounded once to
-    ``out_dtype`` (bf16 or float32). K odd up to 7; C_in and C_out
-    multiples of 8."""
-    if x.dim() != 4 or w.dim() != 4 or w.shape[0] != w.shape[1] \
-            or w.shape[0] % 2 == 0 or w.shape[0] > 7 \
-            or w.shape[2] != x.shape[3]:
-        raise ValueError(f"conv2d_nhwc_bf16: x {tuple(x.shape)}, w "
-                         f"{tuple(w.shape)} (need NHWC input and an odd "
-                         "square HWIO kernel, K <= 7)")
-    n, h, wd, c_in = x.shape
-    c_out = w.shape[3]
+    w [K, K, C_in, C_out] (HWIO), or w packed once by ``pack_bf16_weight``,
+    in bf16 (float32 is rounded to bf16 first, as the TPU kernel casts to
+    its compute dtype), b [C_out] or None (f32), then LeakyReLU with
+    ``negative_slope`` and + ``residual`` [N, H, W, C_out] (bf16 or f32) on
+    the f32 accumulator, rounded once to ``out_dtype`` (bf16 or float32).
+    K odd up to 7; C_in and C_out multiples of 8. Input that is not
+    contiguous or not on a 16-byte boundary is copied first."""
+    if x.dim() != 4:
+        raise ValueError(f"conv2d_nhwc_bf16: x {tuple(x.shape)} is not NHWC")
+    k, c_in, c_out = _weight_geometry(w)
+    if k % 2 == 0 or k > 7 or c_in != x.shape[3]:
+        raise ValueError(f"conv2d_nhwc_bf16: x {tuple(x.shape)}, w K={k} "
+                         f"C_in={c_in} C_out={c_out} (need an odd K <= 7 "
+                         "and C_in of x)")
+    n, h, wd, _ = x.shape
     if c_in % 8 or c_out % 8 or min(n, h, wd, c_in, c_out) < 1:
         raise ValueError(f"conv2d_nhwc_bf16: C_in {c_in} and C_out {c_out} "
                          "must be multiples of 8")
@@ -205,7 +273,8 @@ def conv2d_nhwc_bf16(x, w, b=None, *, negative_slope=None, residual=None,
                          f"C_out={c_out}")
     if residual is not None and tuple(residual.shape) != (n, h, wd, c_out):
         raise ValueError(f"conv2d_nhwc_bf16: residual {tuple(residual.shape)}")
-    pairs = ((x, "x"), (w, "w"), (residual, "residual"))
+    packed = isinstance(w, PackedBf16Weight)
+    pairs = ((x, "x"), (None if packed else w, "w"), (residual, "residual"))
     for t, name in pairs:
         if t is not None and t.dtype not in (torch.bfloat16, torch.float32):
             raise TypeError(f"conv2d_nhwc_bf16: {name} is {t.dtype}, not "
@@ -217,29 +286,33 @@ def conv2d_nhwc_bf16(x, w, b=None, *, negative_slope=None, residual=None,
     if x.device.type == "cpu":
         return conv2d_nhwc_bf16_plain(x, w, b, negative_slope=negative_slope,
                                       residual=residual, out_dtype=out_dtype)
-    tensors = [t for t in (x, w, b, residual) if t is not None]
+    wt = w.kio if packed else w
+    tensors = [t for t in (x, wt, b, residual) if t is not None]
     _build.require_cuda("conv2d_nhwc_bf16", *tensors)
     x = _aligned(x.to(torch.bfloat16), 16)
-    w = _aligned(w.to(torch.bfloat16), 16)
-    b = None if b is None else _aligned(b.float(), 4)
-    residual = None if residual is None else _aligned(residual, 8)
-    y = torch.empty((n, h, wd, c_out), dtype=out_dtype, device=x.device)
+    kio = _aligned(w.kio if packed else pack_bf16_weight(w).kio, 16)
+    b = None if b is None else _aligned(b.float(), 8)
+    # The kernel reads a residual of its result's type: a bf16 one is
+    # widened for an f32 result (exact); an f32 one makes the kernel's
+    # result f32, rounded to out_dtype once after (the same rounding).
+    f32_res = residual is not None and residual.dtype == torch.float32
+    y_dtype = torch.float32 if f32_res else out_dtype
+    residual = None if residual is None else _aligned(residual.to(y_dtype), 16)
+    y = torch.empty((n, h, wd, c_out), dtype=y_dtype, device=x.device)
     null = ctypes.c_void_p(None)
     lib = _build.load().lib
     with torch.cuda.device(x.device):
         rc = lib.fg_conv2d_nhwc_bf16(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(kio.data_ptr()),
             null if b is None else ctypes.c_void_p(b.data_ptr()),
             null if residual is None else ctypes.c_void_p(residual.data_ptr()),
-            int(residual is not None and residual.dtype == torch.float32),
-            ctypes.c_void_p(y.data_ptr()), int(out_dtype == torch.float32),
-            n, h, wd, c_in, c_out, w.shape[0],
-            int(negative_slope is not None),
+            ctypes.c_void_p(y.data_ptr()), int(y_dtype == torch.float32),
+            n, h, wd, c_in, c_out, k, int(negative_slope is not None),
             0.0 if negative_slope is None else float(negative_slope),
             _build.stream_ptr(x))
     _build.check(rc, "conv2d_nhwc_bf16")
     conv2d_nhwc_bf16.launches += 1
-    return y
+    return y.to(out_dtype)
 
 
 conv2d_nhwc_bf16.launches = 0

@@ -20,7 +20,12 @@ against the JAX package on the CPU.
   JAX's own bf16 and f32 transforms on the same input.
 - The codec round trip with ``kernel_transforms=True`` keeps y_hat exact
   and routes 26 convs per encode + decode.
+- chip_smoke.py's spill check reads each function's spill counts from the
+  ``-Xptxas -v`` lines the build keeps.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -158,6 +163,73 @@ def test_bf16_wrapper_refuses_bad_dtypes(bad):
         conv_kernel.conv2d_nhwc_bf16(x, w, **kw)
 
 
+# (K, C_in, C_out): the kernel's tap counts, C_in of 8 and not a multiple
+# of 64, C_out below, at and above one 192-wide n-tile
+@pytest.mark.parametrize("k,c_in,c_out", [
+    (1, 64, 8), (3, 192, 192), (3, 192, 1536), (5, 72, 136), (7, 8, 64)])
+def test_packed_weights_unpack_to_hwio_and_compute_the_same(k, c_in, c_out):
+    """pack_bf16_weight puts HWIO weights in the kernel's [K*K, C_out, C_in]
+    layout: .hwio() gives the bf16 weights back exactly, every entry sits
+    where the kernel reads it, and the wrapper (the plain version here)
+    computes the same bits from either form."""
+    x, wt, b, r = _case(1, 5, 9, c_in, c_out, k, True, seed=k + c_in + c_out)
+    w = torch.from_numpy(wt)
+    packed = conv_kernel.pack_bf16_weight(w)
+    kio = packed.kio
+    assert kio.shape == (k * k, c_out, c_in) and kio.is_contiguous()
+    assert kio.dtype == torch.bfloat16
+    assert (packed.k, packed.c_in, packed.c_out) == (k, c_in, c_out)
+    assert packed.shape == w.shape
+    assert torch.equal(packed.hwio(), w.to(torch.bfloat16))
+    rs = np.random.RandomState(k)
+    for _ in range(20):
+        dy, dx, ci, co = (rs.randint(k), rs.randint(k), rs.randint(c_in),
+                          rs.randint(c_out))
+        assert kio[dy * k + dx, co, ci] == w[dy, dx, ci, co].to(torch.bfloat16)
+    # packing bf16 weights or their float32 originals gives the same bits
+    assert torch.equal(conv_kernel.pack_bf16_weight(w.bfloat16()).kio, kio)
+    kw = dict(negative_slope=0.01,
+              residual=torch.from_numpy(r).to(torch.bfloat16))
+    args = (torch.from_numpy(x), torch.from_numpy(b))
+    want = conv_kernel.conv2d_nhwc_bf16_plain(args[0], w, args[1], **kw)
+    assert torch.equal(conv_kernel.conv2d_nhwc_bf16(args[0], packed, args[1],
+                                                    **kw), want)
+    assert torch.equal(conv_kernel.conv2d_nhwc_bf16(args[0], w, args[1], **kw),
+                       want)
+    assert torch.equal(conv_kernel.conv2d_nhwc_bf16_plain(
+        args[0], packed, args[1], **kw), want)
+
+
+@pytest.mark.parametrize("bad", ["f32_kio", "taps", "c_in", "rank", "list",
+                                 "pack_rank", "pack_square"])
+def test_bf16_wrapper_refuses_bad_packed_weights(bad):
+    x = torch.zeros(1, 4, 4, 64, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 64, 64, dtype=torch.bfloat16)
+    packed = conv_kernel.pack_bf16_weight(w)
+    error = ValueError
+    if bad == "f32_kio":  # the kernel reads bf16 only
+        arg = conv_kernel.PackedBf16Weight(packed.kio.float())
+        error = TypeError
+    elif bad == "taps":  # 8 taps are no square K
+        arg = conv_kernel.PackedBf16Weight(packed.kio[:8])
+    elif bad == "c_in":  # C_in of the weights is not x's
+        arg = conv_kernel.pack_bf16_weight(w[:, :, :56])
+    elif bad == "rank":
+        arg = conv_kernel.PackedBf16Weight(packed.kio[0])
+    elif bad == "list":
+        arg = w.tolist()
+    elif bad == "pack_rank":
+        with pytest.raises(ValueError):
+            conv_kernel.pack_bf16_weight(w[0])
+        return
+    else:
+        with pytest.raises(ValueError):
+            conv_kernel.pack_bf16_weight(w[:2])
+        return
+    with pytest.raises(error):
+        conv_kernel.conv2d_nhwc_bf16(x, arg)
+
+
 def test_bf16_route_rule():
     """The reference's channel rule and the kernel's shape rule: what the
     N=192 transforms route, and what stays on the library."""
@@ -253,6 +325,13 @@ def test_route_marks_only_what_the_rule_takes(models, monkeypatch):
     rb, rbu = g_s.layers[0], g_s.layers[1]
     assert rb.conv1.kernel_route and rb.conv2.kernel_route
     assert rbu.kernel_route and rbu.conv.kernel_route
+    # the routed convs hold their weights packed once, in the kernel's layout
+    assert isinstance(rb.conv1._kernel_w, conv_kernel.PackedBf16Weight)
+    assert torch.equal(rb.conv1._kernel_w.hwio(),
+                       rb.conv1.kernel_hwio().to(torch.bfloat16))
+    c1, c2 = rbu.subpel_conv.layers[0], rbu.upsample.layers[0]
+    assert torch.equal(rbu._kernel_w.hwio(), torch.cat(
+        [c1.kernel_hwio(), c2.kernel_hwio()], -1).to(torch.bfloat16))
     last = g_s.layers[-1].layers[0]
     assert not last.kernel_route  # C_out = 12
     calls = []
@@ -305,3 +384,24 @@ def test_codec_roundtrip_with_kernel_transforms(models, monkeypatch):
     assert len(calls) == 26
     assert calls.count((3, 3, N, N)) == 23
     assert calls.count((3, 3, N, 8 * N)) == 3
+
+
+def test_smoke_reads_each_functions_spills_from_ptxas_lines():
+    """ptxas prints a function's spill counts on the line after its
+    "Function properties" line, a line without "ptxas" in it."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    lines = [
+        "ptxas info    : Compiling entry function '_Zbf16' for 'sm_90a'",
+        "ptxas info    : Function properties for _Zbf16",
+        "40 bytes stack frame, 40 bytes spill stores, 488 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers",
+        "ptxas info    : Function properties for _Zf32",
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Function properties for _Znone",
+        "ptxas info    : Used 32 registers, used 0 barriers",
+    ]
+    assert smoke.ptxas_spills(lines) == {"_Zbf16": (40, 488),
+                                         "_Zf32": (0, 0)}

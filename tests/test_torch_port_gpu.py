@@ -15,7 +15,10 @@ out), and the conv (against its plain version, the same fmaf chain with
 an exact FMA), which is also bitwise batch-invariant. The bf16 conv (the
 transforms' route) is held to one bf16 ulp of its plain version, which
 sums in another order (1e-5 of max|plain| for an f32 result), at every
-shape the N=192 transforms route to it and at ragged edges.
+shape the N=192 transforms route to it (with HWIO and with packed
+weights), at a full batch of 24 of the largest level, at ragged edges and
+in each shape class the wrapper takes; operands off the kernel's alignment
+or not contiguous are copied, never read wrongly.
 """
 
 import numpy as np
@@ -373,6 +376,8 @@ def test_conv_bf16_kernel_matches_plain_at_routed_shapes(cuda, h, w, c_out,
     (2, 13, 11, 64, 136, 5, True),  # C_out not a multiple of the tile
     (1, 9, 17, 8, 64, 7, False),  # C_in 8: taps change inside a tile
     (3, 16, 24, 128, 1536, 3, True),
+    (1, 21, 35, 72, 200, 5, False),  # C_in, C_out not multiples of 64
+    (2, 24, 40, 192, 192, 1, True),  # K = 1, W not a multiple of 16
 ])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_conv_bf16_kernel_edges_and_f32_out(cuda, n, h, w, c_in, c_out, k,
@@ -393,6 +398,65 @@ def test_conv_bf16_kernel_edges_and_f32_out(cuda, n, h, w, c_in, c_out, k,
     assert off.data_ptr() % 16 != 0
     assert torch.equal(conv_kernel.conv2d_nhwc_bf16(off, wt, b),
                        conv_kernel.conv2d_nhwc_bf16(x, wt, b))
+
+
+@pytest.mark.parametrize("h,w,c_out", _ROUTED)
+def test_conv_bf16_kernel_with_packed_weights_at_routed_shapes(cuda, h, w,
+                                                              c_out):
+    """The routed convs hand the kernel weights packed once (as the layers
+    hold them): the same result as the HWIO weights, within tolerance of
+    the plain version."""
+    x, wt, b, r = _bf16_case(cuda, 2, h, w, 192, c_out, 3, h + c_out + 1)
+    kw = dict(negative_slope=0.01, residual=r.bfloat16())
+    packed = conv_kernel.pack_bf16_weight(wt)
+    got = conv_kernel.conv2d_nhwc_bf16(x, packed, b, **kw)
+    assert torch.equal(got, conv_kernel.conv2d_nhwc_bf16(x, wt, b, **kw))
+    _bf16_close(got, conv_kernel.conv2d_nhwc_bf16_plain(x, wt, b, **kw))
+
+
+def test_conv_bf16_kernel_at_a_full_batch_of_the_largest_level(cuda):
+    """Batch 24 at the transforms' largest level (384x256, 192 -> 192,
+    LeakyReLU and a bf16 residual), as the batch-24 path runs it."""
+    x, wt, b, r = _bf16_case(cuda, 24, 384, 256, 192, 192, 3, 24)
+    kw = dict(negative_slope=0.01, residual=r.bfloat16())
+    got = conv_kernel.conv2d_nhwc_bf16(x, conv_kernel.pack_bf16_weight(wt),
+                                       b, **kw)
+    _bf16_close(got, conv_kernel.conv2d_nhwc_bf16_plain(x, wt, b, **kw))
+
+
+def test_conv_bf16_kernel_copies_misaligned_or_strided_operands(cuda):
+    """Operands that are not contiguous or start off the kernel's alignment
+    (16 bytes for what TMA reads, 8 for the bias) are copied first, never
+    read wrongly: the same result as the contiguous call."""
+    x, wt, b, r = _bf16_case(cuda, 2, 13, 21, 64, 136, 3, 5)
+    r = r.bfloat16()
+    kw = dict(negative_slope=0.01)
+    want = conv_kernel.conv2d_nhwc_bf16(x, wt, b, residual=r, **kw)
+
+    def off(t, k):
+        """t's values in a buffer that starts k elements late."""
+        flat = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+        flat[k:] = t.reshape(-1)
+        return flat[k:].view(t.shape)
+
+    wide = torch.zeros(2, 13, 21, 72, dtype=x.dtype, device=cuda)
+    wide[..., :64] = x
+    strided_x = wide[..., :64]
+    assert not strided_x.is_contiguous()
+    packed = conv_kernel.pack_bf16_weight(wt)
+    kio_off = conv_kernel.PackedBf16Weight(off(packed.kio, 4))
+    assert kio_off.kio.data_ptr() % 16 != 0
+    b_off = off(b, 1)
+    assert b_off.data_ptr() % 8 != 0
+    r_off = off(r, 2)
+    assert r_off.data_ptr() % 16 != 0
+    r_t = r.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    assert not r_t.is_contiguous()
+    for args, res in (((strided_x, wt, b), r), ((x, kio_off, b), r),
+                      ((x, wt, b_off), r), ((x, wt, b), r_off),
+                      ((x, wt, b), r_t)):
+        got = conv_kernel.conv2d_nhwc_bf16(*args, residual=res, **kw)
+        assert torch.equal(got, want)
 
 
 def test_conv_bf16_kernel_refuses_what_it_does_not_take(cuda):
