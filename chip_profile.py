@@ -2,7 +2,8 @@
 """Where the time goes in the port's batched codec, on one NVIDIA GPU.
 
     python3 chip_profile.py [--batch 2 24] [--reps 3]
-                            [--tiles | --decode | --kernel-transforms]
+                            [--tiles | --decode | --encode |
+                             --kernel-transforms]
 
 For each batch size: N=192, K=4 flagship with weights/ckbd_gmm_n192_k4_
 synthetic.npz, lanes=4096, cap_divisor=4, 768x512 textured-leaves images
@@ -22,6 +23,18 @@ batch 24 (T=864 steps): at W=4096 with its own cluster of 16 CTAs and with
 materialized rows; its serial floor, one active lane on each CTA of the
 W=4096 cluster, and 16 lanes on one CTA (no cluster barrier); and that
 floor at K = 3, which takes the runtime-K code: one JSON line.
+``--encode`` instead times one y-pass encode at each batch's shape (T =
+36 x batch steps: 72 at batch 2, 864 at 24; W=4096, K=4, L=98) two ways:
+the pair the codec ran before the GMM encoder (the bounds kernel, the
+lanes laid out, the encoder over them; and that encoder alone, the z
+pass's kernel, over all lanes and over lane 0 alone) and the GMM encoder
+(bounds evaluated inside it); and the GMM encoder's serial floor (the
+same steps over one lane: one CTA, one active lane) at K=4 and at K=3
+(runtime K). Each with ms a pass and us a step, back to back ("ms") and
+on the device alone ("device_ms": the stream's queue held by a sleep
+kernel until every call is queued, so the wrappers' host time is left
+out; ``chip_smoke.cuda_ms``), and the SM clock while they run: one JSON
+line a batch.
 ``--kernel-transforms`` instead runs the codec along both transform routes,
 the default (cuDNN bf16) and ``kernel_transforms=True`` (the bf16 conv
 kernel), in alternating pairs (default, kernel, kernel, default, ...;
@@ -45,6 +58,8 @@ import sys
 import time
 from pathlib import Path
 
+from chip_smoke import cuda_ms
+
 ROOT = Path(__file__).resolve().parent
 WEIGHTS = ROOT / "weights" / "ckbd_gmm_n192_k4_synthetic.npz"
 H, W = 768, 512
@@ -56,6 +71,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--tiles", action="store_true")
     ap.add_argument("--decode", action="store_true")
+    ap.add_argument("--encode", action="store_true")
     ap.add_argument("--kernel-transforms", action="store_true")
     args = ap.parse_args()
 
@@ -81,6 +97,10 @@ def main() -> int:
         return 0
     if args.decode:
         decode_steps(dev, smi)
+        return 0
+    if args.encode:
+        for b in args.batch:
+            encode_steps(dev, smi, steps=36 * b)
         return 0
     model = Cheng2020AnchorCheckerboardGMMv2(N=192, K=4, seed=0, device=dev)
     load_npz(model, WEIGHTS)
@@ -271,11 +291,7 @@ def routed_convs(codec, x, reps=5):
     rows, total = [], dict.fromkeys(
         ("kernel_ms", "cudnn_ms", "cudnn_cl_ms", "default_ms"), 0.0)
     flops_total = 0
-    # the card's SM clock (MHz) and power draw (W) while the convs run
-    smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader,nounits", "-lms", "100"],
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    sampler = _ClockSampler()
     with torch.inference_mode():
         for (xs, ws, slope, with_res), group in groups.items():
             args, kwargs = group[0]
@@ -295,12 +311,12 @@ def routed_convs(codec, x, reps=5):
                 if slope is not None:
                     y = conv_kernel.leaky_relu(y, slope)
                 return y if res is None else y + res.permute(0, 3, 1, 2)
-            t = {"kernel_ms": _cuda_ms(lambda: kernel(*args, **kwargs), reps),
-                 "cudnn_ms": _cuda_ms(lambda: F.conv2d(
+            t = {"kernel_ms": cuda_ms(lambda: kernel(*args, **kwargs), reps),
+                 "cudnn_ms": cuda_ms(lambda: F.conv2d(
                      x_nchw, w_oihw, b16, padding=pad), reps),
-                 "cudnn_cl_ms": _cuda_ms(lambda: F.conv2d(
+                 "cudnn_cl_ms": cuda_ms(lambda: F.conv2d(
                      x_nchw, w_cl, b16, padding=pad), reps),
-                 "default_ms": _cuda_ms(default, reps)}
+                 "default_ms": cuda_ms(default, reps)}
             flops = 2 * xs[0] * xs[1] * xs[2] * w_hwio.numel()
             n = len(group)
             rows.append({"x": list(xs), "w_hwio": list(w_hwio.shape),
@@ -310,39 +326,37 @@ def routed_convs(codec, x, reps=5):
             for k, v in t.items():
                 total[k] += n * v
             flops_total += n * flops
-    smi.terminate()
-    samples = []
-    for line in smi.communicate(timeout=60)[0].splitlines():
-        fields = line.split(",")
-        if len(fields) == 2 and all(f.strip().replace(".", "").isdigit()
-                                    for f in fields):
-            samples.append((float(fields[0]), float(fields[1])))
-    clocks = sorted(c for c, _ in samples) or [0.0]
-    power = sorted(w for _, w in samples) or [0.0]
     return {"calls": len(calls), "shapes": rows, "sum_ms": total,
-            "sm_clock_mhz": {"min": clocks[0],
-                             "median": statistics.median(clocks),
-                             "max": clocks[-1]},
-            "power_w": {"median": statistics.median(power), "max": power[-1]},
-            "tflop": flops_total / 1e12,
+            **sampler.stop(), "tflop": flops_total / 1e12,
             "tflop_per_s": {k.replace("_ms", ""): flops_total / v / 1e9
                             for k, v in total.items()}}
 
 
-def _cuda_ms(fn, reps):
-    """Mean ms of fn over reps calls after one warm-up, by CUDA events."""
-    import torch
+class _ClockSampler:
+    """The card's SM clock (MHz) and power draw (W), sampled every 100 ms
+    by nvidia-smi from construction to ``stop()``."""
 
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def stop(self):
+        self.proc.terminate()
+        samples = []
+        for line in self.proc.communicate(timeout=60)[0].splitlines():
+            fields = line.split(",")
+            if len(fields) == 2 and all(f.strip().replace(".", "").isdigit()
+                                        for f in fields):
+                samples.append((float(fields[0]), float(fields[1])))
+        clocks = sorted(c for c, _ in samples) or [0.0]
+        power = sorted(w for _, w in samples) or [0.0]
+        return {"sm_clock_mhz": {"min": clocks[0],
+                                 "median": statistics.median(clocks),
+                                 "max": clocks[-1]},
+                "power_w": {"median": statistics.median(power),
+                            "max": power[-1]}}
 
 
 def decode_steps(dev, smi, steps=864):
@@ -386,7 +400,7 @@ def decode_steps(dev, smi, steps=864):
                                                 num_bins)
         if not torch.equal(run().reshape(-1)[on].long(), v[on]):
             raise RuntimeError("decode_scan_gmm: wrong symbols")
-        return _cuda_ms(run, 3)
+        return cuda_ms(run, 3)
 
     with torch.inference_mode():
         out = {"steps": steps, "card": smi, "w4096": {}, "floor": {}}
@@ -396,7 +410,7 @@ def decode_steps(dev, smi, steps=864):
         for cap in (16, 8, 1):
             rans_kernels.MAX_CLUSTER = cap
             out["w4096"][f"cluster {cap}"] = {
-                "gmm_ms": gmm_ms(wide), "rows_ms": _cuda_ms(
+                "gmm_ms": gmm_ms(wide), "rows_ms": cuda_ms(
                     lambda: rans_kernels.decode_scan(wide[3], wide[4], rows,
                                                      wide[2], lo), 3)}
         rans_kernels.MAX_CLUSTER = 16
@@ -408,6 +422,65 @@ def decode_steps(dev, smi, steps=864):
                  256)):
             ms = gmm_ms(case(w, k, every))
             out["floor"][name] = {"ms": ms, "us_per_step": 1e3 * ms / steps}
+        print(json.dumps(out), flush=True)
+
+
+def encode_steps(dev, smi, steps, w=4096, reps=10):
+    """One y pass's encode at batch 24's shape over seeded parameters and
+    symbols (L=98 as the codec's), the old pair and the GMM encoder."""
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.ans import interleaved as il
+    from flashgmm_tpu_torch.ans import rans_kernels
+    from flashgmm_tpu_torch.ans.gaussian_cdf import gmm_guarded_bounds
+
+    lo, num_bins = -48, 97
+    n = steps * w
+
+    def case(k, n_sym):
+        rs = np.random.RandomState(k)
+        p = [rs.uniform(0.11, 8, (n_sym, k)), rs.normal(0, 3, (n_sym, k)),
+             rs.uniform(0.05, 1, (n_sym, k))]
+        p[2] /= p[2].sum(1, keepdims=True)
+        v = np.clip(np.round(rs.normal(0, 4, n_sym)), lo, lo + num_bins - 1)
+        return (torch.from_numpy(v.astype(np.int32)).to(dev),
+                *(torch.from_numpy(a.astype(np.float32)).to(dev) for a in p))
+
+    def timed(fn):
+        ms, dev_ms = cuda_ms(fn, reps), cuda_ms(fn, reps, True)
+        return {"ms": ms, "us_per_step": 1e3 * ms / steps, "device_ms": dev_ms,
+                "device_us_per_step": 1e3 * dev_ms / steps}
+
+    with torch.inference_mode():
+        args = case(4, n)
+        active = il.active_mask(n, steps, w, dev)
+
+        def pair():  # bounds kernel, lanes, encoder: the codec before
+            st, fq = gmm_guarded_bounds(*args, lo, num_bins)
+            return rans_kernels.encode_scan(il.to_lanes(st, w),
+                                            il.to_lanes(fq, w), active)
+        st, fq = gmm_guarded_bounds(*args, lo, num_bins)
+        lanes = (il.to_lanes(st, w), il.to_lanes(fq, w), active)
+        out = {"steps": steps, "lanes": w, "card": smi}
+        sampler = _ClockSampler()
+        out["bounds_kernel_then_encoder"] = timed(pair)
+        out["encoder_over_bounds"] = timed(
+            lambda: rans_kernels.encode_scan(*lanes))
+        one = tuple(a[:, :1].contiguous() for a in lanes)  # lane 0 alone
+        out["encoder_over_bounds_one_lane"] = timed(
+            lambda: rans_kernels.encode_scan(*one))
+
+        def run():
+            return rans_kernels.encode_scan_gmm(*args, lo, num_bins, 0, w)
+        if not all(torch.equal(a, b) for a, b in zip(run(), pair())):
+            raise RuntimeError("gmm_encoder: differs from the pair")
+        out["gmm_encoder"] = timed(run)
+        for k in (4, 3):  # the floor: the same steps over one lane
+            one = case(k, steps)
+            out[f"serial_floor_k{k}"] = timed(
+                lambda: rans_kernels.encode_scan_gmm(*one, lo, num_bins, 0, 1))
+        out.update(sampler.stop())
         print(json.dumps(out), flush=True)
 
 
@@ -436,12 +509,12 @@ def conv_tiles(batches, dev, smi):
                 x = torch.randn(batch, h, w, c_in, device=dev)
                 wt = torch.randn(k, k, c_in, c_out, device=dev) * 0.05
                 bias = torch.randn(c_out, device=dev)
-                tiles = [_cuda_ms(lambda: conv_kernel.conv2d_nhwc(
+                tiles = [cuda_ms(lambda: conv_kernel.conv2d_nhwc(
                     x, wt, bias, tile=t), 20) for t in range(conv_kernel.TILES)]
-                auto = _cuda_ms(lambda: conv_kernel.conv2d_nhwc(x, wt, bias), 20)
+                auto = cuda_ms(lambda: conv_kernel.conv2d_nhwc(x, wt, bias), 20)
                 x_nchw = x.permute(0, 3, 1, 2)
                 w_oihw = wt.permute(3, 2, 0, 1).contiguous()
-                lib = _cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, bias,
+                lib = cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, bias,
                                                 padding=k // 2), 20)
                 rows.append({"shape": [batch, h, w, c_in, c_out, k],
                              "tiles_ms": tiles, "auto_ms": auto,

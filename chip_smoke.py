@@ -10,12 +10,14 @@ Phases, each ending in one flushed line with its seconds:
    shared library), with the -Xptxas -v register and shared-memory lines;
    the bf16 conv kernel's SASS, read from the library by cuobjdump, must
    hold wgmma (HGMMA) and TMA loads (UTMALDG), ptxas must report no spill
-   stores or loads for it, and the library must hold no mma.sync conv
-   kernel;
+   stores or loads for it nor for any instance of the rANS encoder, and the
+   library must hold no mma.sync conv kernel;
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, all bit-exact: the GMM rows and bounds kernels, rANS
-   encode, the cluster decoder over materialized rows and over the GMM
-   rows on demand, also one W=8192 pass, and the conv (the same fmaf
+   encode over materialized bounds, rANS encode over GMM parameters (the
+   y passes' encoder: in modes 0-2, and equal to the bounds kernel
+   followed by the encoder), the cluster decoder over materialized rows and
+   over the GMM rows on demand, also one W=8192 pass, and the conv (the same fmaf
    chain), which is also bitwise batch-invariant and repeatable; then the
    bf16 conv at every shape the transforms route to it, with each of its
    epilogues, and once in each shape class the wrapper takes (C_in and
@@ -27,8 +29,9 @@ Phases, each ending in one flushed line with its seconds:
 4. codec: the batched checkerboard-GMM codec at N=192, K=4, lanes=4096,
    cap_divisor=4 on two 768x512 textured-leaves images: encode_to_bytes,
    then decode_bytes, y_hat exact through the bytes, bpp and PSNR, and
-   every kernel's launch count from that run (the y passes go through the
-   bounds kernel and the on-demand decoder, never the full rows); then the
+   every kernel's launch count from that run (one encode + decode: the z
+   pass's encoder over its tables once, the GMM encoder twice, the bounds
+   kernel and the full rows never; the y passes decode on demand); then the
    same with ``kernel_transforms=True``, whose g_a, h_a and g_s launch the
    bf16 conv 26 times (each call within tolerance of its plain version),
    decode y_hat exactly, and stay within 0.05 dB and 0.5 % bpp of the
@@ -37,9 +40,12 @@ Phases, each ending in one flushed line with its seconds:
    (rows kernel, gather, decoder over materialized rows): identical bytes
    and identical y_hat;
 6. timing: every kernel call of those runs timed again by CUDA events,
-   beside its plain version, a library call where one computes the same
-   function, and its bound; the rows kernel, off the path, on the path's
-   parameters; the on-demand decoder also beside its serial latency floor.
+   back to back ("ms"), beside its plain version, a library call where one
+   computes the same function, and its bound; the encoders and the bounds
+   kernel also on the device alone ("device_ms": the stream's queue filled
+   ahead, so the wrappers' host time is left out); the rows and bounds
+   kernels, off the path, on the path's parameters; the on-demand decoder
+   and the GMM encoder also beside their serial latency floors.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -77,6 +83,10 @@ W_WIDE = 8192  # the widest lanes the JAX bench swept: one pass decodes
 # A&S: sub, div, FMA, div, 4 FMA, 2 mul, exp, 2 mul, FMA, sub, FMA = 44;
 # logistic: sub, div, mul, exp, add, div, FMA = 29.
 ROWS_FLOPS_PER_TERM = {0: 31, 1: 44, 2: 29}
+# kernels also timed on the device alone (cuda_ms(..., ahead=True)): their
+# wrappers never wait for the device, and their calls are short enough for
+# the host's enqueue to bound back-to-back calls
+DEVICE_TIMED = ("rans_encode", "rans_encode_gmm", "gmm_bounds")
 
 _t_phase = [time.perf_counter()]
 
@@ -145,20 +155,41 @@ def ptxas_spills(lines):
     return spills
 
 
-def cuda_ms(fn, reps):
-    """Mean ms of fn over reps calls after one warm-up, by CUDA events."""
+def cuda_ms(fn, reps, ahead=False):
+    """Mean ms of fn over reps calls after one warm-up, by CUDA events. With
+    ``ahead`` the events time the device's work alone, without the
+    wrappers' host time (only for wrappers that never wait for the device):
+    a sleep kernel first holds the stream for twice the host's measured
+    time to enqueue the reps calls, and a run counts only if the sleep was
+    still running once the last call was enqueued (else the sleep doubles
+    and the run is repeated)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    cycles = 0
+    if ahead:  # sleep cycles for twice the enqueue time at up to 2 GHz
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        cycles = int(4e9 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    for _ in range(4):
+        if ahead:
+            torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        # with ahead: the device had not reached the calls yet
+        queued = not ahead or not a.query()
+        b.record()
+        torch.cuda.synchronize()
+        if queued:
+            return a.elapsed_time(b) / reps
+        cycles *= 2
+    raise RuntimeError("cuda_ms: the sleep ended before the calls were queued")
 
 
 def main() -> int:
@@ -217,6 +248,13 @@ def smoke():
         require(count["HGMMA"] > 0, f"{fn}: no wgmma (HGMMA) instructions")
         require(count["UTMALDG"] > 0, f"{fn}: no TMA loads (UTMALDG)")
         require(count["HMMA"] == 0, f"{fn}: mma.sync (HMMA) instructions")
+    enc_spills = {fn: c for fn, c in spills.items() if "rans_encode_kernel" in fn}
+    print(f"  rans encoder instances: {len(enc_spills)}, spills (stores, loads) "
+          f"{sorted(set(enc_spills.values()))}", flush=True)
+    require(len(enc_spills) == 7, "not the 7 rans encoder instances "
+            "(Bounds; GmmBounds in 3 modes at K=4 and at runtime K)")
+    require(all(c == (0, 0) for c in enc_spills.values()),
+            f"rans encoder spills: {enc_spills}")
     phase("build", f"nvcc {kernels.seconds:.2f} s -> {kernels.path.name}")
 
     # 3. each kernel against its plain version at the main path's shapes --
@@ -262,6 +300,31 @@ def smoke():
     require(int(n_k) == int(n_p), "rans encode: n_words differ")
     require(torch.equal(s_k, s_p), "rans encode: streams differ")
 
+    def gmm_encoder_agrees(w, md, pair=None):
+        """The GMM encoder against its plain version (and against the pair
+        it replaced, when given): states, n_words, packed stream."""
+        got = rans_kernels.encode_scan_gmm(values, scales, means, wts, lo,
+                                           num_bins, md, w)
+        ref = rans_kernels.encode_scan_gmm_plain(values, scales, means, wts,
+                                                 lo, num_bins, md, w)
+        torch.cuda.synchronize()
+        for tag, other in (("plain", ref), ("bounds kernel + encoder", pair)):
+            if other is None:
+                continue
+            sg, ng = il.pack_words(*got[1:])
+            so, no = il.pack_words(*other[1:])
+            d = (int((got[0] != other[0]).sum()), abs(int(ng) - int(no)),
+                 int((sg != so).sum()))
+            print(f"  rans encode gmm T={got[1].shape[0]} W={w} n={n_y} mode "
+                  f"{md}: against {tag}, (states, n_words, stream words) "
+                  f"differing {d}", flush=True)
+            require(d == (0, 0, 0), f"rans encode gmm W={w} mode {md}: "
+                    f"differs from {tag}")
+        return got
+
+    for md in (0, 1, 2):
+        gmm_encoder_agrees(LANES, md, (st_k, wd_k, em_k) if md == mode else None)
+
     def decoders_agree(w, states, stream, act, tag):
         """Both row sources of the cluster decoder against the plain
         decoder on the full rows; returns the plain symbols."""
@@ -289,6 +352,7 @@ def smoke():
     act_wide = il.active_mask(n_y, t_wide, W_WIDE, dev)
     st_w, wd_w, em_w = rans_kernels.encode_scan(
         il.to_lanes(start_b, W_WIDE), il.to_lanes(freq_b, W_WIDE), act_wide)
+    gmm_encoder_agrees(W_WIDE, mode, (st_w, wd_w, em_w))
     s_w, _ = il.pack_words(wd_w, em_w)
     decoders_agree(W_WIDE, st_w, s_w, act_wide, "one wide pass")
 
@@ -433,6 +497,7 @@ def smoke():
     # bodies count on the name their module binds, so during this run the
     # counts land on the recorders, which start at 0.
     bound = {"rans_encode": (rans_kernels, "encode_scan"),
+             "rans_encode_gmm": (rans_kernels, "encode_scan_gmm"),
              "rans_decode": (rans_kernels, "decode_scan"),
              "rans_decode_gmm": (rans_kernels, "decode_scan_gmm"),
              "gmm_bounds": (rows_kernel, "gmm_bounds"),
@@ -496,15 +561,17 @@ def smoke():
     data, out, x_hat, launches, calls, t_enc, t_dec = drive(codec)
     y_shape = tuple(out["y_hat"].shape)
     for name, count in launches.items():
-        if name not in ("gmm_rows", "conv2d_nhwc_bf16"):
+        if name not in ("gmm_rows", "gmm_bounds", "conv2d_nhwc_bf16"):
             require(count > 0, f"{name} was not launched on the main path")
-    # per encode: 3 encode passes, 2 of them y passes with their bounds; per
-    # decode: the z pass over its tables, 2 y passes over the GMM rows
+    # per encode: the z pass over its tables, 2 y passes over their GMM
+    # parameters (bounds evaluated in the encoder); per decode: the z pass
+    # over its tables, 2 y passes over the GMM rows
     require(launches["gmm_rows"] == 0, "the main path built full GMM rows")
     require(launches["conv2d_nhwc_bf16"] == 0,
             "the default route launched the bf16 conv kernel")
-    require(launches["gmm_bounds"] * 3 == launches["rans_encode"] * 2,
-            "gmm_bounds: not one launch per encoded y pass")
+    require((launches["rans_encode"], launches["rans_encode_gmm"],
+             launches["gmm_bounds"]) == (1, 2, 0),
+            "encode: not 1 z-pass encode, 2 GMM encodes and no bounds kernel")
     require(launches["rans_decode_gmm"] == 2 * launches["rans_decode"],
             "decode: the y passes did not go through the GMM decoder")
     bpp, psnr = check_run(codec, data, out, x_hat, "default route")
@@ -636,6 +703,20 @@ def smoke():
                       abs(int(pk[1]) - int(pp[1])))
             # starts, freqs (int32), active (1 B); states; words, emits
             return t * w * 9 + 4 * w + t * w * 5, 0, err, None
+        if name == "rans_encode_gmm":
+            vals, sc, _, _, _, _, md, w = args
+            n, k = sc.shape
+            t = -(-n // w)
+            got = originals[name](*args)
+            ref = rans_kernels.encode_scan_gmm_plain(*args)
+            pk, pp = il.pack_words(*got[1:]), il.pack_words(*ref[1:])
+            err = max(int((got[0] - ref[0]).abs().max()),
+                      int((pk[0] - pp[0]).abs().max()),
+                      abs(int(pk[1]) - int(pp[1])))
+            # values (int32) and parameters in; states, words (int32) and
+            # emits (1 B) out; two entries a symbol
+            return (4 * n + 12 * n * k + 4 * w + t * w * 5,
+                    2 * n * (k * ROWS_FLOPS_PER_TERM[md] + 2), err, None)
         if name == "gmm_rows":
             sc, _, _, _, nb, md = args
             n, k = sc.shape
@@ -757,7 +838,22 @@ def smoke():
                 "serial floor: the one-lane-per-CTA decode is wrong")
         return cuda_ms(run, 20)  # as many calls as the kernel is timed over
 
+    def encoder_floor(args):
+        """The GMM encoder's serial floor, device ms, for one recorded call:
+        the same T steps over one lane (one CTA, one active lane)."""
+        vals, sc, mu, wt, lo_, nb, md, w = args
+        n = sc.shape[0]
+        t = -(-n // w)
+        idx = (torch.arange(t, device=dev) * w).clamp(max=n - 1)
+        one = (vals[idx], sc[idx], mu[idx], wt[idx], lo_, nb, md, 1)
+        got = originals["rans_encode_gmm"](*one)
+        ref = rans_kernels.encode_scan_gmm_plain(*one)
+        require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                "serial floor: the one-lane GMM encode differs from plain")
+        return cuda_ms(lambda: originals["rans_encode_gmm"](*one), 20, True)
+
     plains = {"rans_encode": il.encode_scan, "rans_decode": il.decode_scan,
+              "rans_encode_gmm": rans_kernels.encode_scan_gmm_plain,
               "rans_decode_gmm": rans_kernels.decode_scan_gmm_plain,
               "gmm_bounds": gmm_guarded_bounds_plain,
               "gmm_rows": gmm_guarded_rows_plain,
@@ -766,6 +862,10 @@ def smoke():
     sources = {
         "rans_encode": ("flashgmm_tpu_torch/csrc/rans_kernels.cu",
                         "flashgmm_tpu/ans/pallas_coder.py:207"),
+        # the same TPU kernel, with the plain-XLA gmm_guarded_bounds
+        # (flashgmm_tpu/ans/gaussian_cdf.py:150) inside it
+        "rans_encode_gmm": ("flashgmm_tpu_torch/csrc/rans_kernels.cu",
+                            "flashgmm_tpu/ans/pallas_coder.py:207"),
         "rans_decode": ("flashgmm_tpu_torch/csrc/rans_kernels.cu",
                         "flashgmm_tpu/ans/pallas_coder.py:75"),
         "rans_decode_gmm": ("flashgmm_tpu_torch/csrc/rans_kernels.cu",
@@ -782,26 +882,32 @@ def smoke():
         "conv2d_nhwc_bf16": ("flashgmm_tpu_torch/csrc/conv_bf16.cu",
                              "flashgmm_tpu/ops/pallas_conv.py:108"),
     }
-    # the rows kernel is off the path: time it on the path's parameters
-    calls["gmm_rows"] = [(a[1:], {}) for a, _ in calls["gmm_bounds"]]
+    # the rows and bounds kernels are off the path: time them on the path's
+    # parameters and symbols
+    calls["gmm_bounds"] = [(a[:7], {}) for a, _ in calls["rans_encode_gmm"]]
+    calls["gmm_rows"] = [(a[1:7], {}) for a, _ in calls["rans_encode_gmm"]]
     results = []
     for name, kern in originals.items():
         ms = plain_ms = 0.0
         lib_ms = None
         err = 0.0
         by = {"bytes": 0.0, "operations": 0.0}
-        floor_ms = 0.0
+        floor_ms = device_ms = 0.0
         flops_total = 0
         peak = BF16_FLOP_PER_S if name == "conv2d_nhwc_bf16" else F32_FLOP_PER_S
         for i, (args, kwargs) in enumerate(calls[name]):
             nbytes, flops, e, library = stats(name, i, args, kwargs)
             err = max(err, e)
             ms += cuda_ms(lambda: kern(*args, **kwargs), 20)
+            if name in DEVICE_TIMED:
+                device_ms += cuda_ms(lambda: kern(*args, **kwargs), 20, True)
             plain_ms += cuda_ms(lambda: plains[name](*args, **kwargs), 1)
             if library is not None:
                 lib_ms = (lib_ms or 0.0) + cuda_ms(library, 20)
             if name == "rans_decode_gmm":
                 floor_ms += serial_floor(args)
+            if name == "rans_encode_gmm":
+                floor_ms += encoder_floor(args)
             flops_total += flops
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / peak * 1e3
@@ -814,7 +920,9 @@ def smoke():
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": by["bytes"] + by["operations"],
             "bound_by": max(by, key=by.get), "library_ms": lib_ms})
-        if name == "rans_decode_gmm":
+        if name in DEVICE_TIMED:
+            results[-1]["device_ms"] = device_ms
+        if name in ("rans_decode_gmm", "rans_encode_gmm"):
             results[-1]["serial_floor_ms"] = floor_ms
         if name == "conv2d_nhwc_bf16":
             results[-1]["tflop_per_s"] = flops_total / ms / 1e9

@@ -8,9 +8,13 @@ the card unless the caller passes ``device="cpu"``.
 
 The three Pallas TPU kernels of the reference are hand-written CUDA C++ here
 (``csrc/``), built by ``_build.py`` at first use: the rANS encoder and
-decoder (``ans/rans_kernels.py``) and the rows-chain conv
-(``ops/conv_kernel.py``). On CPU tensors each wrapper runs its plain
-PyTorch version instead.
+decoder (``ans/rans_kernels.py``; the y passes' encoder evaluates each
+symbol's GMM bounds inside it, the decoder the rows' entries its search
+probes), and the conv (``ops/conv_kernel.py``) by both of its routes, float32
+for the rows chain and bf16 on the tensor cores for the transforms under
+``kernel_transforms=True``. So are the GMM rows and bounds that the
+reference leaves to XLA (``ans/rows_kernel.py``), off the main path. On
+CPU tensors each wrapper runs its plain PyTorch version instead.
 """
 
 __version__ = "0.1.0"

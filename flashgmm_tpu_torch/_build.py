@@ -22,7 +22,8 @@ from typing import NamedTuple
 _PKG = Path(__file__).resolve().parent
 _SOURCES = ("csrc/rans_kernels.cu", "csrc/conv_kernel.cu",
             "csrc/conv_bf16.cu", "csrc/gmm_rows.cu")
-_HEADERS = ("csrc/gmm_entry.cuh",)  # included by the sources: hashed too
+# included by the sources: hashed too
+_HEADERS = ("csrc/gmm_entry.cuh", "csrc/mbarrier.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
@@ -33,6 +34,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # starts, freqs, active, T, W, states, words, emits, stream
     "fg_rans_encode": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
+    # values, scales, means, weights, n, K, lo, L, mode, T, W,
+    # states (int64), words, emits, stream
+    "fg_rans_encode_gmm": (_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
+                           _I, _I, _P, _P, _P, _P),
     # states, stream words, n_stream, rows, active, lo, T, W, L,
     # max cluster, out, err, stream
     "fg_rans_decode": (_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I,

@@ -3,8 +3,9 @@ rows kernel, bit for bit XLA's CPU arithmetic.
 
 Port of flashgmm_tpu/ans/gaussian_cdf.py. :func:`gmm_guarded_rows` gives
 the full rows, :func:`gmm_guarded_bounds` only the two entries that bound
-each symbol's bin (what the fast codec's encoder takes; its decoder
-evaluates the entries its search probes, ``rans_kernels.decode_scan_gmm``).
+each symbol's bin (the fast codec evaluates those inside its encoder,
+``rans_kernels.encode_scan_gmm``, and the entries its decoder's search
+probes, ``rans_kernels.decode_scan_gmm``).
 On CPU tensors they run the plain torch versions below, on CUDA tensors
 the kernels of ``rows_kernel.py`` (``csrc/gmm_rows.cu``, every entry from
 ``csrc/gmm_entry.cuh``), which perform the same float32 operations with

@@ -7,21 +7,30 @@ version in ``interleaved.py`` only for tensors on the CPU; for CUDA tensors
 it launches its kernel or raises. ``<wrapper>.launches`` counts the kernel
 launches.
 
-``decode_scan_gmm`` is the same decoder with the rows evaluated on demand
-from each symbol's [K] mixture parameters at the probes of its search
-(``gaussian_cdf.gmm_guarded_rows``'s entries, by the code the encoder's
-bounds and the full rows come from, ``csrc/gmm_entry.cuh``), so no rows
-tensor is built: the batched codec's y passes decode through it.
+``encode_scan_gmm`` is the same encoder with each symbol's (start, freq)
+evaluated inside it from the symbol's [K] mixture parameters
+(``gaussian_cdf.gmm_guarded_bounds``, which it replaces on the batched
+codec's y passes), and ``decode_scan_gmm`` the same decoder with the rows'
+entries evaluated at the probes of its search: both by the code the full
+rows come from, ``csrc/gmm_entry.cuh``, so no bounds or rows tensor is
+built.
 
-What bounds them on the card: encode is one thread per lane, a serial walk
-over T with a few bytes read and written per step (memory bound, and
-latency bound at small T). Decode spreads the W lanes over one
-thread-block cluster of up to 16 CTAs (one SM each); its steps are serial,
-each a dependent row search, a cluster-wide scan with one cluster barrier
-and a dependent stream read: latency bound. The cluster has
-min(MAX_CLUSTER, ceil(W / 256)) CTAs (8 where more do not fit on the
-card); the tests and ``chip_profile.py --decode`` lower ``MAX_CLUSTER`` to
-reach the smaller sizes at a given W, whose symbols must be equal.
+What bounds them on the card: encode spreads the lanes over the card in
+slabs of 32, one CTA each; 16 producer warps a CTA stage the inputs of
+chunks of 16 steps ahead (cp.async) and turn them into records (start,
+freq and an exact reciprocal of freq), one warp runs the serial state chain
+over them. The GMM encoder is bound by its producers, whose two GMM
+entries a symbol are some thousands of cycles of latency and take most of
+an SM's instruction issue at W=4096; a chunk takes about one record's time
+whatever the number of active lanes, so at a small T the pass costs its
+chunks, not its chain (``chip_profile.py --encode``). Decode spreads the W
+lanes over one thread-block cluster of up to 16 CTAs (one SM each); its
+steps are serial, each a dependent row search, a cluster-wide scan with
+one cluster barrier and a dependent stream read: latency bound. The
+cluster has min(MAX_CLUSTER, ceil(W / 256)) CTAs (8 where more do not fit
+on the card); the tests and ``chip_profile.py --decode`` lower
+``MAX_CLUSTER`` to reach the smaller sizes at a given W, whose symbols
+must be equal.
 """
 
 import ctypes
@@ -30,7 +39,8 @@ import torch
 
 from flashgmm_tpu_torch import _build
 from flashgmm_tpu_torch.ans import interleaved as il
-from flashgmm_tpu_torch.ans.gaussian_cdf import gmm_guarded_rows_plain
+from flashgmm_tpu_torch.ans.gaussian_cdf import (gmm_guarded_bounds_plain,
+                                                 gmm_guarded_rows_plain)
 from flashgmm_tpu_torch.ans.rows_kernel import MAX_K
 
 MAX_CLUSTER = 16  # the decoder's cluster size cap (Hopper's non-portable max)
@@ -77,6 +87,118 @@ def encode_scan(starts, freqs, active):
 
 
 encode_scan.launches = 0
+
+
+def _mulhi32(m, x):
+    """(m * x) >> 32 of int64 tensors with values < 2^32, without int64
+    overflow."""
+    return (m * (x >> 16) + ((m * (x & il.MASK16)) >> 16)) >> 16
+
+
+def encode_reciprocal(freq):
+    """The encoder kernel's reciprocal of each divisor 1 <= freq <= 65536
+    (csrc/rans_kernels.cu, ``encode_record``), as int64 tensors (m, shift1,
+    shift2): Granlund and Montgomery's multiplier m = floor(2^32 (2^l -
+    freq) / freq) + 1 with l = ceil(log2 freq), computed as the kernel does
+    by two 32-bit divisions."""
+    d = freq.long()
+    l = torch.zeros_like(d)
+    for b in range(17):  # bit length of d - 1
+        l += ((d - 1) >> b) > 0
+    a = (1 << l) - d
+    hi = torch.div(a << 16, d, rounding_mode="floor")
+    m = (hi << 16) + torch.div(((a << 16) - hi * d) << 16, d,
+                               rounding_mode="floor") + 1
+    return m, torch.clamp(l, max=1), torch.clamp(l - 1, min=0)
+
+
+def divmod_reciprocal(x, freq):
+    """(x // freq, x % freq) as the encoder kernel's chain computes them
+    from ``encode_reciprocal(freq)``, for u32 x in int64: a multiply-high
+    and two shifts, the remainder by a multiply-subtract. Equal to
+    ``interleaved.divmod_rans`` (tests/test_torch_port_encode_gmm.py)."""
+    x = x.long()
+    m, s1, s2 = encode_reciprocal(freq)
+    t = _mulhi32(m, x)
+    q = (t + ((x - t) >> s1)) >> s2
+    return q, x - q * freq.long()
+
+
+def encode_scan_gmm_plain(values, scales, means, weights, lo: int,
+                          num_bins: int, mode: int = 0, w: int = 128):
+    """The plain version: each symbol's (start, freq) from the guarded
+    rows' entries, laid over w lanes, then the plain encoder."""
+    n = values.shape[0]
+    t, _ = il.layout(n, w)
+    start, freq = gmm_guarded_bounds_plain(values, scales, means, weights, lo,
+                                           num_bins, mode)
+    return il.encode_scan(il.to_lanes(start, w), il.to_lanes(freq, w),
+                          il.active_mask(n, t, w, values.device))
+
+
+def encode_scan_gmm(values, scales, means, weights, lo: int, num_bins: int,
+                    mode: int = 0, w: int = 128):
+    """Encode n symbols over w lanes (symbol i at step i // w, lane i % w;
+    T = ceil(n / w) steps, lanes at or past n inactive), each under the
+    guarded GMM row of its float32 [K] scales, means and weights, evaluated
+    inside the kernel. values int [n] in [lo, lo + num_bins). Returns
+    (states int64 [w], words int32 [T, w], emits bool [T, w]), equal to
+    ``encode_scan`` over ``gmm_guarded_bounds`` laid over the lanes
+    (:func:`encode_scan_gmm_plain`)."""
+    if scales.device.type == "cpu":
+        return encode_scan_gmm_plain(values, scales, means, weights, lo,
+                                     num_bins, mode, w)
+    name = "rans encode gmm"
+    _build.require_cuda(name, values, scales, means, weights)
+    if values.dim() != 1 or values.dtype.is_floating_point:
+        raise ValueError(f"{name}: values {tuple(values.shape)} "
+                         f"{values.dtype} (need integer [n])")
+    w = int(w)
+    if w < 1:
+        raise ValueError(f"{name}: {w} lanes")
+    n = values.shape[0]
+    T, _ = il.layout(n, w)
+    scales, means, weights, k = _gmm_params(name, scales, means, weights,
+                                            n, lo, num_bins, mode)
+    if scales.shape[0] != n:
+        raise ValueError(f"{name}: {n} values, {scales.shape[0]} parameters")
+    values = values.to(torch.int32).contiguous()
+    dev = values.device
+    states = torch.empty(w, dtype=torch.int64, device=dev)  # < 2^32
+    words = torch.empty((T, w), dtype=torch.int32, device=dev)
+    emits = torch.empty((T, w), dtype=torch.bool, device=dev)
+    lib = _build.load().lib
+    with torch.cuda.device(dev):
+        rc = lib.fg_rans_encode_gmm(
+            _ptr(values), _ptr(scales), _ptr(means), _ptr(weights), n, k,
+            int(lo), num_bins + 1, int(mode), T, w, _ptr(states),
+            _ptr(words), _ptr(emits), _build.stream_ptr(values))
+    _build.check(rc, name)
+    encode_scan_gmm.launches += 1
+    return states, words, emits
+
+
+encode_scan_gmm.launches = 0
+
+
+def _gmm_params(name, scales, means, weights, lanes, lo, num_bins, mode):
+    """Refuse GMM arguments the coder kernels do not take (at most ``lanes``
+    symbols); returns the parameters contiguous, and K."""
+    if any(t.dtype != torch.float32 for t in (scales, means, weights)):
+        raise TypeError(f"{name}: scales, means and weights must be float32")
+    if scales.dim() != 2 or means.shape != scales.shape \
+            or weights.shape != scales.shape:
+        raise ValueError(f"{name}: parameters {tuple(scales.shape)}, "
+                         f"{tuple(means.shape)}, {tuple(weights.shape)} "
+                         "(need three equal [n, K])")
+    n, k = scales.shape
+    if not 1 <= n <= lanes or not 1 <= k <= MAX_K:
+        raise ValueError(f"{name}: n={n}, K={k} for {lanes} lanes")
+    if mode not in (0, 1, 2):
+        raise ValueError(f"{name}: APPROX_MODE {mode}")
+    if not 2 <= num_bins + 1 < 65536 or abs(int(lo)) >= 1 << 22:
+        raise ValueError(f"{name}: lo={lo}, num_bins={num_bins}")
+    return (*(t.contiguous() for t in (scales, means, weights)), k)
 
 
 def _check_decode_args(name, states, stream, active):
@@ -169,22 +291,10 @@ def decode_scan_gmm(states, stream, scales, means, weights, active, lo: int,
     name = "rans decode gmm"
     _build.require_cuda(name, states, stream, scales, means, weights, active)
     T, W = _check_decode_args(name, states, stream, active)
-    if any(t.dtype != torch.float32 for t in (scales, means, weights)):
-        raise TypeError(f"{name}: scales, means and weights must be float32")
-    if scales.dim() != 2 or means.shape != scales.shape \
-            or weights.shape != scales.shape:
-        raise ValueError(f"{name}: parameters {tuple(scales.shape)}, "
-                         f"{tuple(means.shape)}, {tuple(weights.shape)} "
-                         "(need three equal [n, K])")
-    n, k = scales.shape
-    if not 1 <= n <= T * W or not 1 <= k <= MAX_K:
-        raise ValueError(f"{name}: n={n}, K={k} for T*W={T * W}")
-    if mode not in (0, 1, 2):
-        raise ValueError(f"{name}: APPROX_MODE {mode}")
+    scales, means, weights, k = _gmm_params(name, scales, means, weights,
+                                            T * W, lo, num_bins, mode)
+    n = scales.shape[0]
     L = num_bins + 1
-    if not 2 <= L < 65536 or abs(int(lo)) >= 1 << 22:
-        raise ValueError(f"{name}: lo={lo}, num_bins={num_bins}")
-    scales, means, weights = (t.contiguous() for t in (scales, means, weights))
     out = _launch_decode(
         name, "fg_rans_decode_gmm", states, stream,
         (_ptr(scales), _ptr(means), _ptr(weights), n, k), active,

@@ -11,7 +11,9 @@ rows equal the plain version's and the JAX package's bit for bit.
 ``gmm_bounds`` replaces ``gmm_guarded_bounds``
 (flashgmm_tpu/ans/gaussian_cdf.py:150, plain XLA too): each symbol's
 ``(start, freq)``, the two row entries that bound its bin, without the
-rest of the row. The batched codec's encoder takes its bounds from it.
+rest of the row. The batched codec no longer takes it: its encoder
+evaluates the same two entries inside the rANS kernel
+(``rans_kernels.encode_scan_gmm``).
 
 Both take CUDA tensors only and raise on anything else; CPU tensors never
 reach them (``gaussian_cdf`` runs the plain versions for them).

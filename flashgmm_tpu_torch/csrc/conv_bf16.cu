@@ -65,6 +65,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr int kTileH = 8, kTileW = 16;  // output pixels a tile
@@ -92,57 +94,7 @@ struct Params {
   uint32_t out_off, bias_off, a_off, bar_off;  // offsets in shared memory
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t globaltimer_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Returns once the phase of the given parity has completed. A wait of more
-// than 4 s (a fault in the pipeline) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint32_t polls = 0;
-  uint64_t t0 = 0;
-  do {
-    if ((++polls & 4095) == 0) {
-      const uint64_t now = globaltimer_ns();
-      if (t0 == 0)
-        t0 = now;
-      else if (now - t0 > 4000000000ull)
-        __trap();
-    }
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
+using namespace fg;  // smem_u32, mbar_* (mbarrier.cuh)
 
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
                                             uint32_t bar, int c0, int c1,

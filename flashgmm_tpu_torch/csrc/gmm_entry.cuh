@@ -1,9 +1,10 @@
 // One entry of a guarded GMM CDF row, the arithmetic that every kernel of
 // the port needs the rows' integers from: the full-rows kernel
-// (gmm_rows.cu: gmm_rows_kernel), the encoder's bounds (gmm_rows.cu:
-// gmm_bounds_kernel) and the decoder's on-demand search (rans_kernels.cu:
-// the GmmRows row source). They all call gmm::entry, so the encoder's and
-// the decoder's integers come from the same code.
+// (gmm_rows.cu: gmm_rows_kernel), the bounds kernel (gmm_rows.cu:
+// gmm_bounds_kernel), the encoder's bounds (rans_kernels.cu: the GmmBounds
+// record source) and the decoder's on-demand search (rans_kernels.cu: the
+// GmmRows row source). They all call gmm::entry, so the encoder's and the
+// decoder's integers come from the same code.
 //
 //   rows[i, j] = floor(clip(cdf_i(lo + j - 0.5), 0, 1) * (65536 - L)) + j,
 //   rows[i, L-1] = 65536,

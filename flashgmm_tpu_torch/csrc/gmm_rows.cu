@@ -24,6 +24,13 @@
 // a symbol; its 2 entries are about 250 flops at K=4, so on the card it is
 // bound by the float32 arithmetic too, a 49th of the full rows' work at
 // L=98.
+//
+// Neither is on the batched codec's main path: its decoder evaluates the
+// entries its search probes (rans_kernels.cu, GmmRows) and its encoder the
+// two bounds of each symbol (rans_kernels.cu, GmmBounds), with the same
+// gmm::entry. They serve gmm_guarded_rows and gmm_guarded_bounds on CUDA
+// tensors, the full-rows path that chip_smoke.py checks the bytes against,
+// and the smoke's set-ups.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -4,7 +4,9 @@
 // _encode_kernel and ::_decode_kernel. Same math as the plain versions in
 // flashgmm_tpu_torch/ans/interleaved.py: W lanes, symbol i at (step i / W,
 // lane i % W), state in [2^16, 2^32), 16-bit probabilities, at most one u16
-// word per lane and step.
+// word per lane and step. The encoder over GMM parameters (GmmBounds below)
+// also takes the place, on the y passes, of the plain-XLA
+// flashgmm_tpu/ans/gaussian_cdf.py:150 (gmm_guarded_bounds).
 //
 // Plain C interface (built by flashgmm_tpu_torch/_build.py with nvcc into one
 // shared library, loaded with ctypes). Every entry launches on the caller's
@@ -15,6 +17,7 @@
 #include <cuda_runtime.h>
 
 #include "gmm_entry.cuh"
+#include "mbarrier.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -22,34 +25,331 @@ namespace {
 
 constexpr uint32_t kRansL = 1u << 16;
 
-// Encode: one thread per lane walks t = T-1 ... 0 with the state in a
-// register. Native u32 division is exact, so no float divmod is needed.
-// Bound on the card: bytes (each step reads 9 and writes 5 bytes per lane;
-// the division is a few dozen integer operations).
-__global__ void rans_encode_kernel(const int32_t* __restrict__ starts,
-                                   const int32_t* __restrict__ freqs,
-                                   const uint8_t* __restrict__ active,
-                                   int T, int W,
-                                   uint32_t* __restrict__ states,
-                                   int32_t* __restrict__ words,
-                                   uint8_t* __restrict__ emits) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= W) return;
-  uint32_t x = kRansL;
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t i = (size_t)t * W + lane;
-    const bool act = active[i] != 0;
-    const uint32_t freq = (uint32_t)freqs[i];
-    const uint32_t start = (uint32_t)starts[i];
-    const bool emit = act && (x >= (freq << 16));
-    words[i] = (int32_t)(x & 0xFFFFu);
-    emits[i] = emit ? 1 : 0;
-    if (act) {  // inactive (padding) lanes may carry freq 0: never divide
-      const uint32_t x1 = emit ? (x >> 16) : x;
-      x = ((x1 / freq) << 16) + (x1 % freq) + start;
+// Encode: rans_encode_kernel<Src> walks t = T-1 ... 0. The lanes are cut
+// into slabs of 32, one CTA a slab (W = 4096 gives 128 CTAs, one an SM);
+// any W is taken, the last slab may be short. A CTA is one chain warp and 16
+// producer warps around two rings in shared memory:
+//   - inputs: producer warp p owns step p of every chunk of 16 steps. It
+//     stages that step's inputs for its slab with cp.async (16-byte copies
+//     where the segment is aligned, else 4-byte ones) two chunks ahead of
+//     the chunk it works on, walking from the last chunk to the first; each
+//     chunk is one cp.async group, completed by cp.async.wait_group, and a
+//     warp reads only what it staged itself;
+//   - records: for each symbol of its step the producer writes a 16-byte
+//     record (m, start, freq, shifts) into a ring of 4 chunks, completed on
+//     mbarriers (full: 512 producer arrivals; empty: the chain's 32);
+//   - the chain warp, one lane a lane of the slab, loads a chunk's records
+//     into registers, hands the stage back, runs the rANS states through
+//     the chunk's steps and then writes their words and emits. Nothing in a
+//     step but the state's own arithmetic waits on the step before.
+// Every mbarrier wait traps after 4 s (mbarrier.cuh).
+//
+// The division of the chain, x1 / freq, is a multiply-high by the record's
+// m and two shifts (Granlund and Montgomery, "Division by invariant integers
+// using multiplication", 1994, fig. 4.1: exact for every u32 dividend and
+// every divisor 1 <= d < 2^32); the producers compute m. The remainder never
+// appears: (q << 16) + (x1 - q * freq) + start is x1 + start + q * (65536 -
+// freq) mod 2^32, one multiply-add. (The chain with the u32 division
+// x1 / freq instead took 4-6 % longer a pass on the H100; PERF.md.) An
+// inactive lane (padding, or past n) gets the record of freq 65536 and
+// start 0, which leaves its state as it is and never emits, so the chain
+// has no branch.
+//
+// The record source is a template parameter. Bounds reads materialized
+// starts, freqs and active [T, W] (the z pass's EntropyBottleneck tables,
+// and the tests). GmmBounds<MODE, K> evaluates start = row[j] and next =
+// row[j + 1], j = value - lo, of each symbol's guarded GMM row from its [K]
+// scales, means and weights with gmm::entry (gmm_entry.cuh), the same code
+// as gmm_bounds_kernel and the decoder's probes; symbol i is at (step i / W,
+// lane i % W) and a lane is active when i < n. K = 4, the flagship's, is a
+// compile-time instance; any other K takes a runtime-K loop. So the y
+// passes' bounds never reach device memory.
+//
+// Bound on the card (chip_profile.py --encode, PERF.md): the GmmBounds
+// producers' float32 arithmetic, at every T. A record is two entries (about
+// 250 flops at K = 4 from 52 bytes of inputs, several hundred instructions
+// with the IEEE divides' and square roots' checks), and 16 producer warps
+// a CTA at W = 4096 keep the SM's instruction issue near full; a chunk then
+// costs about the same with one active lane as with 32, so the serial floor
+// (one lane) is the full pass's time, and it is not the chain's: the chain
+// (a dependent multiply-high, two shifts and a multiply-add a step, its
+// records already in registers) runs some 2x faster, as the Bounds source,
+// whose producers only form records, shows. The design's answers: the
+// slabs spread the producers over 128 SMs at W = 4096, the staging keeps
+// device-memory latency off both roles, and the reciprocal and the
+// registers keep the chain short, so nothing but the arithmetic is left.
+
+constexpr int kSlab = 32;           // lanes a CTA: the chain warp's lanes
+constexpr int kProducerWarps = 16;
+constexpr int kChunk = kProducerWarps;  // steps a stage, one a producer warp
+constexpr int kInStages = 2;        // chunks of inputs in flight
+constexpr int kRecStages = 4;       // chunks of records between the roles
+constexpr int kEncThreads = 32 * (1 + kProducerWarps);
+
+// The record of a symbol: {m, start, freq, shift1 | shift2 << 8}.
+__device__ __forceinline__ uint4 encode_record(uint32_t start, uint32_t freq) {
+  const uint32_t d = max(freq, 1u);  // an active freq of 0 is not valid input
+  const int l = 32 - __clz(d - 1);   // ceil(log2 d)
+  const uint32_t a = (uint32_t)((1ull << l) - d);  // < d
+  uint32_t m;
+  if (d <= 65536u) {  // floor(2^32 a / d) by two u32 divisions (a < 2^16)
+    const uint32_t hi = (a << 16) / d;
+    m = (hi << 16) + (((a << 16) - hi * d) << 16) / d + 1u;
+  } else {
+    m = (uint32_t)(((uint64_t)a << 32) / d) + 1u;
+  }
+  return make_uint4(m, start, freq,
+                    (uint32_t)min(l, 1) | ((uint32_t)max(l - 1, 0) << 8));
+}
+
+// freq 65536, start 0: x1 + 0 + q * 0 == x, and x >> 16 < 65536 never emits
+__device__ __forceinline__ uint4 idle_record() {
+  return make_uint4(1u, 0u, 65536u, 1u | (15u << 8));
+}
+
+__device__ __forceinline__ uint32_t record_quotient(const uint4& r,
+                                                    uint32_t x) {
+  const uint32_t t = __umulhi(r.x, x);
+  return (t + ((x - t) >> (r.w & 0xFFu))) >> (r.w >> 8);
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `words` 4-byte words from device memory into shared memory (16-byte
+// aligned), by the 32 lanes of a warp.
+__device__ __forceinline__ void stage_words(void* dst, const void* src,
+                                            int words, int lane) {
+  const uint32_t d = fg::smem_u32(dst);
+  const char* s = (const char*)src;
+  if ((((uintptr_t)s) & 15) == 0 && (words & 3) == 0) {
+    for (int e = lane; e < words >> 2; e += 32) cp_async16(d + 16 * e, s + 16 * e);
+  } else {
+    for (int e = lane; e < words; e += 32) cp_async4(d + 4 * e, s + 4 * e);
+  }
+}
+
+struct Bounds {
+  using State = uint32_t;  // the final states, as fg_rans_encode has them
+  const int32_t* starts;  // [T, W]
+  const int32_t* freqs;
+  const uint8_t* active;
+  // a step's staging: starts [32], freqs [32], active [32 bytes]
+  __host__ __device__ int step_words() const { return 2 * kSlab + kSlab / 4; }
+  __device__ __forceinline__ void stage(uint32_t* dst, size_t i0, int nl,
+                                        int lane) const {
+    stage_words(dst, starts + i0, nl, lane);
+    stage_words(dst + kSlab, freqs + i0, nl, lane);
+    const uint8_t* a = active + i0;
+    uint8_t* d = (uint8_t*)(dst + 2 * kSlab);
+    if ((((uintptr_t)a) & 3) == 0 && (nl & 3) == 0) {
+      stage_words(d, a, nl >> 2, lane);
+    } else {  // plain copies, ordered for the warp by its next __syncwarp
+      for (int e = lane; e < nl; e += 32) d[e] = a[e];
     }
   }
-  states[lane] = x;
+  __device__ __forceinline__ uint4 record(const uint32_t* st, int l,
+                                          long long) const {
+    const bool act = ((const uint8_t*)(st + 2 * kSlab))[l] != 0;
+    return act ? encode_record(st[l], st[kSlab + l]) : idle_record();
+  }
+};
+
+template <int MODE, int KC>
+struct GmmBounds {
+  static constexpr int kN = KC > 0 ? KC : gmm::kMaxK;  // parameters held
+  using State = int64_t;  // the final states as the wrapper returns them
+  const int32_t* values;  // [n]
+  const float* scales;    // [n, K]
+  const float* means;
+  const float* weights;
+  long long n;
+  int K, lo, L;
+  // a step's staging: values [32], scales, means, weights [32 * K] each
+  __host__ __device__ int step_words() const { return kSlab * (1 + 3 * K); }
+  __device__ __forceinline__ void stage(uint32_t* dst, size_t i0, int nl,
+                                        int lane) const {
+    const long long left = n - (long long)i0;
+    const int cnt = left <= 0 ? 0 : (int)min((long long)nl, left);
+    if (cnt == 0) return;
+    const size_t g = i0 * (size_t)K;
+    stage_words(dst, values + i0, cnt, lane);
+    stage_words(dst + kSlab, scales + g, cnt * K, lane);
+    stage_words(dst + kSlab * (1 + K), means + g, cnt * K, lane);
+    stage_words(dst + kSlab * (1 + 2 * K), weights + g, cnt * K, lane);
+  }
+  __device__ __forceinline__ uint4 record(const uint32_t* st, int l,
+                                          long long i) const {
+    if (i >= n) return idle_record();
+    const int k_n = KC > 0 ? KC : K;
+    const float* p = (const float*)st + kSlab + l * k_n;
+    float s[kN], m[kN], b[kN];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      s[k] = 1.0f, m[k] = 0.0f, b[k] = 0.0f;
+      if (k < k_n) {  // no read past the staging at runtime K
+        s[k] = gmm::ftz(p[k]);
+        m[k] = gmm::ftz(p[kSlab * k_n + k]);
+        b[k] = gmm::term_b<MODE>(p[2 * kSlab * k_n + k]);
+      }
+    }
+    const int j = (int)st[l] - lo;
+    const int a = gmm::entry<MODE, KC>(s, m, b, K, lo, j, L);
+    const int c = gmm::entry<MODE, KC>(s, m, b, K, lo, j + 1, L);
+    return encode_record((uint32_t)a, (uint32_t)(c - a));
+  }
+};
+
+// The chain warp: C chunks of records, from the last steps to the first.
+template <class State>
+__device__ __forceinline__ void encode_chain(const uint4* recs, uint32_t full0,
+                                             uint32_t empty0, int C, int T,
+                                             int W, int lane0, int nl,
+                                             int lane, State* states,
+                                             int32_t* words, uint8_t* emits) {
+  uint32_t x = kRansL;
+  for (int q = 0; q < C; ++q) {
+    const int r = q % kRecStages;
+    fg::mbar_wait(full0 + 8 * r, (q / kRecStages) & 1);
+    // the chunk's records into registers, and the stage back at once; the
+    // steps then wait on nothing but the state. Steps past T hold idle
+    // records, so every chunk runs all its steps without a branch.
+    const uint4* rec = recs + r * kChunk * kSlab + lane;
+    uint4 rc[kChunk];
+#pragma unroll
+    for (int tt = 0; tt < kChunk; ++tt) rc[tt] = rec[tt * kSlab];
+    fg::mbar_arrive(empty0 + 8 * r);
+    uint32_t w[kChunk];
+    uint32_t em = 0;  // emit bits
+#pragma unroll
+    for (int tt = kChunk - 1; tt >= 0; --tt) {
+      const uint32_t xs = x >> 16;
+      const bool emit = xs >= rc[tt].z;  // x >= freq << 16, without overflow
+      const uint32_t x1 = emit ? xs : x;
+      const uint32_t qt = record_quotient(rc[tt], x1);
+      w[tt] = x & 0xFFFFu;
+      em |= (uint32_t)emit << tt;
+      x = x1 + rc[tt].y + qt * (65536u - rc[tt].z);
+    }
+    if (lane < nl) {
+      const int t0 = (C - 1 - q) * kChunk;
+      size_t i = (size_t)t0 * W + lane0 + lane;
+#pragma unroll
+      for (int tt = 0; tt < kChunk; ++tt, i += W) {
+        if (t0 + tt < T) {
+          words[i] = (int32_t)w[tt];
+          emits[i] = (uint8_t)((em >> tt) & 1u);
+        }
+      }
+    }
+  }
+  if (lane < nl) states[lane0 + lane] = (State)x;
+}
+
+template <class Src>
+__global__ void __launch_bounds__(kEncThreads, 1)
+rans_encode_kernel(const Src src, int T, int W,
+                   typename Src::State* __restrict__ states,
+                   int32_t* __restrict__ words, uint8_t* __restrict__ emits) {
+  extern __shared__ __align__(16) uint32_t dyn[];
+  __shared__ __align__(8) uint64_t bars[2 * kRecStages];  // full, empty
+  uint4* recs = (uint4*)dyn;  // [kRecStages][kChunk][kSlab]
+  uint32_t* in = dyn + 4 * kRecStages * kChunk * kSlab;  // [kInStages][kChunk][step]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int lane0 = blockIdx.x * kSlab;
+  const int nl = min(kSlab, W - lane0);
+  const int C = (T + kChunk - 1) / kChunk;
+  const uint32_t full0 = fg::smem_u32(&bars[0]);
+  const uint32_t empty0 = fg::smem_u32(&bars[kRecStages]);
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < kRecStages; ++r) {
+      fg::mbar_init(full0 + 8 * r, 32 * kProducerWarps);
+      fg::mbar_init(empty0 + 8 * r, 32);
+    }
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    encode_chain(recs, full0, empty0, C, T, W, lane0, nl, lane, states,
+                 words, emits);
+    return;
+  }
+
+  // producer warp p: step p of every chunk
+  const int p = warp - 1;
+  const int sw = src.step_words();
+  auto fill = [&](int q) {  // stage chunk q (one cp.async group, maybe empty)
+    const int t = (C - 1 - q) * kChunk + p;
+    if (q < C && t < T)
+      src.stage(in + ((q % kInStages) * kChunk + p) * sw,
+                (size_t)t * W + lane0, nl, lane);
+    cp_async_commit();
+  };
+  for (int q = 0; q < kInStages; ++q) fill(q);
+  for (int q = 0; q < C; ++q) {
+    cp_async_wait<kInStages - 1>();  // this warp's chunk q has landed
+    __syncwarp();
+    const int t = (C - 1 - q) * kChunk + p;
+    uint4 rc = idle_record();
+    if (t < T && lane < nl)
+      rc = src.record(in + ((q % kInStages) * kChunk + p) * sw, lane,
+                      (long long)t * W + lane0 + lane);
+    const int r = q % kRecStages;
+    fg::mbar_wait(empty0 + 8 * r, ((q / kRecStages) & 1) ^ 1);
+    recs[(r * kChunk + p) * kSlab + lane] = rc;
+    fg::mbar_arrive(full0 + 8 * r);
+    __syncwarp();  // the warp is done with the stage: refill it
+    fill(q + kInStages);
+  }
+}
+
+// One CTA a slab of 32 lanes; the rings take 32 KB of records and
+// 2 * 16 * step_words words of inputs (52 KB at K = 4).
+template <class Src>
+int launch_encode(const Src& src, int T, int W, void* states, void* words,
+                  void* emits, cudaStream_t stream) {
+  if (W < 1 || T < 0) return (int)cudaErrorInvalidValue;
+  auto kernel = rans_encode_kernel<Src>;
+  const int smem = 16 * kRecStages * kChunk * kSlab +
+                   4 * kInStages * kChunk * src.step_words();
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(W + kSlab - 1) / kSlab, kEncThreads, smem, stream>>>(
+      src, T, W, (typename Src::State*)states, (int32_t*)words,
+      (uint8_t*)emits);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int launch_encode_gmm(const int32_t* v, const float* sc, const float* mu,
+                      const float* wt, long long n, int K, int lo, int L,
+                      int T, int W, void* states, void* words, void* emits,
+                      cudaStream_t s) {
+  if (K == 4)
+    return launch_encode(GmmBounds<MODE, 4>{v, sc, mu, wt, n, K, lo, L}, T, W,
+                         states, words, emits, s);
+  return launch_encode(GmmBounds<MODE, 0>{v, sc, mu, wt, n, K, lo, L}, T, W,
+                       states, words, emits, s);
 }
 
 // Decode. The stream offset g is global over all W lanes, so the lanes of a
@@ -401,12 +701,27 @@ int launch_decode_gmm(const float* sc, const float* mu, const float* wt,
 extern "C" int fg_rans_encode(const void* starts, const void* freqs,
                               const void* active, int T, int W, void* states,
                               void* words, void* emits, void* stream) {
-  const int threads = 128;
-  const int blocks = (W + threads - 1) / threads;
-  rans_encode_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)starts, (const int32_t*)freqs, (const uint8_t*)active,
-      T, W, (uint32_t*)states, (int32_t*)words, (uint8_t*)emits);
-  return (int)cudaGetLastError();
+  const Bounds src{(const int32_t*)starts, (const int32_t*)freqs,
+                   (const uint8_t*)active};
+  return launch_encode(src, T, W, states, words, emits, (cudaStream_t)stream);
+}
+
+extern "C" int fg_rans_encode_gmm(const void* values, const void* scales,
+                                  const void* means, const void* weights,
+                                  long long n, int K, int lo, int L, int mode,
+                                  int T, int W, void* states, void* words,
+                                  void* emits, void* stream) {
+  if (n < 1 || K < 1 || K > gmm::kMaxK || mode < 0 || mode > 2 || L < 2 ||
+      W < 1 || T < 0 || n > (long long)T * W)
+    return (int)cudaErrorInvalidValue;
+  const int32_t* v = (const int32_t*)values;
+  const float* sc = (const float*)scales;
+  const float* mu = (const float*)means;
+  const float* wt = (const float*)weights;
+  auto launch = mode == 0 ? launch_encode_gmm<0>
+                : mode == 1 ? launch_encode_gmm<1> : launch_encode_gmm<2>;
+  return launch(v, sc, mu, wt, n, K, lo, L, T, W, states, words, emits,
+                (cudaStream_t)stream);
 }
 
 extern "C" int fg_rans_decode(const void* states, const void* stream_words,

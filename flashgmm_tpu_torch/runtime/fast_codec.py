@@ -4,10 +4,11 @@ flashgmm_tpu/runtime/fast_codec.py:133-677, ``FastCheckerboardGmmCodec``).
 Encode: g_a -> h_a -> z quantized against the EntropyBottleneck tables ->
 z pass; then the shared stages side (h_s) -> params0 -> anchor pass ->
 params1 (5x5 checkerboard context) -> non-anchor pass. Decode runs the same
-order and ends in g_s. The y passes never build CDF rows: the encoder takes
-each symbol's (start, freq) from ``gmm_guarded_bounds`` and the decoder
-evaluates the rows' entries at the probes of its search
-(``rans_kernels.decode_scan_gmm``), both from the same entry arithmetic.
+order and ends in g_s. The y passes never build CDF rows: the encoder
+evaluates each symbol's (start, freq) inside its kernel
+(``rans_kernels.encode_scan_gmm``) and the decoder evaluates the rows'
+entries at the probes of its search (``rans_kernels.decode_scan_gmm``),
+both from the same entry arithmetic.
 Only the stream words cross to the host. The byte format is the interleaved one of docs/bitstream.md §2, with the JAX
 package's lanes, stream caps, StreamOverflow fallback and NHWC-ravel symbol
 order, so the bytes of either package decode in the other when their rows
@@ -37,8 +38,7 @@ import torch
 
 from flashgmm_tpu_torch.ans import interleaved as il
 from flashgmm_tpu_torch.ans import rans_kernels
-from flashgmm_tpu_torch.ans.gaussian_cdf import (get_approx_mode,
-                                                 gmm_guarded_bounds)
+from flashgmm_tpu_torch.ans.gaussian_cdf import get_approx_mode
 from flashgmm_tpu_torch.layers import route_bf16_kernel, run_canonical
 
 
@@ -53,18 +53,23 @@ class PassStream(NamedTuple):
     n_words: torch.Tensor  # int64 scalar
 
 
+def _pack_pass(states, words, emits, cap_divisor: int) -> PassStream:
+    """An encoded pass's words packed into its stream, capped at
+    ``T*W // cap_divisor`` words. ``n_words`` above the cap signals
+    overflow (the caller re-encodes uncapped)."""
+    t, w = words.shape
+    stream, n_words = il.pack_words(words, emits)
+    return PassStream(states, stream[:max(t * w // cap_divisor, w)], n_words)
+
+
 def _encode_pass(start, freq, w: int, cap_divisor: int = 4) -> PassStream:
-    """Encode one symbol stream through the rANS encode kernel; the buffer
-    is capped at ``T*W // cap_divisor`` words. ``n_words`` above the cap
-    signals overflow (the caller re-encodes uncapped)."""
+    """Encode one symbol stream of materialized (start, freq) (the z pass)
+    through the rANS encode kernel."""
     n = start.shape[0]
     t, _ = il.layout(n, w)
     active = il.active_mask(n, t, w, start.device)
-    states, words, emits = rans_kernels.encode_scan(
-        il.to_lanes(start, w), il.to_lanes(freq, w), active)
-    stream, n_words = il.pack_words(words, emits)
-    cap = max(t * w // cap_divisor, w)
-    return PassStream(states, stream[:cap], n_words)
+    return _pack_pass(*rans_kernels.encode_scan(
+        il.to_lanes(start, w), il.to_lanes(freq, w), active), cap_divisor)
 
 
 def _decode_pass(ps: PassStream, rows, n: int, lo: int, w: int):
@@ -179,12 +184,12 @@ class FastCheckerboardGmmCodec:
         return self._gmm_pass_params(ctx, side1)
 
     def _encpass(self, params, sym_flat, cap_divisor):
-        """(start, freq) of each symbol's bin under its pass's parameters,
-        then encode."""
+        """Encode one y pass, each symbol's (start, freq) evaluated by the
+        encoder from its pass's parameters."""
         lo, num_bins = self._lo_bins()
-        start, freq = gmm_guarded_bounds(sym_flat, *params, lo, num_bins,
-                                         self.mode)
-        return _encode_pass(start, freq, self.lanes, cap_divisor)
+        return _pack_pass(*rans_kernels.encode_scan_gmm(
+            sym_flat, *params, lo, num_bins, self.mode, self.lanes),
+            cap_divisor)
 
     def _decpass(self, ps, params, n):
         """Decode one y pass of n symbols whose rows are the guarded GMM

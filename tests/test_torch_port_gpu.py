@@ -6,8 +6,11 @@ conftest, which imports JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py -q
 
-Every kernel must equal its plain version bit for bit: rANS encode, both
-row sources of the cluster decoder (materialized rows, and the GMM rows
+Every kernel must equal its plain version bit for bit: rANS encode (over
+materialized bounds, and over GMM parameters whose bounds it evaluates
+itself, which also equals the bounds kernel followed by the encoder),
+both row sources of the cluster
+decoder (materialized rows, and the GMM rows
 evaluated on demand) at cluster sizes up to 16 (``MAX_CLUSTER`` lowered
 to reach the smaller ones), the GMM rows and bounds
 kernels (against the plain version, which is XLA's CPU arithmetic written
@@ -20,6 +23,9 @@ weights), at a full batch of 24 of the largest level, at ragged edges and
 in each shape class the wrapper takes; operands off the kernel's alignment
 or not contiguous are copied, never read wrongly.
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -101,6 +107,105 @@ def test_rans_kernels_match_plain(cuda, monkeypatch, w, n, num_bins):
     ref = rans_kernels.decode_scan_gmm_plain(st_k, s_k, *params, active, lo,
                                              num_bins)
     assert torch.equal(ref, sym_p)
+
+
+def _gmm_symbols(n, k, num_bins, dev, seed):
+    """Seeded [n, K] mixture parameters and [n] symbols, both ends of the
+    range included."""
+    rs = np.random.RandomState(seed)
+    s = rs.uniform(0.11, 10, (n, k))
+    m = rs.normal(0, 3, (n, k))
+    w = rs.uniform(0.1, 1, (n, k))
+    w /= w.sum(1, keepdims=True)
+    lo = -(num_bins // 2)
+    v = np.clip(np.round(rs.normal(0, 4, n)), lo, lo + num_bins - 1)
+    v[:3], v[3:6] = lo, lo + num_bins - 1
+    params = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (s, m, w)]
+    return torch.from_numpy(v.astype(np.int32)).to(dev), params, lo
+
+
+# the W/T grid of test_rans_kernels_match_plain, and W = 37, whose segments
+# are off the 16-byte alignment of the kernel's wide copies
+@pytest.mark.parametrize("k", [4, 3])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("w,n,num_bins", [
+    (40, 1000, 19), (128, 5000, 97), (1000, 9000, 33), (4096, 30000, 97),
+    (8192, 40000, 97), (1000, 1000, 97), (4096, 4000, 97), (8192, 8192, 97),
+    (37, 3000, 97)])
+def test_rans_encode_gmm_matches_plain(cuda, w, n, num_bins, mode, k):
+    values, params, lo = _gmm_symbols(n, k, num_bins, cuda, w + mode + k)
+    ref = rans_kernels.encode_scan_gmm_plain(values, *params, lo, num_bins,
+                                             mode, w)
+    s_ref, n_ref = il.pack_words(*ref[1:])
+    # the parent's pair: the bounds kernel, then the encoder over them
+    t, _ = il.layout(n, w)
+    start, freq = gmm_guarded_bounds(values, *params, lo, num_bins, mode)
+    pair = rans_kernels.encode_scan(il.to_lanes(start, w), il.to_lanes(freq, w),
+                                    il.active_mask(n, t, w, cuda))
+    before = rans_kernels.encode_scan_gmm.launches
+    got = rans_kernels.encode_scan_gmm(values, *params, lo, num_bins, mode, w)
+    assert rans_kernels.encode_scan_gmm.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    s_got, n_got = il.pack_words(*got[1:])
+    assert int(n_got) == int(n_ref) and torch.equal(s_got, s_ref)
+    for a, b in zip(pair, ref):
+        assert torch.equal(a, b)
+    # and it decodes
+    sym = rans_kernels.decode_scan_gmm(got[0], s_got[: int(n_got)], *params,
+                                       il.active_mask(n, t, w, cuda), lo,
+                                       num_bins, mode)
+    assert torch.equal(il.from_lanes(sym, n), values)
+
+
+def test_rans_encode_over_bounds_off_alignment(cuda):
+    """The encoder over materialized bounds at a W whose active bytes and
+    words sit off 4- and 16-byte alignment (its plain-copy staging)."""
+    for w, n in ((37, 2000), (5, 101), (1, 17)):
+        starts, freqs, active, *_ = _coder_case(n, w, 33, cuda, seed=w)
+        got = rans_kernels.encode_scan(starts, freqs, active)
+        ref = il.encode_scan(starts, freqs, active)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), w
+
+
+def test_rans_encode_gmm_refuses_what_it_does_not_take(cuda):
+    v = torch.zeros(100, dtype=torch.int32, device=cuda)
+    p = torch.ones(100, 4, device=cuda)
+    with pytest.raises(TypeError):
+        rans_kernels.encode_scan_gmm(v, p.double(), p.double(), p.double(),
+                                     -48, 97)
+    with pytest.raises(ValueError):  # values not [n]
+        rans_kernels.encode_scan_gmm(v[:, None], p, p, p, -48, 97)
+    with pytest.raises(ValueError):  # values as floats
+        rans_kernels.encode_scan_gmm(v.float(), p, p, p, -48, 97)
+    with pytest.raises(ValueError):  # fewer parameters than values
+        rans_kernels.encode_scan_gmm(v, p[:50], p[:50], p[:50], -48, 97)
+    with pytest.raises(ValueError):  # K above the kernel's 8
+        q = torch.ones(100, 9, device=cuda)
+        rans_kernels.encode_scan_gmm(v, q, q, q, -48, 97)
+    with pytest.raises(ValueError):
+        rans_kernels.encode_scan_gmm(v, p, p, p, -48, 97, mode=3)
+    with pytest.raises(ValueError):
+        rans_kernels.encode_scan_gmm(v, p, p, p, -48, 97, w=0)
+    with pytest.raises(ValueError):  # not all on the card
+        rans_kernels.encode_scan_gmm(v.cpu(), p, p, p, -48, 97)
+
+
+def test_rans_encoder_instances_do_not_spill(cuda):
+    """ptxas reports no spill stores or loads for any instance of the
+    encoder (Bounds, and GmmBounds in 3 modes at K = 4 and runtime K), as
+    chip_smoke.py requires."""
+    from flashgmm_tpu_torch import _build
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    spills = {fn: c for fn, c in smoke.ptxas_spills(_build.load().ptxas).items()
+              if "rans_encode_kernel" in fn}
+    assert len(spills) == 7, spills
+    assert all(c == (0, 0) for c in spills.values()), spills
 
 
 @pytest.mark.parametrize("source", ["rows", "gmm"])
@@ -312,17 +417,17 @@ def test_codec_roundtrip_on_card(cuda, n, kernel_transforms):
     wrappers = (rans_kernels.encode_scan, rans_kernels.decode_scan,
                 rans_kernels.decode_scan_gmm, conv_kernel.conv2d_nhwc,
                 rows_kernel.gmm_bounds, rows_kernel.gmm_rows,
-                conv_kernel.conv2d_nhwc_bf16)
+                conv_kernel.conv2d_nhwc_bf16, rans_kernels.encode_scan_gmm)
     counts = [f.launches for f in wrappers]
     data, out = codec.encode_to_bytes(x)
     y_shape = tuple(out["y_hat"].shape)
     x_hat = codec.decode_bytes(data, y_shape)
-    # 3 encode passes; z decodes over its tables, the y passes over the
-    # GMM rows on demand; bounds for the 2 encoded y passes; no full rows;
-    # with kernel_transforms, g_a (9), h_a (3) and g_s (14) convs on the
-    # bf16 conv kernel
+    # z encodes over its tables, the y passes over their GMM parameters
+    # (no bounds kernel); z decodes over its tables, the y passes over the
+    # GMM rows on demand; no full rows; with kernel_transforms, g_a (9), h_a
+    # (3) and g_s (14) convs on the bf16 conv kernel
     assert [f.launches - c for f, c in zip(wrappers, counts)] == \
-        [3, 1, 2, 24, 2, 0, 26 if kernel_transforms else 0]
+        [1, 1, 2, 24, 0, 0, 26 if kernel_transforms else 0, 2]
     y_dec = codec.decode_y_hat(codec.from_bytes(data, y_shape), y_shape)
     assert torch.equal(y_dec, out["y_hat"])
     assert x_hat.shape == x.shape and bool(torch.isfinite(x_hat).all())
