@@ -3,7 +3,7 @@
 
     python3 chip_profile.py [--batch 2 24] [--reps 3]
                             [--tiles | --decode | --encode |
-                             --kernel-transforms]
+                             --kernel-transforms | --latency]
 
 For each batch size: N=192, K=4 flagship with weights/ckbd_gmm_n192_k4_
 synthetic.npz, lanes=4096, cap_divisor=4, 768x512 textured-leaves images
@@ -47,18 +47,30 @@ calls it (OIHW weights), the same with channels-last weights, and the
 default route's conv with its separate LeakyReLU and residual add, each
 with its TFLOP/s; then, for each route, a torch.profiler table of its
 device time by kernel over one encode + decode at the last batch size.
+``--latency`` instead runs the single-image codec (FastLatencyGmmCodec:
+lanes=1024, cap_divisor=4, bench.py's first image, seed 500001) on both
+transform routes, its CUDA graphs and the same functions run eagerly in
+alternating runs (graph, eager, eager, graph, ...; --reps runs of each,
+at least 20): one JSON line a route with the median host-clock and
+CUDA-event ms of the certified encode, the encode alone and the decode in
+each mode, the eager run's stage times (a graph has no stages), and, from
+torch.profiler over one graph run and one eager run, the device time,
+busy and idle share of each direction and the y-pass decoders' share of
+the decode direction, with the share of the card's SMs their cluster
+holds; then each route's profiler table of device time by kernel.
 Needs a CUDA device; imports no JAX.
 """
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-from chip_smoke import cuda_ms
+from chip_smoke import cuda_ms, latency_run
 
 ROOT = Path(__file__).resolve().parent
 WEIGHTS = ROOT / "weights" / "ckbd_gmm_n192_k4_synthetic.npz"
@@ -73,6 +85,7 @@ def main() -> int:
     ap.add_argument("--decode", action="store_true")
     ap.add_argument("--encode", action="store_true")
     ap.add_argument("--kernel-transforms", action="store_true")
+    ap.add_argument("--latency", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -105,49 +118,17 @@ def main() -> int:
     model = Cheng2020AnchorCheckerboardGMMv2(N=192, K=4, seed=0, device=dev)
     load_npz(model, WEIGHTS)
     model.update(update_quantiles=True)
-    codec = FastCheckerboardGmmCodec(model, lanes=4096, cap_divisor=4)
     images = [textured_leaves(H, W, seed=500001 + i) for i in range(max(args.batch))]
+    if args.latency:
+        single_image(model, images[0], max(args.reps, 20), dev, smi)
+        return 0
+    codec = FastCheckerboardGmmCodec(model, lanes=4096, cap_divisor=4)
     if args.kernel_transforms:
         kcodec = FastCheckerboardGmmCodec(model, lanes=4096, cap_divisor=4,
                                           kernel_transforms=True)
         both_routes({"default": codec, "kernel_transforms": kcodec},
                     images, args.batch, args.reps, dev, smi)
         return 0
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, 1e3 * (time.perf_counter() - t0)
-
-    def stages(x, data, y_shape):
-        """The codec's stages one at a time (its internals, in the order
-        encode() and decode() run them), each ending in a synchronize."""
-        c = codec
-        b, h, w, ch = y_shape
-        n = b * h * (w // 2) * ch
-        ms = {}
-        with torch.inference_mode():
-            y, ms["g_a (bf16, cuDNN)"] = timed(lambda: c._transform(c._g_a, x))
-            z, ms["h_a (bf16, cuDNN)"] = timed(lambda: c._transform(c._h_a, y))
-            z_bin = torch.round(z - c._med).to(torch.int32) - c._z_off
-            z_bin = torch.minimum(torch.clamp_min(z_bin, 0), c._z_maxbin)
-            sym = torch.clamp(torch.round(c._ckbd.unembed(y)).to(torch.int32),
-                              -c.max_abs, c.max_abs)
-            side, ms["h_s (conv kernel)"] = timed(lambda: c._side(z_bin))
-            params0, ms["params0 (EP convs)"] = timed(
-                lambda: c._params0(side[0]))
-            _, ms["params1 (context + EP convs)"] = timed(
-                lambda: c._params1(side[1], sym[0]))
-            _, ms["y pass encode (bounds + kernel + pack)"] = timed(
-                lambda: c._encpass(params0, sym[0].reshape(-1), c.cap_divisor))
-            streams = c.from_bytes(data, y_shape)
-            _, ms["y pass decode (GMM rows on demand)"] = timed(
-                lambda: c._decpass(streams["y0"], params0, n))
-            y_hat = c._ckbd.embed(sym.float())
-            _, ms["g_s (bf16, cuDNN)"] = timed(lambda: c._transform(c._g_s, y_hat))
-        return ms
 
     for b in args.batch:
         x = torch.from_numpy(np.stack(images[:b])).to(dev)
@@ -170,7 +151,8 @@ def main() -> int:
             "bpp": len(data) * 8 / (b * H * W),
             "psnr_db": float(np.mean(-10 * np.log10(np.maximum(mse, 1e-12)))),
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "stages_ms": stages(x, data, y_shape), "card": smi}), flush=True)
+            "stages_ms": stages(codec, x, data, y_shape), "card": smi}),
+              flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -184,18 +166,166 @@ def main() -> int:
     return 0
 
 
+def timed(fn):
+    """(fn(), host ms) around work that ends in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def stages(c, x, data, y_shape):
+    """Batched codec c's stages one at a time (its internals, in the order
+    encode() and decode() run them), each ending in a synchronize."""
+    import torch
+
+    b, h, w, ch = y_shape
+    n = b * h * (w // 2) * ch
+    route = ("bf16 kernel" if any(getattr(m, "kernel_route", False)
+                                  for m in c._g_a.modules())
+             else "bf16, cuDNN")
+    ms = {}
+    with torch.inference_mode():
+        y, ms[f"g_a ({route})"] = timed(lambda: c._transform(c._g_a, x))
+        z, ms[f"h_a ({route})"] = timed(lambda: c._transform(c._h_a, y))
+        z_bin = torch.round(z - c._med).to(torch.int32) - c._z_off
+        z_bin = torch.minimum(torch.clamp_min(z_bin, 0), c._z_maxbin)
+        sym = torch.clamp(torch.round(c._ckbd.unembed(y)).to(torch.int32),
+                          -c.max_abs, c.max_abs)
+        side, ms["h_s (conv kernel)"] = timed(lambda: c._side(z_bin))
+        params0, ms["params0 (EP convs)"] = timed(
+            lambda: c._params0(side[0]))
+        _, ms["params1 (context + EP convs)"] = timed(
+            lambda: c._params1(side[1], sym[0]))
+        _, ms["y pass encode (GMM encoder + pack)"] = timed(
+            lambda: c._encpass(params0, sym[0].reshape(-1), c.cap_divisor))
+        streams = c.from_bytes(data, y_shape)
+        _, ms["y pass decode (GMM rows on demand)"] = timed(
+            lambda: c._decpass(streams["y0"], params0, n))
+        y_hat = c._ckbd.embed(sym.float())
+        _, ms[f"g_s ({route})"] = timed(lambda: c._transform(c._g_s, y_hat))
+    return ms
+
+
+def single_image(model, image, reps, dev, smi):
+    """The latency codec on both routes, graph and eager runs alternating."""
+    import statistics
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flashgmm_tpu_torch.ans import rans_kernels
+    from flashgmm_tpu_torch.runtime import FastLatencyGmmCodec
+
+    torch.backends.cudnn.allow_tf32 = False  # as chip_smoke.py sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(image[None]).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tables = []
+    for route in (False, True):
+        lat = FastLatencyGmmCodec(model, kernel_transforms=route)
+        with torch.inference_mode():
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                data, y_shape = lat.encode_certified(x)  # builds the graphs
+            runs = {"graph": [], "eager": []}
+            for mode in ("graph", "eager"):  # warm-up
+                lat._graphed = mode == "graph"
+                latency_run(lat, x, data, y_shape)
+            if lat._fallback_digests or len(lat._graphs) != 3:
+                raise RuntimeError("latency: not certified on three graphs")
+            for r in range(reps):
+                for mode in (("graph", "eager") if r % 2 == 0
+                             else ("eager", "graph")):
+                    lat._graphed = mode == "graph"
+                    runs[mode].append(latency_run(lat, x, data, y_shape))
+            lat._graphed = False
+            b = lat._batched
+            b_data, _ = b.encode_to_bytes(x)
+            stage_ms = stages(b, x, b_data, y_shape)
+            device = {}
+            for mode in ("graph", "eager"):
+                lat._graphed = mode == "graph"
+                device[mode] = {}
+                for op, fn in (("encode_certified",
+                                lambda: lat.encode_certified(x)),
+                               ("decode", lambda: lat.decode(data, y_shape))):
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        fn()
+                        torch.cuda.synchronize()
+                    device[mode][op] = device_shares(prof)
+                    if mode == "graph" and op == "decode":
+                        tables.append((route, prof.key_averages().table(
+                            sort_by="self_device_time_total", row_limit=25,
+                            max_name_column_width=60)))
+            lat._graphed = True
+        mse = float(((lat.decode(data, y_shape) - x) ** 2).mean())
+        cluster = min(rans_kernels.MAX_CLUSTER, -(-lat.lanes // 256))
+        print(json.dumps({
+            "route": "kernel_transforms" if route else "default",
+            "lanes": lat.lanes, "cap_divisor": lat.cap_divisor,
+            "bytes": len(data), "bpp": len(data) * 8 / (H * W),
+            "psnr_db": -10 * math.log10(max(mse, 1e-12)),
+            "runs": reps, "ms": {mode: {op: {
+                "host_median": statistics.median(r[op][0] for r in rr),
+                "cuda_events_median": statistics.median(r[op][1] for r in rr),
+                "host_runs": [r[op][0] for r in rr]}
+                for op in rr[0]} for mode, rr in runs.items()},
+            "eager_stages_ms": stage_ms, "device": device,
+            "decoder_cluster_ctas": cluster, "sms": sms,
+            "decoder_sm_share": cluster / sms, "card": smi}), flush=True)
+    for route, table in tables:
+        print(f"route {'kernel_transforms' if route else 'default'}, one "
+              "graph decode (decode-y and g_s replays):", flush=True)
+        print(table, flush=True)
+
+
+def device_shares(prof):
+    """From a profiler trace of one operation: device ms (the sum of the
+    kernels' and memory operations' durations), the span from the first
+    one's start to the last one's end, the busy share of that span (their
+    union) and the idle share, and the ms and share of the busy time of the
+    rANS decoders (``rans_decode_kernel``), and of the y passes' (their GMM
+    row source) among them."""
+    spans, dec, dec_y = [], 0.0, 0.0
+    for e in prof.events():
+        if getattr(e, "device_type", None) is None or \
+                str(e.device_type) != "DeviceType.CUDA":
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        spans.append((t0, t1))
+        if "rans_decode_kernel" in e.name:
+            dec += t1 - t0
+            dec_y += (t1 - t0) * ("GmmRows" in e.name)
+    if not spans:
+        return {"device_ms": None}  # the trace holds no device activity
+    spans.sort()
+    busy, (cur0, cur1) = 0.0, spans[0]
+    for t0, t1 in spans[1:]:
+        if t0 > cur1:
+            busy += cur1 - cur0
+            cur0, cur1 = t0, t1
+        else:
+            cur1 = max(cur1, t1)
+    busy += cur1 - cur0
+    span = max(t1 for _, t1 in spans) - spans[0][0]
+    return {"device_ms": sum(t1 - t0 for t0, t1 in spans) / 1e3,
+            "span_ms": span / 1e3, "busy_share": busy / span,
+            "idle_share": 1 - busy / span, "decoder_ms": dec / 1e3,
+            "y_decoder_ms": dec_y / 1e3, "decoder_share_of_busy": dec / busy}
+
+
 def both_routes(codecs, images, batches, reps, dev, smi):
     """Each codec's encode + decode in alternating pairs at each batch."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, 1e3 * (time.perf_counter() - t0)
 
     for b in batches:
         x = torch.from_numpy(np.stack(images[:b])).to(dev)

@@ -39,13 +39,29 @@ Phases, each ending in one flushed line with its seconds:
 5. paths: the same batch encoded and decoded along the full-rows path
    (rows kernel, gather, decoder over materialized rows): identical bytes
    and identical y_hat;
-6. timing: every kernel call of those runs timed again by CUDA events,
+6. latency: the single-image codec (FastLatencyGmmCodec, one CUDA graph
+   each for encode, decode-y and g_s) at lanes=1024, cap_divisor=4 on the
+   first image, on both transform routes: certified on the graph path with
+   no fallback; exactly three graphs, each direction's captured launches
+   as the path's; bytes equal to the eager run of the same functions (the
+   batched codec at the latency codec's settings), whose launches equal
+   the graphs'; y_hat exact through the bytes and through the batched
+   codec at lanes=1024; a forced certification failure takes the fallback,
+   whose bytes decode; a truncated stream raises after the decode-y
+   replay; bytes, bpp, PSNR, each direction's launches and the median
+   host-clock and CUDA-event ms of 20 runs of the certified encode, the
+   encode alone and the decode, graph and eager;
+7. timing: every kernel call of those runs timed again by CUDA events,
    back to back ("ms"), beside its plain version, a library call where one
    computes the same function, and its bound; the encoders and the bounds
    kernel also on the device alone ("device_ms": the stream's queue filled
    ahead, so the wrappers' host time is left out); the rows and bounds
    kernels, off the path, on the path's parameters; the on-demand decoder
-   and the GMM encoder also beside their serial latency floors.
+   and the GMM encoder also beside their serial latency floors; and each
+   kernel's calls of the latency path's eager run (batch 1), held to its
+   plain version and timed ("latency_ms", "latency_device_ms",
+   "latency_bound_ms"), beside its launches in each direction's graph
+   ("latency_launches").
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -59,6 +75,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -77,6 +94,9 @@ BF16_RTOL, BF16_ATOL, F32_REL = 2.0 ** -7, 1e-3, 1e-5
 # kernel must not move: the route is opt-in
 DEFAULT_BYTES, DEFAULT_PSNR = 100282, 29.9711
 W_WIDE = 8192  # the widest lanes the JAX bench swept: one pass decodes
+# the single-image latency codec: the JAX bench's lanes for it
+# (bench.py:108-134), and the runs each of its timings is the median of
+LAT_LANES, LAT_REPS = 1024, 20
 # float32 operations of one mixture term of one rows entry, by APPROX_MODE
 # (each add, sub, mul, div, sqrt and floor 1, each FMA 2; XLA's exp is 22):
 # Pólya: sub, div, 2 mul, exp, sub, sqrt, add, and the mixture FMA = 31;
@@ -190,6 +210,64 @@ def cuda_ms(fn, reps, ahead=False):
             return a.elapsed_time(b) / reps
         cycles *= 2
     raise RuntimeError("cuda_ms: the sleep ended before the calls were queued")
+
+
+def truncate_pass(data, lanes, which):
+    """Codec bytes (docs/bitstream.md §2: per pass u32 n_words, u32 x lanes
+    states, u16 x n_words words) with pass ``which`` (0 z, 1 y0, 2 y1) cut
+    to half its words: a truncated file."""
+    import numpy as np
+
+    parts, off = [], 0
+    for i in range(3):
+        n = int(np.frombuffer(data, np.uint32, 1, off)[0])
+        head, end = off + 4 + 4 * lanes, off + 4 + 4 * lanes + 2 * n
+        if i == which:
+            parts += [np.uint32(n // 2).tobytes(), data[off + 4:head],
+                      data[head:head + 2 * (n // 2)]]
+        else:
+            parts.append(data[off:end])
+        off = end
+    return b"".join(parts)
+
+
+def latency_run(codec, x, data, y_shape):
+    """One run of each single-image operation of a FastLatencyGmmCodec on
+    image x [1, H, W, 3] whose certified bytes are ``data``: the certified
+    encode, the encode alone (the encode direction and the bytes) and the
+    decode of ``data``, each timed by host clock around work that ends in a
+    synchronize and by CUDA events around it: {op: (host ms, events ms)}."""
+    import torch
+
+    ops = {"encode_certified": lambda: codec.encode_certified(x),
+           "encode": lambda: codec._batched.to_bytes(
+               dict(zip(("z", "y0", "y1"), codec._encode(x)[:3]))),
+           "decode": lambda: codec.decode(data, y_shape)}
+    out = {}
+    for op, fn in ops.items():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out[op] = (1e3 * (time.perf_counter() - t0), a.elapsed_time(b))
+    return out
+
+
+def latency_times(codec, x, reps):
+    """Median ms of ``reps`` runs (after one warm-up) of each operation of
+    ``latency_run``: {op: {"host_ms", "cuda_ms"}}."""
+    import statistics
+
+    data, y_shape = codec.encode_certified(x)
+    latency_run(codec, x, data, y_shape)
+    runs = [latency_run(codec, x, data, y_shape) for _ in range(reps)]
+    return {op: {"host_ms": statistics.median(r[op][0] for r in runs),
+                 "cuda_ms": statistics.median(r[op][1] for r in runs)}
+            for op in runs[0]}
 
 
 def main() -> int:
@@ -506,20 +584,21 @@ def smoke():
              "conv2d_nhwc_bf16": (conv_kernel, "conv2d_nhwc_bf16")}
     originals = {name: getattr(*where) for name, where in bound.items()}
 
-    def drive(c):
-        """One encode_to_bytes + decode_bytes of the batch through codec c
-        (after a warm-up for the library's autotuning), every launch
-        counted from 0: (bytes, encoder output, decoded images, launches,
-        recorded calls, encode s, decode s)."""
-        data, out = c.encode_to_bytes(x)
-        c.decode_bytes(data, tuple(out["y_hat"].shape))
+    def record(run):
+        """run() with every kernel wrapper wrapped in a recorder that keeps
+        its inputs, every launch counted from 0: (run's result, launches,
+        recorded calls)."""
         calls = {name: [] for name in bound}
 
         def recorder(name):
             fn = originals[name]
 
             def wrapped(*args, **kwargs):
-                calls[name].append((args, kwargs))
+                # err=None is the decoders' default, which the plain
+                # versions do not take
+                kept = {k: v for k, v in kwargs.items()
+                        if not (k == "err" and v is None)}
+                calls[name].append((args, kept))
                 return fn(*args, **kwargs)
             wrapped.launches = 0
             return wrapped
@@ -527,6 +606,23 @@ def smoke():
         for name, (module, attr) in bound.items():
             setattr(module, attr, recorder(name))
         try:
+            result = run()
+            launches = {name: getattr(*where).launches
+                        for name, where in bound.items()}
+        finally:
+            for name, (module, attr) in bound.items():
+                setattr(module, attr, originals[name])
+        return result, launches, calls
+
+    def drive(c):
+        """One encode_to_bytes + decode_bytes of the batch through codec c
+        (after a warm-up for the library's autotuning), every launch
+        counted from 0: (bytes, encoder output, decoded images, launches,
+        recorded calls, encode s, decode s)."""
+        data, out = c.encode_to_bytes(x)
+        c.decode_bytes(data, tuple(out["y_hat"].shape))
+
+        def run():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             data, out = c.encode_to_bytes(x)
@@ -534,12 +630,10 @@ def smoke():
             x_hat = c.decode_bytes(data, tuple(out["y_hat"].shape))
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            launches = {name: getattr(*where).launches
-                        for name, where in bound.items()}
-        finally:
-            for name, (module, attr) in bound.items():
-                setattr(module, attr, originals[name])
-        return data, out, x_hat, launches, calls, t1 - t0, t2 - t1
+            return data, out, x_hat, t1 - t0, t2 - t1
+
+        (data, out, x_hat, t_enc, t_dec), launches, calls = record(run)
+        return data, out, x_hat, launches, calls, t_enc, t_dec
 
     def check_run(c, data, out, x_hat, tag):
         """y_hat exact through the bytes, finite pixels that are g_s of
@@ -672,7 +766,144 @@ def smoke():
           "gives the same y_hat", flush=True)
     phase("paths")
 
-    # 6. timing of every recorded call ------------------------------------
+    # 6. the single-image latency codec: one CUDA graph a direction -------
+    from flashgmm_tpu_torch.runtime import FastLatencyGmmCodec
+
+    x1 = x[:1].contiguous()  # seed SEED0 + 1, bench.py's first image
+    wrapper_name = {attr: name for name, (_, attr) in bound.items()}
+    # each direction's launches of each kernel: (default route, kernel route)
+    expected = {"encode": {"rans_encode": 1, "rans_encode_gmm": 2,
+                           "conv2d_nhwc": 12, "conv2d_nhwc_bf16": (0, 12)},
+                "decode_y": {"rans_decode": 1, "rans_decode_gmm": 2,
+                             "conv2d_nhwc": 12},
+                "g_s": {"conv2d_nhwc_bf16": (0, 14)}}
+    lanes_codec = FastCheckerboardGmmCodec(model, lanes=LAT_LANES,
+                                           cap_divisor=CAP_DIVISOR)
+    lat_runs = {}
+    for route in (False, True):
+        tag = "kernel_transforms" if route else "default"
+        lat = FastLatencyGmmCodec(model, lanes=LAT_LANES,
+                                  cap_divisor=CAP_DIVISOR,
+                                  kernel_transforms=route)
+        fallbacks = []
+        encode_fallback = lat._encode_fallback
+
+        def counted(*args, _fallback=encode_fallback):
+            fallbacks.append(1)
+            return _fallback(*args)
+        lat._encode_fallback = counted
+
+        def first(lat=lat):
+            """The first encode_certified + decode: each direction's eager
+            warm-up, its capture and its replays."""
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                t0 = time.perf_counter()
+                data, y_shape = lat.encode_certified(x1)
+                x_hat = lat.decode(data, y_shape)
+                torch.cuda.synchronize()
+            return data, y_shape, x_hat, time.perf_counter() - t0
+
+        (l_data, l_shape, l_xhat, t_build), l_launches, _ = record(first)
+        require(not fallbacks and not lat._fallback_digests,
+                f"latency {tag}: certification fell back on the graph path")
+        graphs = {d: g for (d, _), g in lat._graphs.items()}
+        require(len(lat._graphs) == 3 and sorted(graphs) == [
+            "decode_y", "encode", "g_s"], f"latency {tag}: graphs "
+            f"{list(lat._graphs)}, not one each for encode, decode-y, g_s")
+        g_launches = {d: {wrapper_name[k]: v for k, v in g.launches.items()}
+                      for d, g in graphs.items()}
+        for d, counts in g_launches.items():
+            for name, count in counts.items():
+                want = expected[d].get(name, 0)
+                want = want[route] if isinstance(want, tuple) else want
+                require(count == want, f"latency {tag}: the {d} graph "
+                        f"launches {name} {count} times, not {want}")
+        for name, count in l_launches.items():
+            if sum(g_launches[d].get(name, 0) for d in g_launches):
+                require(count > 0, f"latency {tag}: {name} not launched")
+
+        def eager(lat=lat, y_shape=l_shape):
+            """The same functions without graphs: the batched codec's
+            encode_to_bytes and decode_bytes at the latency codec's
+            settings."""
+            data, out = lat._batched.encode_to_bytes(x1)
+            x_hat = lat._batched.decode_bytes(data, y_shape)
+            torch.cuda.synchronize()
+            return data, out, x_hat
+
+        (e_data, e_out, e_xhat), e_launches, e_calls = record(eager)
+        require(e_data == l_data, f"latency {tag}: graph bytes differ from "
+                "the eager run's")
+        for name, count in e_launches.items():
+            require(count == sum(g_launches[d].get(name, 0)
+                                 for d in g_launches),
+                    f"latency {tag}: the eager run launches {name} {count} "
+                    "times, the graphs another number")
+        y_graph = lat._decode_y(lat._passes(lat.from_bytes(l_data, l_shape)),
+                                l_shape).clone()
+        require(int(lat._err) == 0, f"latency {tag}: decoder error flag set")
+        require(torch.equal(y_graph, e_out["y_hat"]),
+                f"latency {tag}: y_hat not exact through the bytes")
+        y_lanes = lanes_codec.decode_y_hat(
+            lanes_codec.from_bytes(l_data, l_shape), l_shape)
+        require(torch.equal(y_lanes, e_out["y_hat"]), f"latency {tag}: the "
+                f"batched codec at lanes={LAT_LANES} decodes another y_hat")
+        gs_diff = float((l_xhat - e_xhat).abs().max())
+        require(tuple(l_xhat.shape) == (1, H, W, 3)
+                and bool(torch.isfinite(l_xhat).all()) and gs_diff < 1e-2,
+                f"latency {tag}: x_hat {tuple(l_xhat.shape)}, graph against "
+                f"eager g_s max|d| {gs_diff}")
+        mse = float(((l_xhat - x1) ** 2).mean())
+        l_psnr = -10 * np.log10(max(mse, 1e-12))
+        l_bpp = len(l_data) * 8 / (H * W)
+
+        # a forced certification failure takes the fallback, whose bytes
+        # decode (the failure is forced in both comparisons: the digest)
+        lat._cmp = lambda a, b: torch.zeros((), dtype=torch.bool,
+                                            device=a.device)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            f_data, f_shape = lat.encode_certified(x1)
+        del lat._cmp
+        require(len(fallbacks) == 1 and lat._fallback_digests and any(
+            issubclass(w_.category, RuntimeWarning) for w_ in caught),
+            f"latency {tag}: a forced failure did not take the fallback")
+        require(torch.equal(lat.decode(f_data, f_shape),
+                            lat._batched.decode_bytes(f_data, f_shape)),
+                f"latency {tag}: the fallback's bytes do not decode")
+        lat._fallback_digests.clear()
+        # a truncated stream raises after the decode-y replay (the flag)
+        try:
+            lat.decode(truncate_pass(l_data, LAT_LANES, 1), l_shape)
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+        require("past its end" in raised,
+                f"latency {tag}: a truncated stream did not raise ({raised})")
+        torch.cuda.synchronize()
+        require(torch.equal(lat.decode(l_data, l_shape), l_xhat),
+                f"latency {tag}: decode differs after the truncated stream")
+
+        times = {"graph": latency_times(lat, x1, LAT_REPS)}
+        lat._graphed = False  # the same functions, eagerly
+        times["eager"] = latency_times(lat, x1, LAT_REPS)
+        lat._graphed = True
+        lat_runs[route] = (e_out, e_calls, g_launches)
+        print(f"  latency {tag}: y_hat {list(l_shape)} exact through "
+              f"{len(l_data)} bytes (the eager run's, and the batched codec "
+              f"at lanes={LAT_LANES} decodes them); bpp {l_bpp:.7f}, PSNR "
+              f"{l_psnr:.4f} dB; graph and eager x_hat max|d| {gs_diff:.3g}; "
+              f"forced failure: fallback taken, bytes decode; truncated y0 "
+              f"raises; first call (warm-up, capture) {t_build:.2f} s",
+              flush=True)
+        print(f"  latency {tag}: kernel launches captured, each direction: "
+              f"{g_launches}", flush=True)
+        print(f"  latency {tag}: median ms of {LAT_REPS} runs (host clock, "
+              f"CUDA events): {json.dumps(times)}", flush=True)
+    phase("latency", f"batch 1, lanes={LAT_LANES}, both routes")
+
+    # 7. timing of every recorded call ------------------------------------
     pass_words = [int(out[k].n_words) for k in ("z", "y0", "y1")]
 
     def probes_by_count(L):
@@ -688,10 +919,11 @@ def smoke():
             probes.append(n_eval)
         return probes
 
-    def stats(name, i, args, kwargs):
+    def stats(name, i, args, kwargs, words):
         """(bytes, flops, max|kernel - plain|, library call or None) of one
-        recorded call; bytes count each input read once and each output
-        written once, at what this call's data needs."""
+        recorded call, the i-th of its kernel in a run whose z, y0 and y1
+        passes hold ``words`` stream words; bytes count each input read once
+        and each output written once, at what this call's data needs."""
         if name == "rans_encode":
             starts, _, _ = args
             t, w = starts.shape
@@ -745,7 +977,7 @@ def smoke():
                       .abs().max())
             # states, the consumed words, the two row entries that bound each
             # active symbol's bin, active (1 B), symbols out (int32)
-            return (4 * w + 4 * pass_words[0] + 8 * int(act.sum())
+            return (4 * w + 4 * words[0] + 8 * int(act.sum())
                     + t * w * 5, 0, err, None)
         if name == "rans_decode_gmm":
             _, _, sc, _, _, act, lo_, nb, md = args
@@ -760,7 +992,7 @@ def smoke():
             n_eval = int(probes[count].sum())
             # states, the consumed words, each symbol's parameters, active
             # (1 B), symbols out (int32)
-            return (4 * w + 4 * pass_words[1 + i % 2] + 12 * n * k
+            return (4 * w + 4 * words[1 + i % 2] + 12 * n * k
                     + t * w * 5, n_eval * (k * ROWS_FLOPS_PER_TERM[md] + 2),
                     err, None)
         xi, wi, bi = args
@@ -886,7 +1118,12 @@ def smoke():
     # parameters and symbols
     calls["gmm_bounds"] = [(a[:7], {}) for a, _ in calls["rans_encode_gmm"]]
     calls["gmm_rows"] = [(a[1:7], {}) for a, _ in calls["rans_encode_gmm"]]
+    # the latency path's calls (batch 1, lanes=LAT_LANES): its eager run of
+    # the functions its graphs capture; the bf16 conv's on the kernel route
+    lat_words = {route: [int(run[0][k].n_words) for k in ("z", "y0", "y1")]
+                 for route, run in lat_runs.items()}
     results = []
+    t_lat = 0.0  # seconds spent on the latency path's calls
     for name, kern in originals.items():
         ms = plain_ms = 0.0
         lib_ms = None
@@ -896,7 +1133,8 @@ def smoke():
         flops_total = 0
         peak = BF16_FLOP_PER_S if name == "conv2d_nhwc_bf16" else F32_FLOP_PER_S
         for i, (args, kwargs) in enumerate(calls[name]):
-            nbytes, flops, e, library = stats(name, i, args, kwargs)
+            nbytes, flops, e, library = stats(name, i, args, kwargs,
+                                              pass_words)
             err = max(err, e)
             ms += cuda_ms(lambda: kern(*args, **kwargs), 20)
             if name in DEVICE_TIMED:
@@ -912,22 +1150,49 @@ def smoke():
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / peak * 1e3
             by["bytes" if t_bytes >= t_ops else "operations"] += max(t_bytes, t_ops)
+        route = name == "conv2d_nhwc_bf16"
+        l_calls, g_launches = lat_runs[route][1], lat_runs[route][2]
+        lat_t = {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
+        t0 = time.perf_counter()
+        for i, (args, kwargs) in enumerate(l_calls.get(name, [])):
+            nbytes, flops, e, _ = stats(name, i, args, kwargs,
+                                        lat_words[route])
+            err = max(err, e)
+            lat_t["ms"] += cuda_ms(lambda: kern(*args, **kwargs), 20)
+            if name in DEVICE_TIMED:
+                lat_t["device_ms"] += cuda_ms(lambda: kern(*args, **kwargs),
+                                              20, True)
+            lat_t["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                           flops / peak)
+        t_lat += time.perf_counter() - t0
         if name != "conv2d_nhwc_bf16":  # held to its tolerance in stats
             require(err == 0, f"{name} differs from its plain version")
+        lat_launches = {d: g_launches[d].get(name, 0) for d in g_launches}
+        # a certified encode replays encode and decode-y, a decode decode-y
+        # and g_s
+        lat_launches["encode_certified_and_decode"] = (
+            lat_launches["encode"] + 2 * lat_launches["decode_y"]
+            + lat_launches["g_s"])
         results.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": by["bytes"] + by["operations"],
             "bound_by": max(by, key=by.get), "library_ms": lib_ms})
+        results[-1].update({"latency_launches": lat_launches,
+                            "latency_ms": lat_t["ms"],
+                            "latency_bound_ms": lat_t["bound_ms"]})
         if name in DEVICE_TIMED:
             results[-1]["device_ms"] = device_ms
+            results[-1]["latency_device_ms"] = lat_t["device_ms"]
         if name in ("rans_decode_gmm", "rans_encode_gmm"):
             results[-1]["serial_floor_ms"] = floor_ms
         if name == "conv2d_nhwc_bf16":
             results[-1]["tflop_per_s"] = flops_total / ms / 1e9
             results[-1]["library_tflop_per_s"] = flops_total / lib_ms / 1e9
-    phase("timing", "(sums over every launch of one encode + decode)")
+    phase("timing", "(sums over every launch of one encode + decode; "
+          "latency_*: of one encode + decode at batch 1, eager, "
+          f"{t_lat:.2f} s of the phase)")
 
     print(json.dumps({"kernels": results, "card": kind,
                       "power_limit": smi_line.split(",")[-1].strip()}),

@@ -5,7 +5,9 @@
 ``flashgmm_tpu_torch/csrc/rans_kernels.cu``). Each wrapper takes the plain
 version in ``interleaved.py`` only for tensors on the CPU; for CUDA tensors
 it launches its kernel or raises. ``<wrapper>.launches`` counts the kernel
-launches.
+launches. The decoders raise on a desynchronised stream at once, or, given
+an error flag (``err``), set it on the device without waiting, so that a
+CUDA graph can capture them (``runtime/latency_codec.py``).
 
 ``encode_scan_gmm`` is the same encoder with each symbol's (start, freq)
 evaluated inside it from the symbol's [K] mixture parameters
@@ -212,40 +214,59 @@ def _check_decode_args(name, states, stream, active):
     return T, W
 
 
-def _launch_decode(name, entry, states, stream, source, active, tail):
+def _launch_decode(name, entry, states, stream, source, active, tail,
+                   err=None):
     """Launch a decoder entry, whose arguments are (states, stream,
     n_stream, *source, active, *tail, MAX_CLUSTER, out, err, stream);
-    returns int32 [T, W] symbols. Raises on a refused launch and on a
-    desynchronised stream."""
+    returns int32 [T, W] symbols. Raises on a refused launch. Without
+    ``err`` it waits for the kernel and raises on a desynchronised stream;
+    with it the kernel ORs 1 into ``err`` and nothing waits (a CUDA graph
+    can capture the call; the caller checks the flag)."""
     T, W = active.shape
     dev = active.device
     states32 = _u32_as_i32(states).contiguous()
     stream = stream.to(torch.int32).contiguous()
     active = active.to(torch.bool).contiguous()
     out = torch.empty((T, W), dtype=torch.int32, device=dev)
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev) if err is None else err
     lib = _build.load().lib
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(
             _ptr(states32), _ptr(stream), stream.numel(), *source,
-            _ptr(active), *tail, MAX_CLUSTER, _ptr(out), _ptr(err),
+            _ptr(active), *tail, MAX_CLUSTER, _ptr(out), _ptr(flag),
             _build.stream_ptr(active))
     _build.check(rc, name)
-    if int(err.item()):
+    if err is None and int(flag.item()):
         raise RuntimeError(f"{name}: stream read past its end "
                            "(desynchronised or truncated stream)")
     return out
 
 
-def decode_scan(states, stream, rows, active, lo: int):
+def _check_err(name, err, device):
+    """Refuse an error flag the decoders do not take: int32 [1], on the
+    decoder's device."""
+    if err is not None and (err.dtype != torch.int32
+                            or tuple(err.shape) != (1,)
+                            or err.device != device):
+        raise ValueError(f"{name}: err {err.dtype} {tuple(err.shape)} on "
+                         f"{err.device} (need int32 [1] on {device})")
+
+
+def decode_scan(states, stream, rows, active, lo: int, err=None):
     """T decode steps of W lanes over materialized rows int32 [T, W, L].
 
     Same contract as :func:`interleaved.decode_scan` for rows that never
     decrease along L, as every row of the codec does: returns int32 [T, W]
     symbols. The kernel finds each count by bisection and the plain version
     counts directly, so on a row that decreases the two may differ. Raises
-    if the stream desynchronised and read past its end.
+    if the stream desynchronised and read past its end, or, given ``err``
+    (int32 [1] on the device), sets it to 1 instead and does not wait for
+    the kernel, so the call can be captured in a CUDA graph; one flag may
+    serve several decodes, since the kernel only ever writes 1 to it. The
+    plain version never reads past its stream's end and leaves ``err`` as
+    it is.
     """
+    _check_err("rans decode", err, rows.device)
     if rows.device.type == "cpu":
         return il.decode_scan(states, stream, rows, active, lo)
     _build.require_cuda("rans decode", states, stream, rows, active)
@@ -255,7 +276,8 @@ def decode_scan(states, stream, rows, active, lo: int):
                          f"[T, W] = {[T, W]} (need [T, W, L >= 2])")
     rows = rows.to(torch.int32).contiguous()
     out = _launch_decode("rans decode", "fg_rans_decode", states, stream,
-                         (_ptr(rows),), active, (int(lo), T, W, rows.shape[2]))
+                         (_ptr(rows),), active, (int(lo), T, W, rows.shape[2]),
+                         err)
     decode_scan.launches += 1
     return out
 
@@ -276,7 +298,7 @@ def decode_scan_gmm_plain(states, stream, scales, means, weights, active,
 
 
 def decode_scan_gmm(states, stream, scales, means, weights, active, lo: int,
-                    num_bins: int, mode: int = 0):
+                    num_bins: int, mode: int = 0, err=None):
     """T decode steps of W lanes whose rows are the guarded GMM rows of
     symbols 0..n-1 (symbol i at step i // W, lane i % W), evaluated on
     demand. scales/means/weights float32 [n, K] with n <= T * W; lanes at
@@ -284,7 +306,8 @@ def decode_scan_gmm(states, stream, scales, means, weights, active, lo: int,
     ``il.decode_scan(states, stream, gmm_guarded_rows_plain(...), active,
     lo)`` on the rows padded to [T, W, L]. The guarded rows never decrease
     along L (CDF entries plus j, capped by 65536), as the kernel's bisection
-    needs; see :func:`decode_scan`."""
+    needs; see :func:`decode_scan`, also for ``err``."""
+    _check_err("rans decode gmm", err, scales.device)
     if scales.device.type == "cpu":
         return decode_scan_gmm_plain(states, stream, scales, means, weights,
                                      active, lo, num_bins, mode)
@@ -298,7 +321,7 @@ def decode_scan_gmm(states, stream, scales, means, weights, active, lo: int,
     out = _launch_decode(
         name, "fg_rans_decode_gmm", states, stream,
         (_ptr(scales), _ptr(means), _ptr(weights), n, k), active,
-        (int(lo), T, W, L, int(mode)))
+        (int(lo), T, W, L, int(mode)), err)
     decode_scan_gmm.launches += 1
     return out
 

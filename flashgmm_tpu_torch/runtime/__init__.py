@@ -1,3 +1,5 @@
 from .fast_codec import FastCheckerboardGmmCodec, PassStream, StreamOverflow
+from .latency_codec import FastLatencyGmmCodec
 
-__all__ = ["FastCheckerboardGmmCodec", "PassStream", "StreamOverflow"]
+__all__ = ["FastCheckerboardGmmCodec", "FastLatencyGmmCodec", "PassStream",
+           "StreamOverflow"]

@@ -72,10 +72,11 @@ def _encode_pass(start, freq, w: int, cap_divisor: int = 4) -> PassStream:
         il.to_lanes(start, w), il.to_lanes(freq, w), active), cap_divisor)
 
 
-def _decode_pass(ps: PassStream, rows, n: int, lo: int, w: int):
+def _decode_pass(ps: PassStream, rows, n: int, lo: int, w: int, err=None):
     """Decode n symbols with materialized rows [n, L] (the z pass) through
     the rANS decode kernel. Padding lanes get valid monotone dummy rows so
-    every lane's math stays in range."""
+    every lane's math stays in range. ``err``: the decoder's deferred error
+    flag (``rans_kernels.decode_scan``)."""
     t, pad = il.layout(n, w)
     active = il.active_mask(n, t, w, rows.device)
     L = rows.shape[-1]
@@ -85,7 +86,8 @@ def _decode_pass(ps: PassStream, rows, n: int, lo: int, w: int):
                             * (65536 // (L - 1)), 0, 65536)
         rows = torch.cat([rows.to(torch.int32), dummy.expand(pad, L)])
     symbols = rans_kernels.decode_scan(ps.states, ps.stream,
-                                       rows.reshape(t, w, L), active, lo)
+                                       rows.reshape(t, w, L), active, lo,
+                                       err=err)
     return il.from_lanes(symbols, n)
 
 
@@ -191,7 +193,7 @@ class FastCheckerboardGmmCodec:
             sym_flat, *params, lo, num_bins, self.mode, self.lanes),
             cap_divisor)
 
-    def _decpass(self, ps, params, n):
+    def _decpass(self, ps, params, n, err=None):
         """Decode one y pass of n symbols whose rows are the guarded GMM
         rows of its parameters, evaluated on demand by the decoder. Padding
         lanes are inactive and need no parameters."""
@@ -199,7 +201,8 @@ class FastCheckerboardGmmCodec:
         t, _ = il.layout(n, self.lanes)
         active = il.active_mask(n, t, self.lanes, params[0].device)
         symbols = rans_kernels.decode_scan_gmm(ps.states, ps.stream, *params,
-                                               active, lo, num_bins, self.mode)
+                                               active, lo, num_bins, self.mode,
+                                               err=err)
         return il.from_lanes(symbols, n)
 
     def _z_channels(self):
@@ -213,7 +216,14 @@ class FastCheckerboardGmmCodec:
         {"z", "y0", "y1": PassStream, "y_hat": [B, H/16, W/16, N]}.
 
         ``full=True`` disables the stream cap (the overflow fallback)."""
-        cd = 1 if full else self.cap_divisor
+        ps_z, ps0, ps1, _, _, y_hat = self._encode(
+            x, 1 if full else self.cap_divisor)
+        return {"z": ps_z, "y0": ps0, "y1": ps1, "y_hat": y_hat}
+
+    def _encode(self, x, cd):
+        """The encode core, y passes capped at 1/``cd``: (z, y0, y1
+        PassStreams, anchor and non-anchor symbols int32 [B, H/16, W/32,
+        N], y_hat). Waits for nothing, so a CUDA graph can capture it."""
         y = self._transform(self._g_a, x)
         z = self._transform(self._h_a, y)
 
@@ -234,7 +244,7 @@ class FastCheckerboardGmmCodec:
         ps0 = self._encpass(self._params0(side[0]), sym[0].reshape(-1), cd)
         ps1 = self._encpass(self._params1(side[1], sym[0]),
                             sym[1].reshape(-1), cd)
-        return {"z": ps_z, "y0": ps0, "y1": ps1, "y_hat": y_hat}
+        return ps_z, ps0, ps1, sym[0], sym[1], y_hat
 
     @staticmethod
     def _y_shape_parts(y_shape):
@@ -244,19 +254,23 @@ class FastCheckerboardGmmCodec:
         return 1, h, w, c
 
     @torch.inference_mode()
-    def decode_y_hat(self, streams, y_shape):
+    def decode_y_hat(self, streams, y_shape, err=None):
+        """Streams -> y_hat [B, H/16, W/16, N]. Without ``err`` a decoder
+        that reads past its stream raises at once; with it (int32 [1] on
+        the device) the three decoders OR 1 into it and nothing waits for
+        the device (``rans_kernels.decode_scan``)."""
         b, h, w, c = self._y_shape_parts(y_shape)
         zh, zw, cz = h // 4, w // 4, self._z_channels()
         n_z = b * zh * zw * cz
         rows_z = self._z_rows[None].expand(b * zh * zw, cz, -1)
         z_bin = _decode_pass(streams["z"], rows_z.reshape(n_z, -1), n_z, 0,
-                             self.lanes).reshape(b, zh, zw, cz)
+                             self.lanes, err).reshape(b, zh, zw, cz)
         side = self._side(z_bin)
         n = b * h * (w // 2) * c
-        sym0 = self._decpass(streams["y0"], self._params0(side[0]),
-                             n).reshape(b, h, w // 2, c)
-        sym1 = self._decpass(streams["y1"], self._params1(side[1], sym0),
-                             n).reshape(b, h, w // 2, c)
+        sym0 = self._decpass(streams["y0"], self._params0(side[0]), n,
+                             err).reshape(b, h, w // 2, c)
+        sym1 = self._decpass(streams["y1"], self._params1(side[1], sym0), n,
+                             err).reshape(b, h, w // 2, c)
         return self._ckbd.embed(torch.stack([sym0, sym1]).float())
 
     @torch.inference_mode()

@@ -25,6 +25,7 @@ or not contiguous are copied, never read wrongly.
 """
 
 import importlib.util
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -198,11 +199,7 @@ def test_rans_encoder_instances_do_not_spill(cuda):
     chip_smoke.py requires."""
     from flashgmm_tpu_torch import _build
 
-    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    spills = {fn: c for fn, c in smoke.ptxas_spills(_build.load().ptxas).items()
+    spills = {fn: c for fn, c in _smoke().ptxas_spills(_build.load().ptxas).items()
               if "rans_encode_kernel" in fn}
     assert len(spills) == 7, spills
     assert all(c == (0, 0) for c in spills.values()), spills
@@ -431,6 +428,141 @@ def test_codec_roundtrip_on_card(cuda, n, kernel_transforms):
     y_dec = codec.decode_y_hat(codec.from_bytes(data, y_shape), y_shape)
     assert torch.equal(y_dec, out["y_hat"])
     assert x_hat.shape == x.shape and bool(torch.isfinite(x_hat).all())
+
+
+def _smoke():
+    """chip_smoke.py as a module (its helpers)."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _latency_case(dev, n, k, weights=None, size=128):
+    """A model (random from seed 0, or the repository's N=192 weights)
+    after update(update_quantiles=True), and one textured-leaves image."""
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+    from flashgmm_tpu_torch.zoo import load_npz
+
+    model = Cheng2020AnchorCheckerboardGMMv2(N=n, K=k, seed=0, device=dev)
+    if weights is not None:
+        load_npz(model, Path(__file__).resolve().parent.parent / weights)
+    model.update(update_quantiles=True)
+    x = torch.from_numpy(textured_leaves(size, size, seed=500001)[None])
+    return model, x.to(dev)
+
+
+def _certified(codec, x):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        return codec.encode_certified(x)
+
+
+@pytest.mark.parametrize("n", [32, 64])
+@pytest.mark.parametrize("kernel_transforms", [False, True])
+def test_latency_graphs_equal_the_eager_run(cuda, n, kernel_transforms):
+    """Each direction's CUDA graph against the eager run of the same
+    functions (the batched codec's at the latency codec's settings): the
+    same bytes, the same y_hat and the same pixels; one graph each for
+    encode, decode-y and g_s, whose captured launches are the path's."""
+    from flashgmm_tpu_torch.runtime import FastLatencyGmmCodec
+
+    model, x = _latency_case(cuda, n, 2)
+    lat = FastLatencyGmmCodec(model, lanes=128, cap_divisor=1,
+                              kernel_transforms=kernel_transforms)
+    data, y_shape = _certified(lat, x)
+    x_hat = lat.decode(data, y_shape)
+    assert not lat._fallback_digests
+    graphs = {d: g for (d, _), g in lat._graphs.items()}
+    assert len(lat._graphs) == 3 and sorted(graphs) == ["decode_y", "encode",
+                                                        "g_s"]
+    e_data, out = lat._batched.encode_to_bytes(x)
+    assert data == e_data
+    y_graph = lat._decode_y(lat._passes(lat.from_bytes(data, y_shape)),
+                            y_shape).clone()
+    assert torch.equal(y_graph, out["y_hat"]) and int(lat._err) == 0
+    assert torch.equal(x_hat, lat._batched.decode_bytes(data, y_shape))
+    assert torch.equal(lat.decode(data, y_shape), x_hat)
+    routed = 12 if kernel_transforms and n >= 64 else 0  # g_a 9, h_a 3
+    assert graphs["encode"].launches == {
+        "encode_scan": 1, "encode_scan_gmm": 2, "decode_scan": 0,
+        "decode_scan_gmm": 0, "conv2d_nhwc": 12, "conv2d_nhwc_bf16": routed}
+    assert graphs["decode_y"].launches == {
+        "encode_scan": 0, "encode_scan_gmm": 0, "decode_scan": 1,
+        "decode_scan_gmm": 2, "conv2d_nhwc": 12, "conv2d_nhwc_bf16": 0}
+    assert graphs["g_s"].launches["conv2d_nhwc_bf16"] == (14 if routed else 0)
+
+
+def test_latency_overflow_gets_its_own_decode_graph(cuda):
+    """Random weights code far over a 1/8 cap: the fallback's uncapped bytes
+    certify through a decode-y graph of their own capacity, and decode."""
+    from flashgmm_tpu_torch.runtime import FastLatencyGmmCodec
+
+    model, x = _latency_case(cuda, 32, 2)
+    lat = FastLatencyGmmCodec(model, lanes=128, cap_divisor=8)
+    data, y_shape = _certified(lat, x)
+    assert not lat._fallback_digests
+    keys = sorted(key for d, key in lat._graphs if d == "decode_y")
+    caps = lat.stream_capacities(y_shape)
+    assert len(keys) == 2 and keys[0][1] == (caps[0], caps[1], caps[1])
+    e_data, out = lat._batched.encode_to_bytes(x)
+    assert data == e_data
+    y_graph = lat._decode_y(lat._passes(lat.from_bytes(data, y_shape)),
+                            y_shape)
+    assert torch.equal(y_graph, out["y_hat"])
+    assert torch.equal(lat.decode(data, y_shape),
+                       lat._batched.decode_bytes(data, y_shape))
+
+
+def test_latency_truncated_stream_raises_after_the_replay(cuda):
+    """A file whose y0 stream is cut to half its words: the decoders read
+    past the stream's capacity, the deferred flag is set inside the graph,
+    and decode() raises after the replay; the graphs stay usable. (At the
+    repository's N=192 weights the streams fit their 1/4 cap, so the cut
+    stream runs out inside it.)"""
+    from flashgmm_tpu_torch.runtime import FastLatencyGmmCodec
+
+    model, x = _latency_case(cuda, 192, 4,
+                             "weights/ckbd_gmm_n192_k4_synthetic.npz", 256)
+    lat = FastLatencyGmmCodec(model)
+    data, y_shape = _certified(lat, x)
+    x_hat = lat.decode(data, y_shape)
+    bad = _smoke().truncate_pass(data, lat.lanes, 1)
+    with pytest.raises(RuntimeError, match="past its end"):
+        lat.decode(bad, y_shape)
+    torch.cuda.synchronize()  # the card is still healthy
+    assert torch.equal(lat.decode(data, y_shape), x_hat)
+
+
+def test_rans_decoders_share_a_deferred_error_flag(cuda):
+    """Given ``err``, both decoders equal their plain versions without
+    waiting for the device; a desynchronised stream sets the flag instead
+    of raising, and a later decode through the same flag leaves it set."""
+    starts, freqs, active, rows, _, lo, params = _coder_case(
+        20000, 1024, 97, cuda)
+    states, words, emits = rans_kernels.encode_scan(starts, freqs, active)
+    stream, n_words = il.pack_words(words, emits)
+    plain = il.decode_scan(states, stream, rows, active, lo)
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got_r = rans_kernels.decode_scan(states, stream, rows, active, lo,
+                                     err=err)
+    got_g = rans_kernels.decode_scan_gmm(states, stream, *params, active, lo,
+                                         97, err=err)
+    assert torch.equal(got_r, plain) and torch.equal(got_g, plain)
+    assert int(err) == 0
+    cut = stream[: int(n_words) // 2]
+    rans_kernels.decode_scan_gmm(states, cut, *params, active, lo, 97,
+                                 err=err)
+    torch.cuda.synchronize()
+    assert int(err) == 1
+    assert torch.equal(rans_kernels.decode_scan(states, stream, rows, active,
+                                                lo, err=err), plain)
+    assert int(err) == 1
+    with pytest.raises(ValueError, match="err"):
+        rans_kernels.decode_scan(states, stream, rows, active, lo,
+                                 err=err.cpu())
 
 
 def _bf16_case(dev, n, h, w, c_in, c_out, k, seed):
