@@ -3,7 +3,8 @@
 
     python3 chip_profile.py [--batch 2 24] [--reps 3]
                             [--tiles | --decode | --encode |
-                             --kernel-transforms | --latency]
+                             --kernel-transforms | --latency | --bytes |
+                             --forward]
 
 For each batch size: N=192, K=4 flagship with weights/ckbd_gmm_n192_k4_
 synthetic.npz, lanes=4096, cap_divisor=4, 768x512 textured-leaves images
@@ -58,6 +59,13 @@ torch.profiler over one graph run and one eager run, the device time,
 busy and idle share of each direction and the y-pass decoders' share of
 the decode direction, with the share of the card's SMs their cluster
 holds; then each route's profiler table of device time by kernel.
+``--bytes`` instead runs ``chip_smoke.bytes_worker`` in fresh processes
+(ROADMAP C9), each setup of ``chip_smoke.BYTES_SETUPS`` on each route,
+and prints for each process whether its batch-1 bytes equal the first
+one's, the first stage whose digest differs and the first device kernel
+whose name differs.
+``--forward`` instead times the training forward and its backward on the
+first image (TF32 off), with profiler tables by device and by host time.
 Needs a CUDA device; imports no JAX.
 """
 
@@ -86,6 +94,8 @@ def main() -> int:
     ap.add_argument("--encode", action="store_true")
     ap.add_argument("--kernel-transforms", action="store_true")
     ap.add_argument("--latency", action="store_true")
+    ap.add_argument("--bytes", action="store_true")
+    ap.add_argument("--forward", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -105,6 +115,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
+    if args.bytes:
+        return batch1_bytes(args.reps)
     if args.tiles:
         conv_tiles(args.batch, dev, smi)
         return 0
@@ -121,6 +133,9 @@ def main() -> int:
     images = [textured_leaves(H, W, seed=500001 + i) for i in range(max(args.batch))]
     if args.latency:
         single_image(model, images[0], max(args.reps, 20), dev, smi)
+        return 0
+    if args.forward:
+        forward_steps(model, images[0], max(args.reps, 5), dev, smi)
         return 0
     codec = FastCheckerboardGmmCodec(model, lanes=4096, cap_divisor=4)
     if args.kernel_transforms:
@@ -165,6 +180,50 @@ def main() -> int:
           flush=True)
     return 0
 
+
+def batch1_bytes(reps):
+    """ROADMAP C9: the batch-1 bytes of ``chip_smoke.bytes_worker`` from
+    fresh processes, each setup on each route, ``reps`` processes a setup
+    (at least 1), each with its stage digests. For every process, prints
+    whether its bytes equal the first process's of its route, the first
+    stage whose output differs (with the sums and max|v| of both) and the
+    first device kernel of g_a and h_a whose name differs: one JSON line
+    a process, then one a route."""
+    from chip_smoke import BYTES_SETUPS
+
+    for route in ("default", "kernel"):
+        runs = []
+        for setup in BYTES_SETUPS:
+            for _ in range(max(reps, 1)):
+                p = subprocess.run(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--bytes-worker", route, setup, "1"],
+                    capture_output=True, text=True, timeout=600)
+                if p.returncode != 0:
+                    print(p.stderr[-3000:], flush=True)
+                    return 1
+                runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
+        first = runs[0]
+        for run in runs:
+            a, b = first["stages"], run["stages"]
+            stage = next((k for k in a if a[k][0] != b.get(k, [None])[0]),
+                         None)
+            ka, kb = first["kernels"], run["kernels"]
+            i = next((i for i, (p_, q) in enumerate(zip(ka, kb)) if p_ != q),
+                     None if len(ka) == len(kb) else min(len(ka), len(kb)))
+            print(json.dumps({
+                "route": route, "setup": run["setup"], "bytes": run["bytes"],
+                "sha256": run["sha256"][:16],
+                "same_bytes_as_first": run["sha256"] == first["sha256"],
+                "first_differing_stage": stage,
+                "stage": None if stage is None else {"first": a[stage],
+                                                     "this": b.get(stage)},
+                "kernels": len(kb), "first_differing_kernel": None if i is None
+                else {"index": i, "first": ka[i:i + 3], "this": kb[i:i + 3]}}),
+                flush=True)
+        print(json.dumps({"route": route, "distinct_bytes": sorted(
+            {(r["bytes"], r["sha256"][:16]) for r in runs})}), flush=True)
+    return 0
 
 def timed(fn):
     """(fn(), host ms) around work that ends in a synchronize."""
@@ -284,6 +343,70 @@ def single_image(model, image, reps, dev, smi):
         print(f"route {'kernel_transforms' if route else 'default'}, one "
               "graph decode (decode-y and g_s replays):", flush=True)
         print(table, flush=True)
+
+
+def forward_steps(model, image, reps, dev, smi):
+    """The training forward (``model(x, training=True, generator=g)``)
+    and one backward of bits per pixel + MSE on one image, TF32 off as in
+    chip_smoke.py: the median forward and backward ms of ``reps`` runs by
+    CUDA events (after one warm-up), the eval forward's ms, and profiler
+    tables of one training forward + backward by device time and by host
+    time."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(image[None]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def step():
+        a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        a.record()
+        out = model(x, training=True, generator=gen)
+        rate = sum(-torch.log2(v).sum() for v in out["likelihoods"].values())
+        loss = rate / (H * W) + F.mse_loss(out["x_hat"], x)
+        b.record()
+        loss.backward()
+        c.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b), b.elapsed_time(c)
+
+    step()
+    runs = [step() for _ in range(reps)]
+    evals = []
+    with torch.no_grad():
+        for _ in range(reps + 1):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            a.record()
+            model(x, training=False)
+            b.record()
+            torch.cuda.synchronize()
+            evals.append(a.elapsed_time(b))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+    print(json.dumps({
+        "image": [H, W], "reps": reps,
+        "forward_ms": statistics.median(r[0] for r in runs),
+        "backward_ms": statistics.median(r[1] for r in runs),
+        "eval_forward_ms": statistics.median(evals[1:]),
+        "forward_runs": [r[0] for r in runs],
+        "backward_runs": [r[1] for r in runs], "card": smi}), flush=True)
+    for key in ("self_device_time_total", "cpu_time_total"):
+        print(f"one training forward + backward, by {key}:", flush=True)
+        print(prof.key_averages().table(sort_by=key, row_limit=20,
+                                        max_name_column_width=60), flush=True)
+    print("the same, convolutions by input shapes:", flush=True)
+    print(prof.key_averages(group_by_input_shape=True).table(
+        sort_by="device_time_total", row_limit=12, max_name_column_width=30,
+        max_shapes_column_width=90), flush=True)
 
 
 def device_shares(prof):

@@ -28,7 +28,11 @@ Phases, each ending in one flushed line with its seconds:
    TFLOP/s beside F.conv2d's (cuDNN) on the same inputs;
 4. codec: the batched checkerboard-GMM codec at N=192, K=4, lanes=4096,
    cap_divisor=4 on two 768x512 textured-leaves images: encode_to_bytes,
-   then decode_bytes, y_hat exact through the bytes, bpp and PSNR, and
+   then decode_bytes (the packed single-transfer path: y_hat and x_hat
+   equal to decode(from_bytes(...)) bit for bit, one host-to-device copy
+   in its profiler trace; an overflow file from ``encode(x, full=True)``
+   at cap_divisor=64 takes the unpacked path and decodes exactly), y_hat
+   exact through the bytes, bpp and PSNR, and
    every kernel's launch count from that run (one encode + decode: the z
    pass's encoder over its tables once, the GMM encoder twice, the bounds
    kernel and the full rows never; the y passes decode on demand); then the
@@ -48,10 +52,30 @@ Phases, each ending in one flushed line with its seconds:
    the graphs'; y_hat exact through the bytes and through the batched
    codec at lanes=1024; a forced certification failure takes the fallback,
    whose bytes decode; a truncated stream raises after the decode-y
-   replay; bytes, bpp, PSNR, each direction's launches and the median
+   replay; ``decode`` reads the bytes' packed layout with one
+   host-to-device copy and gives the unpacked streams' y_hat and x_hat;
+   an overflow file (cap_divisor=64) certifies and decodes through a
+   decode-y graph of its own; bytes, bpp, PSNR, each direction's
+   launches and the median
    host-clock and CUDA-event ms of 20 runs of the certified encode, the
    encode alone and the decode, graph and eager;
-7. timing: every kernel call of those runs timed again by CUDA events,
+7. bytes (ROADMAP C9): the latency codec's batch-1 bytes of the first
+   image from fresh processes of this script (``--bytes-worker``), on each
+   route one with torch's default flags that runs nothing first and
+   builds the image tensor as ``chip_profile.py`` does, and one that sets
+   this script's flags, takes all but 6 GiB of the card's memory first
+   and slices the image from a batch as this script does: equal sha256
+   digests, equal to this process's bytes, and both lengths printed; the
+   first stage whose output differs, if any, with both processes' device
+   kernels written to chiprun_out/;
+8. forward: the training forward of the same model at full width on the
+   first image (``forward_phase``): eval, training with a seeded
+   generator on the card, one backward of bits per pixel + MSE; finite
+   outputs and gradients, eval y_hat = round(y), the eval likelihoods'
+   bits within 5 % of the bits the latency codec's bytes carry (the
+   words and what the final rANS states hold), forward and backward
+   ms;
+9. timing: every kernel call of those runs timed again by CUDA events,
    back to back ("ms"), beside its plain version, a library call where one
    computes the same function, and its bound; the encoders and the bounds
    kernel also on the device alone ("device_ms": the stream's queue filled
@@ -65,7 +89,7 @@ Phases, each ending in one flushed line with its seconds:
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so
-the run exits non-zero without that line; a hang ends after 600 s with a
+the run exits non-zero without that line; a hang ends after 1000 s with a
 traceback. Needs a CUDA device and this repository; imports no JAX.
 """
 
@@ -212,6 +236,27 @@ def cuda_ms(fn, reps, ahead=False):
     raise RuntimeError("cuda_ms: the sleep ended before the calls were queued")
 
 
+def h2d_copies(fn):
+    """fn() under torch.profiler: (fn's result, the host-to-device copies
+    the card ran). A trace that holds no kernel at all lost its device
+    events (seen after several profiler sessions in one process) and is
+    taken again, up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type.name == "CUDA"]
+        if any(not n.startswith(("Memcpy", "Memset")) for n in names):
+            return out, sum(n.startswith("Memcpy HtoD") for n in names)
+    raise RuntimeError("h2d_copies: three traces without device kernels")
+
+
 def truncate_pass(data, lanes, which):
     """Codec bytes (docs/bitstream.md §2: per pass u32 n_words, u32 x lanes
     states, u16 x n_words words) with pass ``which`` (0 z, 1 y0, 2 y1) cut
@@ -270,9 +315,270 @@ def latency_times(codec, x, reps):
             for op in runs[0]}
 
 
-def main() -> int:
-    faulthandler.dump_traceback_later(600, exit=True)
+
+BYTES_SETUPS = ("cold", "hog", "batched", "inference", "cache", "plain",
+                "libconv", "eager", "side")
+
+
+def bytes_worker(route, setup, stages=""):
+    """One fresh process's batch-1 ``encode_certified`` of the first bench
+    image (seed SEED0 + 1) at N=192, K=4, the bench weights, lanes=1024 and
+    cap_divisor=4, on the default route or the kernel route: prints one JSON
+    line with the bytes' length and sha256. ``setup``: "cold" leaves torch's
+    global flags at their defaults, runs nothing first and gives the image
+    as ``torch.from_numpy(img[None])`` (its batch dimension's stride 0;
+    every other setup gives it as the first of a stacked batch, as this
+    script does, stride H*W*3); "hog" sets this
+    script's flags (TF32 off) and takes all but 6 GiB of the card's free
+    memory first; "batched" sets them and first runs the batched codec on
+    two images, both routes, as this script's codec phase does;
+    "inference" sets them and builds, loads and runs everything under
+    ``torch.inference_mode``, as this script does; "cache" first frees 8
+    GiB into the allocator's cache; "plain" and "libconv" first run one
+    conv of the kernels phase (the bf16 conv's plain version, cuDNN's bf16
+    conv); "eager" and "side" first run the batch-1 encode eagerly on the
+    current stream or on a side stream. ``stages`` ("1"): the
+    line also holds a digest of every stage's output (``stage_digests``)
+    and the device kernels that g_a and h_a ran, in order."""
+    import contextlib
+    import hashlib
+
+    import numpy as np
     import torch
+
+    sys.path.insert(0, str(ROOT))
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+    from flashgmm_tpu_torch.runtime import (FastCheckerboardGmmCodec,
+                                            FastLatencyGmmCodec)
+    from flashgmm_tpu_torch.zoo import load_npz
+
+    dev = torch.device("cuda", 0)
+    hog = None
+    if setup != "cold":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if setup == "hog":
+        free, _ = torch.cuda.mem_get_info(dev)
+        hog = torch.empty(free - (6 << 30), dtype=torch.uint8, device=dev)
+    if setup == "cache":  # a large free block in the allocator's cache
+        torch.empty(8 << 30, dtype=torch.uint8, device=dev).fill_(0)
+        torch.cuda.synchronize()
+    if setup in ("plain", "libconv"):  # one conv of the kernels phase first
+        from flashgmm_tpu_torch.ops import conv_kernel
+        xs = torch.randn(BATCH, H // 8, W // 8, N, device=dev).bfloat16()
+        ws = (torch.randn(3, 3, N, N, device=dev) * 0.03).bfloat16()
+        if setup == "plain":
+            conv_kernel.conv2d_nhwc_bf16_plain(xs, ws)
+        else:
+            torch.nn.functional.conv2d(
+                xs.permute(0, 3, 1, 2), ws.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last), padding=1)
+        torch.cuda.synchronize()
+    mode = (torch.inference_mode() if setup == "inference"
+            else contextlib.nullcontext())
+    with mode:
+        model = Cheng2020AnchorCheckerboardGMMv2(N=N, K=K, seed=0, device=dev)
+        load_npz(model, WEIGHTS)
+        model.update(update_quantiles=True)
+        if setup == "batched":
+            xb = torch.from_numpy(np.stack([
+                textured_leaves(H, W, seed=SEED0 + 1 + i)
+                for i in range(BATCH)])).to(dev)
+            for kt in (False, True):
+                c = FastCheckerboardGmmCodec(model, lanes=LANES,
+                                             cap_divisor=CAP_DIVISOR,
+                                             kernel_transforms=kt)
+                d, o = c.encode_to_bytes(xb)
+                c.decode_bytes(d, tuple(o["y_hat"].shape))
+        lat = FastLatencyGmmCodec(model, lanes=LAT_LANES,
+                                  cap_divisor=CAP_DIVISOR,
+                                  kernel_transforms=route == "kernel")
+        img = textured_leaves(H, W, seed=SEED0 + 1)
+        if setup == "cold":  # as chip_profile.py builds it: batch stride 0
+            x = torch.from_numpy(img[None]).to(dev)
+        else:  # as this script does: the first image of a stacked batch
+            x = torch.from_numpy(np.stack([img, img])).to(dev)[:1]
+        if setup in ("eager", "side"):  # batch-1 transforms run first
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side) if setup == "side" \
+                    else contextlib.nullcontext():
+                lat._batched._encode(x, CAP_DIVISOR)
+            torch.cuda.synchronize()
+        with torch.inference_mode():
+            data, _ = lat.encode_certified(x)
+        torch.cuda.synchronize()
+        out = {"route": route, "setup": setup, "bytes": len(data),
+               "sha256": hashlib.sha256(data).hexdigest()}
+        if stages:
+            out.update(stage_digests(lat._batched, x))
+    del hog
+    print(json.dumps(out), flush=True)
+
+
+def stage_digests(codec, x):
+    """Every stage's output of an eager batch-1 encode through ``codec``:
+    {"stages": {name: [sha256 prefix, sum, max|v|]} (each module of g_a and
+    h_a in call order, then z_bin, h_s's output, the anchor pass's
+    parameters, the symbols), "kernels": names of the device kernels g_a
+    and h_a ran, in order (torch.profiler)}."""
+    import hashlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    stages, hooks = {}, []
+
+    def keep(key, t):
+        t = t.detach()
+        a = t.float()
+        stages[f"{len(stages):03d}_{key}"] = [
+            hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                           .tobytes()).hexdigest()[:16],
+            float(a.double().sum()),
+            float(a.abs().max())]
+
+    for tag, mod in (("g_a", codec._g_a), ("h_a", codec._h_a)):
+        for name, m in mod.named_modules():
+            if name:
+                hooks.append(m.register_forward_hook(
+                    lambda _m, _i, o, key=f"{tag}.{name}": keep(key, o)))
+    with torch.inference_mode():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            y = codec._transform(codec._g_a, x)
+            z = codec._transform(codec._h_a, y)
+            torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        z_bin = torch.round(z - codec._med).to(torch.int32) - codec._z_off
+        z_bin = torch.minimum(torch.clamp_min(z_bin, 0), codec._z_maxbin)
+        side = codec._side(z_bin)
+        params = codec._params0(side[0])
+        sym = torch.round(codec._ckbd.unembed(y)).to(torch.int32)
+        for key, t in (("z_bin", z_bin), ("side", side), ("scales0", params[0]),
+                       ("means0", params[1]), ("weights0", params[2]),
+                       ("sym", sym)):
+            keep(key, t)
+    events = sorted((e for e in prof.events()
+                     if e.device_type.name == "CUDA"),
+                    key=lambda e: e.time_range.start)
+    return {"stages": stages, "kernels": [e.name for e in events]}
+
+def coded_bits(data, lanes):
+    """(payload bits, coded bits) of codec bytes (docs/bitstream.md §2: per
+    pass u32 n_words, u32 x lanes states, u16 x n_words words). Payload:
+    the words alone, the bytes less the passes' headers and states. Coded:
+    the information the passes carry, 16 bits a word plus what each lane's
+    final state holds above its initial 2^16, log2(state) - 16 (rANS
+    states end in [2^16, 2^32))."""
+    import numpy as np
+
+    payload = coded = 0.0
+    off = 0
+    for _ in range(3):
+        n = int(np.frombuffer(data, np.uint32, 1, off)[0])
+        states = np.frombuffer(data, np.uint32, lanes, off + 4)
+        payload += 16 * n
+        coded += 16 * n + float(np.sum(np.log2(states.astype(np.float64))
+                                       - 16))
+        off += 4 + 4 * lanes + 2 * n
+    return payload, coded
+
+
+def forward_phase(dev, x, codec_data):
+    """The training forward of the N=192, K=4 flagship with the bench
+    weights on image x [1, H, W, 3]: eval, then training with a seeded
+    generator, then one backward of bits per pixel + MSE. Requires finite
+    outputs and g_a's first conv gradient, finite and not all zero;
+    eval-mode y_hat = round(y); the eval likelihoods' bits within 5 % of
+    the bits the latency codec's bytes ``codec_data`` carry (``coded_bits``;
+    the payload alone, the bytes less the passes' headers and states, is
+    printed beside them); prints the forward and backward ms (CUDA events,
+    median of 5)."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+    from flashgmm_tpu_torch.zoo import load_npz
+
+    with torch.inference_mode(False):
+        model = Cheng2020AnchorCheckerboardGMMv2(N=N, K=K, seed=0, device=dev)
+        load_npz(model, WEIGHTS)
+        model.update(update_quantiles=True)  # the codecs' medians
+        x = x.clone()
+        pixels = x.shape[0] * x.shape[1] * x.shape[2]
+
+        def finite(t, tag):
+            require(bool(torch.isfinite(t).all()) and bool((t != 0).any()),
+                    f"forward: {tag} not finite or all zero")
+
+        with torch.no_grad():
+            ev = model(x, training=False)
+            y = model.g_a(x)
+            y_hat = model.latent_codec(y, training=False)["y_hat"]
+        require(torch.equal(y_hat, torch.round(y)),
+                "forward: eval y_hat is not round(y)")
+        bits = sum(float(-torch.log2(v.double()).sum())
+                   for v in ev["likelihoods"].values())
+        payload, coded = coded_bits(codec_data, LAT_LANES)
+        gap = bits / coded - 1
+
+        def loss_of(out):
+            rate = sum(-torch.log2(v).sum() for v in out["likelihoods"].values())
+            return rate / pixels + F.mse_loss(out["x_hat"], x)
+
+        gen = torch.Generator(device=dev).manual_seed(0)
+        tr = model(x, training=True, generator=gen)
+        loss_of(tr).backward()
+        grad = model.g_a.layers[0].conv1.weight.grad
+        for tag, t in (("eval x_hat", ev["x_hat"]),
+                       ("training x_hat", tr["x_hat"]),
+                       ("g_a's first conv gradient", grad),
+                       *((f"eval {k} likelihoods", v)
+                         for k, v in ev["likelihoods"].items()),
+                       *((f"training {k} likelihoods", v)
+                         for k, v in tr["likelihoods"].items())):
+            finite(t, tag)
+        fwd, bwd = [], []
+        for _ in range(5):
+            model.zero_grad(set_to_none=True)
+            a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            torch.cuda.synchronize()
+            a.record()
+            loss = loss_of(model(x, training=True, generator=gen))
+            b.record()
+            loss.backward()
+            c.record()
+            torch.cuda.synchronize()
+            fwd.append(a.elapsed_time(b))
+            bwd.append(b.elapsed_time(c))
+        model.zero_grad(set_to_none=True)
+    print(f"  forward N={N} K={K} {x.shape[1]}x{x.shape[2]}: eval bits "
+          f"{bits:.1f} against the {coded:.1f} bits the latency codec's bytes "
+          f"carry (gap {100 * gap:+.3f} %) and their payload alone "
+          f"{payload:.0f} bits (gap {100 * (bits / payload - 1):+.3f} %); "
+          f"training loss {float(loss):.5f}; "
+          f"forward {statistics.median(fwd):.3f} ms, backward "
+          f"{statistics.median(bwd):.3f} ms (CUDA events, median of 5)",
+          flush=True)
+    require(abs(gap) <= 0.05, f"forward: the likelihoods' bits are "
+            f"{100 * gap:+.2f} % from the codec's coded bits")
+    phase("forward", "eval, training and one backward at full width")
+
+
+def main() -> int:
+    faulthandler.dump_traceback_later(1000, exit=True)
+    import torch
+
+    if len(sys.argv) > 1 and sys.argv[1] == "--bytes-worker":
+        if not torch.cuda.is_available():
+            return 1
+        bytes_worker(*sys.argv[2:5])
+        return 0
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr, flush=True)
@@ -670,6 +976,33 @@ def smoke():
             "decode: the y passes did not go through the GMM decoder")
     bpp, psnr = check_run(codec, data, out, x_hat, "default route")
     y_dec = out["y_hat"]  # equal to the decoded y_hat (check_run)
+    # the packed single-transfer decode_bytes against the unpacked path,
+    # one host-to-device copy; an overflow file takes the unpacked path
+    unpacked = codec.from_bytes(data, y_shape)
+    host, caps = codec.pack(data, y_shape)
+    y_packed = codec.decode_y_hat(codec.unpack(codec.copy_staged(host), caps),
+                                  y_shape)
+    require(torch.equal(y_packed, y_dec), "packed: y_hat differs")
+    x_packed, n_h2d = h2d_copies(lambda: codec.decode_bytes(data, y_shape))
+    require(torch.equal(x_packed, codec.decode(unpacked, y_shape))
+            and torch.equal(x_packed, x_hat),
+            "packed decode_bytes: x_hat differs from decode(from_bytes)")
+    require(n_h2d == 1, f"packed decode_bytes: {n_h2d} host-to-device copies")
+    tight = FastCheckerboardGmmCodec(model, lanes=LANES, cap_divisor=64)
+    o_out = tight.encode(x, full=True)
+    o_data = tight.to_bytes(o_out)
+    o_caps = tight.pack(o_data, y_shape)[1]
+    require(o_caps != (tight.stream_capacities(y_shape)[0],) + (
+        tight.stream_capacities(y_shape)[1],) * 2, "not an overflow file")
+    o_unp = tight.from_bytes(o_data, y_shape)
+    require(torch.equal(tight.decode_y_hat(o_unp, y_shape), o_out["y_hat"])
+            and torch.equal(tight.decode_bytes(o_data, y_shape),
+                            tight.decode(o_unp, y_shape)),
+            "overflow file: decode_bytes is not exact")
+    print(f"  packed decode_bytes: y_hat and x_hat equal to decode(from_bytes) "
+          f"bit for bit, {n_h2d} host-to-device copy; an overflow file "
+          f"({len(o_data)} bytes, cap_divisor=64, stream lengths {o_caps}) "
+          "decodes exactly", flush=True)
     print(f"  y_hat {list(y_shape)} exact through {len(data)} bytes; "
           f"bpp {bpp:.7f}, PSNR {psnr:.4f} dB; encode {1e3 * t_enc:.1f} ms, "
           f"decode {1e3 * t_dec:.1f} ms (batch {BATCH}, host clock)",
@@ -780,6 +1113,7 @@ def smoke():
     lanes_codec = FastCheckerboardGmmCodec(model, lanes=LAT_LANES,
                                            cap_divisor=CAP_DIVISOR)
     lat_runs = {}
+    lat_bytes = {}  # route -> the certified bytes of the first image
     for route in (False, True):
         tag = "kernel_transforms" if route else "default"
         lat = FastLatencyGmmCodec(model, lanes=LAT_LANES,
@@ -885,11 +1219,48 @@ def smoke():
         require(torch.equal(lat.decode(l_data, l_shape), l_xhat),
                 f"latency {tag}: decode differs after the truncated stream")
 
+        # decode reads the packed layout: one host-to-device copy, the
+        # same y_hat and x_hat as the unpacked streams through the graphs
+        x_pk, n_h2d = h2d_copies(lambda: lat.decode(l_data, l_shape))
+        y_unp = lat._decode_y(lat._passes(lat.from_bytes(l_data, l_shape)),
+                              l_shape).clone()
+        require(torch.equal(y_unp, e_out["y_hat"])
+                and torch.equal(x_pk, lat._gs(y_unp)),
+                f"latency {tag}: packed decode differs from the unpacked")
+        require(n_h2d == 1, f"latency {tag}: decode made {n_h2d} "
+                "host-to-device copies, not 1")
+        if not route:  # an overflow file decodes through a graph of its own
+            lat_o = FastLatencyGmmCodec(model, lanes=LAT_LANES,
+                                        cap_divisor=64)
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                o_data, o_shape = lat_o.encode_certified(x1)
+            o_b = lat_o._batched
+            o_host, o_caps = o_b.pack(o_data, o_shape)
+            y_o = lat_o._decode_y_packed(o_host, o_shape, o_caps).clone()
+            require(o_caps[1] > o_b.stream_capacities(o_shape)[1]
+                    and torch.equal(y_o, o_b.decode_y_hat(
+                        o_b.from_bytes(o_data, o_shape), o_shape)),
+                    "latency: the overflow file's y_hat is not exact")
+            o_diff = float((lat_o.decode(o_data, o_shape)
+                            - o_b.decode_bytes(o_data, o_shape)).abs().max())
+            # encode, decode-y at both layouts, g_s
+            require(len(lat_o._graphs) == 4 and o_diff < 1e-2,
+                    f"latency: the overflow file decodes to x_hat {o_diff} "
+                    "from the batched codec's")
+            del lat_o
+        print(f"  latency {tag}: packed decode, {n_h2d} host-to-device copy, "
+              "y_hat and x_hat equal to the unpacked streams'"
+              + ("; an overflow file (cap_divisor=64) certifies and decodes "
+                 "through its own decode-y graph" if not route else ""),
+              flush=True)
+
         times = {"graph": latency_times(lat, x1, LAT_REPS)}
         lat._graphed = False  # the same functions, eagerly
         times["eager"] = latency_times(lat, x1, LAT_REPS)
         lat._graphed = True
         lat_runs[route] = (e_out, e_calls, g_launches)
+        lat_bytes[route] = l_data
         print(f"  latency {tag}: y_hat {list(l_shape)} exact through "
               f"{len(l_data)} bytes (the eager run's, and the batched codec "
               f"at lanes={LAT_LANES} decodes them); bpp {l_bpp:.7f}, PSNR "
@@ -903,7 +1274,57 @@ def smoke():
               f"CUDA events): {json.dumps(times)}", flush=True)
     phase("latency", f"batch 1, lanes={LAT_LANES}, both routes")
 
-    # 7. timing of every recorded call ------------------------------------
+    # 7. bytes: batch 1 in fresh processes (ROADMAP C9) ---------------------
+    import hashlib
+
+    digests = {}
+    for route in ("default", "kernel"):
+        for setup in ("cold", "hog"):
+            p = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                                "--bytes-worker", route, setup, "1"],
+                               capture_output=True, text=True, timeout=300)
+            require(p.returncode == 0, f"bytes worker {route} {setup} failed:"
+                    f" {p.stderr[-2000:]}")
+            digests[(route, setup)] = json.loads(
+                p.stdout.strip().splitlines()[-1])
+        cold, hog = digests[(route, "cold")], digests[(route, "hog")]
+        own = lat_bytes[route == "kernel"]
+        print(f"  bytes {route} route, batch 1, lanes={LAT_LANES}: cold "
+              f"process {cold['bytes']} bytes sha256 {cold['sha256'][:16]}, "
+              f"flags set and card memory taken {hog['bytes']} bytes sha256 "
+              f"{hog['sha256'][:16]}; this process {len(own)} bytes sha256 "
+              f"{hashlib.sha256(own).hexdigest()[:16]}", flush=True)
+        # this process's stages against the cold one's: the first that
+        # differs, and the device kernels of g_a and h_a where they differ
+        mine = stage_digests(FastCheckerboardGmmCodec(
+            model, lanes=LAT_LANES, cap_divisor=CAP_DIVISOR,
+            kernel_transforms=route == "kernel"), x1)
+        first = next((k for k in cold["stages"]
+                      if cold["stages"][k][0] != mine["stages"][k][0]), None)
+        print(f"  bytes {route} route: every stage's digest here equal to "
+              f"the cold process's: {first is None}", flush=True)
+        if first is not None:  # both processes' kernel lists, for the record
+            print(f"  first differing stage {first}: cold "
+                  f"{cold['stages'][first]}, here {mine['stages'][first]}",
+                  flush=True)
+            out_dir = ROOT / "chiprun_out"
+            out_dir.mkdir(exist_ok=True)
+            (out_dir / f"c9_kernels_{route}.json").write_text(json.dumps(
+                {"first_stage": first, "cold": cold["kernels"],
+                 "this": mine["kernels"]}, indent=0))
+        require(cold["sha256"] == hog["sha256"], f"bytes ({route} route): two "
+                f"fresh processes give different batch-1 bytes "
+                f"({cold['bytes']} and {hog['bytes']})")
+        require(hashlib.sha256(own).hexdigest() == cold["sha256"],
+                f"bytes ({route} route): this process's batch-1 bytes "
+                f"({len(own)}) differ from a fresh process's")
+    phase("bytes", "batch-1 bytes equal across fresh processes and this "
+          "one, both routes")
+
+    # 8. the training forward at full width ------------------------------
+    forward_phase(dev, x1, lat_bytes[False])
+
+    # 9. timing of every recorded call ------------------------------------
     pass_words = [int(out[k].n_words) for k in ("z", "y0", "y1")]
 
     def probes_by_count(L):

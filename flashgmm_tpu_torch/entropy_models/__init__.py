@@ -1,3 +1,9 @@
-from .entropy_models import EntropyBottleneck
+from .entropy_models import (
+    EntropyBottleneck,
+    EntropyModel,
+    GaussianConditional,
+    GaussianMixtureConditional,
+)
 
-__all__ = ["EntropyBottleneck"]
+__all__ = ["EntropyBottleneck", "EntropyModel", "GaussianConditional",
+           "GaussianMixtureConditional"]

@@ -1,4 +1,5 @@
-from .base import CompressionModel
+from .base import CompressionModel, SimpleVAECompressionModel
 from .ckbd_gmm import Cheng2020AnchorCheckerboardGMMv2
 
-__all__ = ["CompressionModel", "Cheng2020AnchorCheckerboardGMMv2"]
+__all__ = ["CompressionModel", "SimpleVAECompressionModel",
+           "Cheng2020AnchorCheckerboardGMMv2"]

@@ -4,7 +4,12 @@ flashgmm_tpu/models/ckbd_gmm.py).
 Built on the CPU from an explicit ``torch.Generator`` seeded with ``seed``,
 then moved to ``device`` (the card unless the caller asks otherwise). Module
 paths equal the JAX package's parameter paths, so its weights load through
-``flashgmm_tpu_torch.zoo.load_jax_params``.
+``flashgmm_tpu_torch.zoo.load_jax_params``, and a CompressAI/FlashGMM
+PyTorch state dict through ``flashgmm_tpu_torch.zoo.torch_convert``.
+
+``model(x, training=True, generator=g)`` is the training forward
+(``SimpleVAECompressionModel.forward``); images are NHWC [B, H, W, 3], as
+the codecs take them. ``quantizer`` is the GMM latent codec's.
 """
 
 import torch
@@ -28,11 +33,12 @@ from flashgmm_tpu_torch.layers import (
     subpel_conv3x3,
 )
 
-from .base import CompressionModel
+from .base import SimpleVAECompressionModel
 
 
-class Cheng2020AnchorCheckerboardGMMv2(CompressionModel):
-    def __init__(self, N=192, K=4, *, seed: int = 0, device="cuda"):
+class Cheng2020AnchorCheckerboardGMMv2(SimpleVAECompressionModel):
+    def __init__(self, N=192, K=4, quantizer: str = "noise", *,
+                 seed: int = 0, device="cuda"):
         super().__init__()
         g = torch.Generator().manual_seed(int(seed))
         self.N = int(N)
@@ -78,7 +84,8 @@ class Cheng2020AnchorCheckerboardGMMv2(CompressionModel):
         self.latent_codec = HyperpriorLatentCodec({
             "y": CheckerboardLatentCodec(
                 latent_codec={
-                    "y": GaussianMixtureConditionalLatentCodec(K=self.K),
+                    "y": GaussianMixtureConditionalLatentCodec(
+                        K=self.K, quantizer=quantizer),
                 },
                 entropy_parameters=Sequential(
                     Conv2d(N * 12 // 3, N * 10 // 3, 1, generator=g),
@@ -89,11 +96,13 @@ class Cheng2020AnchorCheckerboardGMMv2(CompressionModel):
                 ),
                 context_prediction=CheckerboardMaskedConv2d(
                     N, 2 * N, kernel_size=5, stride=1, padding=2, generator=g),
+                forward_method="onepass",
             ),
             "hyper": HyperLatentCodec(
                 entropy_bottleneck=EntropyBottleneck(N, generator=g),
                 h_a=h_a,
                 h_s=h_s,
+                quantizer="ste",
             ),
         })
         self.to(device)

@@ -31,6 +31,7 @@ pixels) and run in bfloat16 by default: as library convs, or with
 """
 
 import copy
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import numpy as np
@@ -40,6 +41,32 @@ from flashgmm_tpu_torch.ans import interleaved as il
 from flashgmm_tpu_torch.ans import rans_kernels
 from flashgmm_tpu_torch.ans.gaussian_cdf import get_approx_mode
 from flashgmm_tpu_torch.layers import route_bf16_kernel, run_canonical
+
+
+_PASSES = ("z", "y0", "y1")
+
+
+def _u32_bits(v):
+    """int64 values in [0, 2^32) as int32 of the same 32 bits."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+@contextmanager
+def pinned_library_settings():
+    """The library settings the transforms run under, whatever the caller
+    set: cuDNN on, no autotuning by timing, deterministic algorithms only,
+    no TF32 in convs or matmuls (GDN's), so that no global setting of the
+    caller changes the quantized latents, and so the bytes."""
+    cudnn = torch.backends.cudnn
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                         allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = prev
 
 
 class StreamOverflow(RuntimeError):
@@ -135,11 +162,23 @@ class FastCheckerboardGmmCodec:
                              "model.update() before building the codec")
         self._z_rows, self._z_off, self._z_maxbin = self._z_tables()
         self._med = self._eb._get_medians()[:, 0, 0].detach().float()
+        # decode_bytes' host staging buffer and the event of its last copy
+        self._staging = None
+        self._staged = None
 
     # -- shared pieces -------------------------------------------------------
 
     def _transform(self, mod, x):
-        return mod(x.to(self._dtype)).float()
+        """mod on x in the transforms' type. x is copied into a tensor of
+        canonical strides first: PyTorch picks cuDNN's memory format, and
+        with it the algorithm and its roundings, from the strides, and a
+        caller's batch-1 tensor may carry any stride on its size-1 batch
+        dimension (0 from numpy's ``img[None]``, H*W*3 from a slice of a
+        batch): the bytes differed between two such callers (ROADMAP
+        C9)."""
+        canonical = torch.empty(x.shape, dtype=self._dtype, device=x.device)
+        with pinned_library_settings():
+            return mod(canonical.copy_(x)).float()
 
     def _z_tables(self):
         """(rows [C, L] int32, offsets [C], max_bin [C]) from EB buffers."""
@@ -296,7 +335,7 @@ class FastCheckerboardGmmCodec:
         """Fetch the three streams and pack them (docs/bitstream.md §2):
         per pass u32 n_words, u32 x W states, u16 x n_words words."""
         parts = []
-        for name in ("z", "y0", "y1"):
+        for name in _PASSES:
             p = out[name]
             n = int(p.n_words)
             if n > p.stream.shape[0]:
@@ -308,12 +347,14 @@ class FastCheckerboardGmmCodec:
             parts.append(p.stream[:n].cpu().numpy().astype(np.uint16).tobytes())
         return b"".join(parts)
 
-    def from_bytes(self, data: bytes, y_shape):
-        """Parse ``to_bytes`` output back into pass streams on the device."""
+    def _parse(self, data: bytes, y_shape):
+        """The three passes of ``to_bytes`` output on the host: [(n_words,
+        states u32 [W], words u16 [n_words], cap)], ``cap`` the stream length
+        ``from_bytes`` gives the pass (an overflow pass, n_words above its
+        capped length: the single uncapped one)."""
         cap_z, cap_y = self.stream_capacities(y_shape)
-        out = {}
-        off = 0
-        for name, cap in zip(("z", "y0", "y1"), (cap_z, cap_y, cap_y)):
+        passes, off = [], 0
+        for cap in (cap_z, cap_y, cap_y):
             n = int(np.frombuffer(data, np.uint32, 1, off)[0])
             off += 4
             states = np.frombuffer(data, np.uint32, self.lanes, off)
@@ -321,8 +362,16 @@ class FastCheckerboardGmmCodec:
             words = np.frombuffer(data, np.uint16, n, off)
             off += n * 2
             if n > cap:
-                # overflow file: the single uncapped capacity
                 cap = max(cap * self.cap_divisor, -(-n // self.lanes) * self.lanes)
+            passes.append((n, states, words, cap))
+        return passes
+
+    def from_bytes(self, data: bytes, y_shape):
+        """Parse ``to_bytes`` output back into pass streams on the device,
+        one pageable copy a tensor (the overflow path of ``decode_bytes``)."""
+        out = {}
+        for name, (n, states, words, cap) in zip(
+                _PASSES, self._parse(data, y_shape)):
             stream = np.zeros((cap,), np.int32)
             stream[:n] = words
             out[name] = PassStream(
@@ -331,9 +380,108 @@ class FastCheckerboardGmmCodec:
                 torch.tensor(n, dtype=torch.int64, device=self.device))
         return out
 
+    # -- the packed single-transfer decode path (reference :583-635) ------------
+
+    def packed_layout(self, caps):
+        """(offsets, sizes) in u32 words of each pass inside the packed
+        buffer for stream capacities ``caps`` (z, y0, y1): a pass is
+        [n_words, W states, cap/2 words of two u16], the first u16 of a
+        word in its low half (the reference's ``_packed_layout``)."""
+        if any(c % 2 for c in caps):
+            raise ValueError(f"packed layout: odd stream capacity in {caps}")
+        sizes = [1 + self.lanes + c // 2 for c in caps]
+        return [0, sizes[0], sizes[0] + sizes[1]], sizes
+
+    def pack(self, data: bytes, y_shape):
+        """``to_bytes`` output in the packed layout, in a host buffer this
+        codec reuses (pinned on a CUDA codec): (int32 buffer, caps), caps
+        the passes' stream lengths. The caller moves the buffer with one
+        ``copy_staged``, which must come before the next ``pack``."""
+        passes = self._parse(data, y_shape)
+        caps = tuple(p[3] for p in passes)
+        offs, sizes = self.packed_layout(caps)
+        buf = self._staging_buffer(sum(sizes))
+        u32 = buf.numpy().view(np.uint32)
+        w = self.lanes
+        for (n, states, words, cap), slot in zip(passes, offs):
+            u32[slot] = n
+            u32[slot + 1:slot + 1 + w] = states
+            u16 = u32[slot + 1 + w:slot + 1 + w + cap // 2].view(np.uint16)
+            u16[:n] = words
+            u16[n:] = 0
+        return buf, caps
+
+    def _staging_buffer(self, words: int):
+        """The reused host staging buffer, ``words`` int32 long, once the
+        device has finished reading its previous contents (the event
+        ``copy_staged`` recorded). Pinned for a CUDA codec, so the copy is
+        asynchronous; a failed allocation raises."""
+        if self._staged is not None:
+            self._staged.synchronize()
+            self._staged = None
+        if self._staging is None or self._staging.numel() < words:
+            cuda = self.device.type == "cuda"
+            self._staging = torch.empty(max(words, 1), dtype=torch.int32,
+                                        pin_memory=cuda)
+        return self._staging[:words]
+
+    def copy_staged(self, host, dst=None):
+        """One host-to-device copy of the staged buffer ``host`` (from
+        ``pack``) into ``dst`` (a new device buffer if None), not waiting
+        for it; the next ``pack`` waits for it to finish. Returns dst."""
+        if dst is None:
+            dst = torch.empty(host.shape, dtype=torch.int32, device=self.device)
+        dst.copy_(host, non_blocking=True)
+        if self.device.type == "cuda":
+            self._staged = torch.cuda.Event()
+            self._staged.record()
+        return dst
+
+    def unpack(self, packed, caps):
+        """The packed device buffer as {"z", "y0", "y1": PassStream}: states
+        int64, the stream int32 of u16 words zero-padded to its cap, n_words
+        int64 (device ops only; the reference's ``_unpack_jit``)."""
+        offs, _ = self.packed_layout(caps)
+        w = self.lanes
+        out = {}
+        for name, slot, cap in zip(_PASSES, offs, caps):
+            states = packed[slot + 1:slot + 1 + w].long() & il.MASK32
+            u32 = packed[slot + 1 + w:slot + 1 + w + cap // 2]
+            stream = torch.stack([u32 & il.MASK16, (u32 >> 16) & il.MASK16],
+                                 dim=1).reshape(-1)
+            out[name] = PassStream(states, stream, packed[slot].long())
+        return out
+
+    def pack_device(self, passes, out=None):
+        """Three encoder PassStreams (z, y0, y1) in the packed layout of
+        their stream lengths, by device ops only (no host round trip):
+        the buffer the bytes would give when no pass overflowed, since
+        the encoder's streams are zero past n_words. Into ``out`` if given
+        (int32 of the layout's size), else a new buffer."""
+        caps = tuple(p.stream.shape[0] for p in passes)
+        offs, sizes = self.packed_layout(caps)
+        dev = passes[0].states.device
+        if out is None:
+            out = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+        w = self.lanes
+        for p, slot, cap in zip(passes, offs, caps):
+            out[slot:slot + 1] = _u32_bits(p.n_words.reshape(1))
+            out[slot + 1:slot + 1 + w] = _u32_bits(p.states)
+            s = p.stream.long()
+            out[slot + 1 + w:slot + 1 + w + cap // 2] = _u32_bits(
+                s[0::2] | (s[1::2] << 16))
+        return out
+
     def decode_bytes(self, data: bytes, y_shape):
-        """Bytes -> reconstructed images."""
-        return self.decode(self.from_bytes(data, y_shape), y_shape)
+        """Bytes -> reconstructed images, with one host-to-device transfer:
+        the three passes packed into one pinned buffer, copied once, and
+        unpacked on the device. An overflow file (a pass longer than its
+        capped stream) takes the unpacked path, as in the reference."""
+        cap_z, cap_y = self.stream_capacities(y_shape)
+        host, caps = self.pack(data, y_shape)
+        if caps != (cap_z, cap_y, cap_y):
+            return self.decode(self.from_bytes(data, y_shape), y_shape)
+        return self.decode(self.unpack(self.copy_staged(host), caps), y_shape)
 
     def encode_to_bytes(self, x):
         """encode + to_bytes with the automatic overflow fallback."""
@@ -346,4 +494,4 @@ class FastCheckerboardGmmCodec:
 
     def num_bytes(self, out) -> int:
         return sum(int(out[k].n_words) * 2 + self.lanes * 4
-                   for k in ("z", "y0", "y1"))
+                   for k in _PASSES)

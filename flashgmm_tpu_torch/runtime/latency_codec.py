@@ -12,17 +12,25 @@ replay launches the whole direction at once. Three graphs, as the JAX class
 has three programs:
 
 - encode: transforms, quantization, the z pass and both y passes;
-- decode-y: the z decode, h_s, both y passes and ``embed``, every
-  stream-consuming step;
+- decode-y: the unpack of the packed streams, the z decode, h_s, both y
+  passes and ``embed``, every stream-consuming step;
 - g_s, kept out of the certified program: it reads the exact integer-valued
   y_hat and no coder state, so it cannot desynchronise a stream.
 
-Certification, as in the JAX class: ``encode_certified`` feeds the
-encoder's streams (copied on the device into decode-y's static inputs; they
-have the capacities ``from_bytes`` gives) through the same decode-y graph
-that ``decode()`` replays, and compares the decoded
-y_hat with the encoder's on the device, together with the decoders' error
-flag. A stream overflow or a failed certificate falls back to the batched
+Decode-y reads one static input, the three passes in the batched codec's
+packed layout (``FastCheckerboardGmmCodec.packed_layout``: one int32 buffer
+of the u32 words). A ``decode`` parses the bytes into the batched codec's
+pinned staging buffer, copies it once, without waiting, into that static
+input, and replays; nothing else crosses between host and device but the
+error flag's read.
+
+Certification, as in the JAX class: the encode graph also packs the
+encoder's streams into the same layout on the device (they have the
+capacities ``from_bytes`` gives, zero-padded as the bytes are), and
+``encode_certified`` copies that buffer on the device into decode-y's
+static input and replays the same decode-y graph that ``decode()``
+replays, then compares the decoded y_hat with the encoder's on the
+device, together with the decoders' error flag. A stream overflow or a failed certificate falls back to the batched
 codec's bytes, themselves certified through decode-y; if even that fails,
 their digest is remembered in this instance (with a ``RuntimeWarning``) and
 ``decode()`` routes them through the batched codec's decoder.
@@ -30,8 +38,9 @@ their digest is remembered in this instance (with a ``RuntimeWarning``) and
 No fallback hides the device: a capture or a replay that fails raises, and
 the decoders' deferred error flag is read after every decode-y replay.
 Each graph is keyed by its shapes (encode: the image's; decode-y: y_shape
-and the three stream capacities, so the overflow capacity ``from_bytes``
-can give gets a graph of its own; g_s: y_shape) and built at its first use:
+and the three stream capacities, so an overflow file, whose layout has the
+uncapped capacity ``from_bytes`` gives, gets a graph of its own; g_s:
+y_shape) and built at its first use:
 one eager run on a side stream (it builds the kernels, settles the
 library's algorithm choices and allocates workspaces), then the capture of
 a second run, into one memory pool that every graph of the codec shares.
@@ -53,14 +62,13 @@ import torch
 from flashgmm_tpu_torch.ans import rans_kernels
 from flashgmm_tpu_torch.ops import conv_kernel
 
-from .fast_codec import FastCheckerboardGmmCodec, PassStream, StreamOverflow
+from .fast_codec import _PASSES, FastCheckerboardGmmCodec, StreamOverflow
 
 # the kernel wrappers whose ``.launches`` a capture records, read through
 # their modules so that a wrapper rebound there is the one counted
 _WRAPPERS = ((rans_kernels, "encode_scan"), (rans_kernels, "encode_scan_gmm"),
              (rans_kernels, "decode_scan"), (rans_kernels, "decode_scan_gmm"),
              (conv_kernel, "conv2d_nhwc"), (conv_kernel, "conv2d_nhwc_bf16"))
-_PASSES = ("z", "y0", "y1")
 
 
 def _launch_counts():
@@ -70,9 +78,9 @@ def _launch_counts():
 class _Graph:
     """``fn`` captured as one CUDA graph over static input buffers.
 
-    ``inputs`` are the static buffers, holding the first call's values; one
-    eager run on a side stream comes first, then the capture into
-    ``pool``. ``launches`` is what each kernel wrapper counted during the
+    ``inputs`` are the static device buffers, holding the first call's
+    values; one eager run on a side stream comes first, then the capture
+    into ``pool``. ``launches`` is what each kernel wrapper counted during the
     capture: the hand kernels every replay launches (the counters count
     Python calls, so a replay adds nothing to them)."""
 
@@ -88,11 +96,12 @@ class _Graph:
             self.outputs = fn(*inputs)
         self.launches = {k: v - before[k] for k, v in _launch_counts().items()}
 
-    def __call__(self, *values):
-        """Copy ``values`` into the static inputs and replay; returns the
-        static outputs, which the next replay overwrites."""
+    def __call__(self, copy_in, *values):
+        """Copy ``values`` into the static inputs by ``copy_in(src, dst)``
+        and replay; returns the static outputs, which the next replay
+        overwrites."""
         for dst, src in zip(self.inputs, values):
-            dst.copy_(src)
+            copy_in(src, dst)
         self.graph.replay()
         return self.outputs
 
@@ -129,40 +138,69 @@ class FastLatencyGmmCodec:
     # -- the three directions --------------------------------------------------
 
     def _run(self, direction, key, fn, values):
-        """fn(*values): eagerly on a CPU model, else by replaying the
+        """fn(*values): eagerly on a CPU model (and with ``_graphed`` off,
+        host values first copied to the card), else by replaying the
         direction's graph for ``key`` (captured at its first use)."""
         with torch.inference_mode():
             if not self._graphed:
-                return fn(*values)
+                return fn(*(v if v.device == self.device
+                            else self._batched.copy_staged(v) for v in values))
             graph = self._graphs.get((direction, key))
             if graph is None:
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
-                graph = _Graph(fn, [v.clone() for v in values], self._pool)
+                graph = _Graph(fn, [v.to(self.device, copy=True)
+                                    for v in values], self._pool)
                 self._graphs[(direction, key)] = graph
-            return graph(*values)
+            return graph(self._copy_in, *values)
+
+    def _copy_in(self, src, dst):
+        """A graph's input copy: from the host (the pinned staging buffer)
+        by ``copy_staged``, which records when it is done; on the device,
+        a device copy."""
+        if src.device.type == "cpu":
+            self._batched.copy_staged(src, dst)
+        else:
+            dst.copy_(src)
+
+    def _encode_packed(self, x):
+        """Encode graph: (z, y0, y1 PassStreams, sym0, sym1, y_hat, the
+        three streams in the packed layout)."""
+        b = self._batched
+
+        def encode(x_):
+            out = b._encode(x_, self.cap_divisor)
+            return out + (b.pack_device(out[:3]),)
+
+        return self._run("encode", tuple(x.shape), encode, [x])
 
     def _encode(self, x):
-        """Encode graph: (z, y0, y1 PassStreams, sym0, sym1, y_hat)."""
-        return self._run("encode", tuple(x.shape),
-                         lambda x_: self._batched._encode(x_,
-                                                          self.cap_divisor),
-                         [x])
+        """The encode graph's (z, y0, y1 PassStreams, sym0, sym1, y_hat)."""
+        return self._encode_packed(x)[:6]
 
-    def _decode_y(self, passes, y_shape):
-        """Decode-y graph over three PassStreams: y_hat. The decoders' error
-        flag is zeroed inside the graph; read ``self._err`` after it."""
+    def _decode_y_packed(self, packed, y_shape, caps):
+        """Decode-y graph over the three passes in the packed layout of
+        stream capacities ``caps`` (a pinned host buffer from
+        ``FastCheckerboardGmmCodec.pack``, or a device one): y_hat. The
+        decoders' error flag is zeroed inside the graph; read ``self._err``
+        after it."""
         y_shape = tuple(y_shape)
 
-        def decode_y(*flat):
+        def decode_y(buf):
             self._err.zero_()
-            streams = {name: PassStream(flat[2 * i], flat[2 * i + 1], None)
-                       for i, name in enumerate(_PASSES)}
-            return self._batched.decode_y_hat(streams, y_shape, err=self._err)
+            return self._batched.decode_y_hat(self._batched.unpack(buf, caps),
+                                              y_shape, err=self._err)
 
-        key = (y_shape, tuple(p.stream.shape[0] for p in passes))
-        return self._run("decode_y", key, decode_y,
-                         [t for p in passes for t in (p.states, p.stream)])
+        return self._run("decode_y", (y_shape, tuple(caps)), decode_y,
+                         [packed])
+
+    def _decode_y(self, passes, y_shape):
+        """The decode-y graph over three PassStreams, packed on the device
+        first: y_hat."""
+        caps = tuple(p.stream.shape[0] for p in passes)
+        with torch.inference_mode():
+            packed = self._batched.pack_device(passes)
+        return self._decode_y_packed(packed, y_shape, caps)
 
     def _gs(self, y_hat):
         """g_s graph: x_hat clamped to [0, 1]."""
@@ -185,10 +223,10 @@ class FastLatencyGmmCodec:
 
     # -- certification ---------------------------------------------------------
 
-    def _certificate(self, passes, y_shape, y_hat):
-        """Replay decode-y on three PassStreams: a device bool, true iff it
+    def _certificate(self, packed, y_shape, caps, y_hat):
+        """Replay decode-y on the packed passes: a device bool, true iff it
         reproduced ``y_hat`` exactly and no decoder read past its stream."""
-        y_dec = self._decode_y(passes, y_shape)
+        y_dec = self._decode_y_packed(packed, y_shape, caps)
         return self._cmp(y_dec, y_hat) & (self._err == 0).all()
 
     @staticmethod
@@ -203,14 +241,15 @@ class FastLatencyGmmCodec:
         either they passed certification, or they are the batched codec's
         (certified too, or remembered and routed through its decoder)."""
         x = x.to(self.device, torch.float32)
-        ps_z, ps0, ps1, sym0, _, y_hat = self._encode(x)
+        ps_z, ps0, ps1, sym0, _, y_hat, packed = self._encode_packed(x)
         y_shape = (x.shape[0], sym0.shape[1], sym0.shape[2] * 2,
                    sym0.shape[3])
         passes = (ps_z, ps0, ps1)
         # the encoder's streams always have the capacities from_bytes gives
         # (both from stream_capacities' rule), zero-padded as the bytes are,
-        # so decode-y reads them as it reads the bytes
-        ok = self._certificate(passes, y_shape, y_hat)
+        # so decode-y reads their packed buffer as it reads the bytes'
+        caps = tuple(p.stream.shape[0] for p in passes)
+        ok = self._certificate(packed, y_shape, caps, y_hat)
         try:
             data = self._batched.to_bytes(dict(zip(_PASSES, passes)))
         except StreamOverflow:
@@ -225,8 +264,8 @@ class FastLatencyGmmCodec:
         digest is remembered and ``decode()`` routes them to the batched
         codec's decoder."""
         data, enc = self._batched.encode_to_bytes(x)
-        passes = self._passes(self.from_bytes(data, y_shape))
-        if not bool(self._certificate(passes, y_shape, enc["y_hat"])):
+        host, caps = self._batched.pack(data, y_shape)
+        if not bool(self._certificate(host, y_shape, caps, enc["y_hat"])):
             self._fallback_digests.add(hashlib.sha256(data).hexdigest())
             # the digest memory is per instance: another process must decode
             # these bytes with FastCheckerboardGmmCodec.decode_bytes
@@ -245,22 +284,23 @@ class FastLatencyGmmCodec:
 
     def from_bytes(self, data: bytes, y_shape):
         """Parse ``encode_certified`` bytes into {"z", "y0", "y1":
-        PassStream} on the device (an overflow file gets the uncapped
-        capacity)."""
+        PassStream} on the device, unpacked (an overflow file gets the
+        uncapped capacity); ``decode`` reads the packed layout instead."""
         return self._batched.from_bytes(data, y_shape)
 
     @torch.inference_mode()
     def decode(self, data: bytes, y_shape):
-        """Bytes -> x_hat [1, H, W, 3] in [0, 1]: the decode-y graph, then
-        the g_s graph; raises if a stream was read past its end. Bytes that
-        failed cross-certification in this instance go through the batched
-        codec's decoder."""
+        """Bytes -> x_hat [1, H, W, 3] in [0, 1]: the bytes packed into the
+        pinned staging buffer, one copy into the decode-y graph's input,
+        the decode-y graph, then the g_s graph; raises if a stream was read
+        past its end. Bytes that failed cross-certification in this
+        instance go through the batched codec's decoder."""
         y_shape = tuple(y_shape)
         if self._fallback_digests and \
                 hashlib.sha256(data).hexdigest() in self._fallback_digests:
             return self._batched.decode_bytes(data, y_shape)
-        y_hat = self._decode_y(self._passes(self.from_bytes(data, y_shape)),
-                               y_shape)
+        host, caps = self._batched.pack(data, y_shape)
+        y_hat = self._decode_y_packed(host, y_shape, caps)
         x_hat = self._gs(y_hat)
         self._check_err()
         return x_hat.clone()

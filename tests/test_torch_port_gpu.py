@@ -712,3 +712,115 @@ def test_conv_bf16_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         conv_kernel.conv2d_nhwc_bf16(x, w, out_dtype=torch.float16)
     torch.cuda.synchronize()  # the card is still healthy
+
+
+@pytest.mark.parametrize("route", ["default", "kernel"])
+def test_batch1_bytes_equal_across_fresh_processes(cuda, route):
+    """ROADMAP C9: the latency codec's batch-1 bytes of the first bench
+    image at N=192 with the repository's weights are the same bytes from a
+    process with torch's default flags that runs nothing first and gives
+    the image as ``torch.from_numpy(img[None])`` (batch stride 0), and from
+    one that sets the smoke's flags, takes most of the card's memory first
+    and gives the image as the first of a stacked batch. Before the codec
+    copied its input to canonical strides, cuDNN ran g_a's first convs in
+    another memory format for each, with another algorithm, and the bytes
+    differed."""
+    import json
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parent.parent
+    digests = []
+    for setup in ("cold", "hog"):
+        p = subprocess.run([sys.executable, str(root / "chip_smoke.py"),
+                            "--bytes-worker", route, setup],
+                           capture_output=True, text=True, timeout=600)
+        assert p.returncode == 0, p.stderr[-3000:]
+        run = json.loads(p.stdout.strip().splitlines()[-1])
+        digests.append((run["bytes"], run["sha256"]))
+    assert digests[0] == digests[1], digests
+
+
+def test_packed_decode_one_copy_equals_unpacked(cuda):
+    """Packed decode_bytes (batched) and decode (latency) against the
+    unpacked streams, bit for bit, each with one host-to-device copy."""
+    from flashgmm_tpu_torch.runtime import (FastCheckerboardGmmCodec,
+                                            FastLatencyGmmCodec)
+
+    smoke = _smoke()
+    model, x = _latency_case(cuda, 64, 4)
+    codec = FastCheckerboardGmmCodec(model, lanes=256, cap_divisor=1)
+    x2 = torch.cat([x, x.flip(1)])
+    data, out = codec.encode_to_bytes(x2)
+    y_shape = tuple(out["y_hat"].shape)
+    x_hat, n_h2d = smoke.h2d_copies(lambda: codec.decode_bytes(data, y_shape))
+    assert n_h2d == 1
+    streams = codec.from_bytes(data, y_shape)
+    assert torch.equal(x_hat, codec.decode(streams, y_shape))
+    host, caps = codec.pack(data, y_shape)
+    assert torch.equal(codec.decode_y_hat(codec.unpack(
+        codec.copy_staged(host), caps), y_shape), out["y_hat"])
+    lat = FastLatencyGmmCodec(model, lanes=256, cap_divisor=1)
+    l_data, l_shape = _certified(lat, x)
+    l_xhat, n_h2d = smoke.h2d_copies(lambda: lat.decode(l_data, l_shape))
+    assert n_h2d == 1
+    y_unp = lat._decode_y(lat._passes(lat.from_bytes(l_data, l_shape)),
+                          l_shape).clone()
+    assert torch.equal(l_xhat, lat._gs(y_unp))
+    assert torch.equal(y_unp, lat._batched.decode_y_hat(
+        lat._batched.from_bytes(l_data, l_shape), l_shape))
+
+
+def test_forward_and_backward_on_card_match_the_cpu(cuda):
+    """The training forward at N=64 on a 128x128 image: eval x_hat and
+    likelihoods within atol 1e-4 of the same model's CPU run (float32
+    convs, TF32 off), and one backward of bits per pixel + MSE whose
+    gradients are finite and within 1e-3 of each gradient's largest CPU
+    entry."""
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+
+    model, x = _latency_case(cuda, 64, 4)
+    cpu = Cheng2020AnchorCheckerboardGMMv2(N=64, K=4, seed=0, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        y_g, y_c = model.g_a(x), cpu.g_a(x.cpu())
+        z_g = model.latent_codec.latent_codec["hyper"].h_a(y_g)
+        z_c = cpu.latent_codec.latent_codec["hyper"].h_a(y_c)
+    med = cpu.latent_codec.latent_codec["hyper"].entropy_bottleneck \
+        ._get_medians()[:, 0, 0].detach()
+    for got, ref in ((y_g, y_c), (z_g - med.to(cuda), z_c - med)):
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+        # no latent of this image lies within the two runs' difference of
+        # a rounding boundary, so both round it alike
+        assert torch.equal(torch.round(got).cpu(), torch.round(ref))
+
+    def loss_of(m, v):
+        out = m(v, training=False)
+        rate = sum(-torch.log2(t).sum() for t in out["likelihoods"].values())
+        return out, rate / (128 * 128) + torch.mean((out["x_hat"] - v) ** 2)
+
+    out_g, loss_g = loss_of(model, x)
+    out_c, loss_c = loss_of(cpu, x.cpu())
+    for got, ref in ((out_g["x_hat"], out_c["x_hat"]),
+                     (out_g["likelihoods"]["y"], out_c["likelihoods"]["y"]),
+                     (out_g["likelihoods"]["z"], out_c["likelihoods"]["z"])):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+    loss_g.backward()
+    loss_c.backward()
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in model.named_parameters():
+        ref = cpu_params[name].grad
+        if ref is None:
+            assert p.grad is None, name
+            continue
+        assert bool(torch.isfinite(p.grad).all()), name
+        scale = float(ref.abs().max())
+        torch.testing.assert_close(p.grad.cpu(), ref, rtol=0,
+                                   atol=1e-3 * max(scale, 1e-12), msg=name)
+    grad = model.g_a.layers[0].conv1.weight.grad
+    assert bool((grad != 0).any())
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tr = model(x, training=True, generator=gen)
+    assert all(bool(torch.isfinite(t).all())
+               for t in (tr["x_hat"], *tr["likelihoods"].values()))

@@ -9,6 +9,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 
 PROBE = """
@@ -42,3 +44,20 @@ def test_smoke_refuses_without_a_card():
                               "HOME": str(ROOT)})
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "flashgmm_tpu_torch.zoo.torch_convert",
+    "flashgmm_tpu_torch.models.base",
+    "flashgmm_tpu_torch.entropy_models.entropy_models",
+])
+def test_forward_and_converter_modules_import_no_jax(module):
+    """The CompressAI state-dict converter and the training forward's
+    modules, each imported alone in a fresh interpreter."""
+    probe = (f"import importlib, sys; importlib.import_module({module!r}); "
+             "print(','.join(sorted(k for k in sys.modules if k.split('.')[0] "
+             "in ('jax', 'jaxlib', 'flax', 'flashgmm_tpu'))))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", out.stdout

@@ -150,6 +150,30 @@ def test_symbols_agree_with_the_jax_latency_encoder(models, bf16, bound):
     assert int(np.abs(got - ref).max()) <= 1
 
 
+def test_transforms_see_canonical_strides(models):
+    """ROADMAP C9: a batch-1 image tensor's size-1 batch dimension may carry
+    any stride (0 from ``torch.from_numpy(img[None])``, H*W*3 from a slice
+    of a batch); on the card cuDNN chose its memory format, algorithm and
+    roundings by those strides. The codec hands g_a a copy with canonical
+    strides either way, and the bytes are the same."""
+    _, tm = models
+    codec = TLatency(tm, lanes=LANES, cap_divisor=1)
+    img = _image(13)[0]
+    seen = []
+    hook = codec._batched._g_a.layers[0].register_forward_hook(
+        lambda _m, i, _o: seen.append(i[0].stride()))
+    try:
+        a = torch.from_numpy(img[None])
+        b = torch.from_numpy(np.stack([img, img]))[:1]
+        assert a.stride()[0] != b.stride()[0]
+        data_a, _ = _certified(codec, a)
+        data_b, _ = _certified(codec, b)
+    finally:
+        hook.remove()
+    assert data_a == data_b
+    assert seen and set(seen) == {(64 * 64 * 3, 64 * 3, 3, 1)}
+
+
 def test_forced_certification_failure_takes_the_fallback(models):
     _, tm = models
     codec = TLatency(tm, lanes=LANES, cap_divisor=1)
