@@ -4,7 +4,7 @@
     python3 chip_profile.py [--batch 2 24] [--reps 3]
                             [--tiles | --decode | --encode |
                              --kernel-transforms | --latency | --bytes |
-                             --forward]
+                             --forward | --elic]
 
 For each batch size: N=192, K=4 flagship with weights/ckbd_gmm_n192_k4_
 synthetic.npz, lanes=4096, cap_divisor=4, 768x512 textured-leaves images
@@ -66,6 +66,17 @@ one's, the first stage whose digest differs and the first device kernel
 whose name differs.
 ``--forward`` instead times the training forward and its backward on the
 first image (TF32 off), with profiler tables by device and by host time.
+``--elic`` instead runs ELIC (Elic2022GMM N=192, M=320, K=4, weights/
+elic_gmm_n192_m320_k4_synthetic.npz, lanes=512, cap_divisor=1): for batch
+1 and 2, one JSON line with the batched codec's encode and decode ms
+(median of --reps), bytes, bpp, PSNR and its stages one at a time (g_a,
+h_a, the z pass, h_s, each group's channel context and parameters, each
+of the ten passes' encode and decode, g_s); then, for each route, one JSON
+line of the single-image codec (FastLatencyElicCodec, the first image):
+encode_certified and decode medians of at least 20 runs, graph and eager
+alternating, and each direction's device ms, busy and idle share and the
+y decoders' share on the graph path (torch.profiler); then each route's
+table of device time by kernel over one graph encode_certified + decode.
 Needs a CUDA device; imports no JAX.
 """
 
@@ -96,6 +107,7 @@ def main() -> int:
     ap.add_argument("--latency", action="store_true")
     ap.add_argument("--bytes", action="store_true")
     ap.add_argument("--forward", action="store_true")
+    ap.add_argument("--elic", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -126,6 +138,9 @@ def main() -> int:
     if args.encode:
         for b in args.batch:
             encode_steps(dev, smi, steps=36 * b)
+        return 0
+    if args.elic:
+        elic_profile(args.reps, dev, smi)
         return 0
     model = Cheng2020AnchorCheckerboardGMMv2(N=192, K=4, seed=0, device=dev)
     load_npz(model, WEIGHTS)
@@ -267,6 +282,143 @@ def stages(c, x, data, y_shape):
         y_hat = c._ckbd.embed(sym.float())
         _, ms[f"g_s ({route})"] = timed(lambda: c._transform(c._g_s, y_hat))
     return ms
+
+
+def elic_stages(c, x, data, y_shape):
+    """FastElicGmmCodec c's stages one at a time (its internals, in the
+    order encode() and decode() run them), each ending in a synchronize."""
+    import torch
+
+    b, h, w, _ = y_shape
+    ms = {}
+    with torch.inference_mode():
+        y, ms["g_a"] = timed(lambda: c._transform(c._g_a, x))
+        z, ms["h_a"] = timed(lambda: c._transform(c._h_a, y))
+        (z_bin, _), ms["z quantize + pass encode"] = timed(
+            lambda: c._encode_z(z))
+        syms = []
+        for ckbd, yk in zip(c._ckbds, c._cg._split(y)):
+            sym = torch.clamp(torch.round(ckbd.unembed(yk)).to(torch.int32),
+                              -c.max_abs, c.max_abs)
+            syms += [sym[0], sym[1]]
+        side_all, ms["h_s (conv kernel)"] = timed(lambda: c._side(z_bin))
+        streams = c.from_bytes(data, y_shape)
+        for k, ckbd in enumerate(c._ckbds):
+            side, t_ctx = timed(lambda: ckbd.unembed(
+                c._ctxparams(side_all, syms[:2 * k], k)))
+            p0, t0 = timed(lambda: c._pass_params(k, side[0]))
+            p1, t1 = timed(lambda: c._pass_params(k, side[1], syms[2 * k]))
+            ms[f"group {k} channel context + parameters"] = t_ctx + t0 + t1
+            n = b * h * (w // 2) * c.groups[k]
+            for i, (p, s_) in enumerate(((p0, syms[2 * k]),
+                                         (p1, syms[2 * k + 1]))):
+                _, ms[f"pass {k}.{i} encode"] = timed(
+                    lambda: c._encpass(p, s_.reshape(-1), c.cap_divisor))
+                _, ms[f"pass {k}.{i} decode"] = timed(
+                    lambda: c._decpass(streams[1 + 2 * k + i], p, n))
+        y_hat = c._embed_full(syms)
+        _, ms["g_s"] = timed(lambda: c._transform(c._g_s, y_hat))
+    return ms
+
+
+def elic_profile(reps, dev, smi):
+    """ELIC's batched codec at batch 1 and 2 and its single-image codec on
+    both routes (see the module docstring)."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.models import Elic2022GMM
+    from flashgmm_tpu_torch.runtime import (FastElicGmmCodec,
+                                            FastLatencyElicCodec)
+    from flashgmm_tpu_torch.zoo import load_npz
+
+    torch.backends.cudnn.allow_tf32 = False  # as chip_smoke.py sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Elic2022GMM(N=192, M=320, K=4, seed=0, device=dev)
+    load_npz(model, ROOT / "weights" / "elic_gmm_n192_m320_k4_synthetic.npz")
+    model.update(update_quantiles=True)
+    images = np.stack([textured_leaves(H, W, seed=500001 + i)
+                       for i in range(2)])
+    codec = FastElicGmmCodec(model)
+    with torch.inference_mode():
+        for b in (1, 2):
+            x = torch.from_numpy(images[:b]).to(dev)
+            data, out = codec.encode_to_bytes(x)  # warm-up
+            y_shape = tuple(out["y_hat"].shape)
+            codec.decode_bytes(data, y_shape)
+            enc, dec = [], []
+            for _ in range(reps):
+                (data, out), t = timed(lambda: codec.encode_to_bytes(x))
+                enc.append(t)
+                x_hat, t = timed(lambda: codec.decode_bytes(data, y_shape))
+                dec.append(t)
+            mse = ((x_hat - x) ** 2).mean(dim=(1, 2, 3)).double().cpu().numpy()
+            e, d = statistics.median(enc), statistics.median(dec)
+            print(json.dumps({
+                "elic_batch": b, "encode_ms": e, "decode_ms": d,
+                "ms_per_image": (e + d) / b, "bytes": len(data),
+                "bpp": len(data) * 8 / (b * H * W),
+                "psnr_db": float(np.mean(-10 * np.log10(np.maximum(mse,
+                                                                   1e-12)))),
+                "stages_ms": elic_stages(codec, x, data, y_shape),
+                "card": smi}), flush=True)
+    x = torch.from_numpy(images[:1]).to(dev)
+    tables = []
+    for route in (False, True):
+        lat = FastLatencyElicCodec(model, kernel_transforms=route)
+        with torch.inference_mode():
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                data, y_shape = lat.encode_certified(x)  # builds the graphs
+            runs = {"graph": [], "eager": []}
+            for mode in ("graph", "eager"):  # warm-up
+                lat._graphed = mode == "graph"
+                latency_run(lat, x, data, y_shape)
+            if lat._fallback_digests or len(lat._graphs) != 3:
+                raise RuntimeError("ELIC latency: not certified on three "
+                                   "graphs")
+            for r in range(max(reps, 20)):
+                for mode in (("graph", "eager") if r % 2 == 0
+                             else ("eager", "graph")):
+                    lat._graphed = mode == "graph"
+                    runs[mode].append(latency_run(lat, x, data, y_shape))
+            lat._graphed = True
+            device = {}
+            for op, fn in (("encode_certified", lambda: lat.encode_certified(x)),
+                           ("decode", lambda: lat.decode(data, y_shape))):
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                device[op] = device_shares(prof)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                lat.encode_certified(x)
+                lat.decode(data, y_shape)
+                torch.cuda.synchronize()
+            tables.append((route, prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=30,
+                max_name_column_width=60)))
+        print(json.dumps({
+            "elic_latency_route": "kernel_transforms" if route else "default",
+            "lanes": lat.lanes, "cap_divisor": lat.cap_divisor,
+            "bytes": len(data), "bpp": len(data) * 8 / (H * W),
+            "runs": len(runs["graph"]), "ms": {mode: {op: {
+                "host_median": statistics.median(r[op][0] for r in rr),
+                "cuda_events_median": statistics.median(r[op][1] for r in rr),
+                "host_runs": [r[op][0] for r in rr]}
+                for op in rr[0]} for mode, rr in runs.items()},
+            "device_graph": device, "card": smi}), flush=True)
+        del lat
+    for route, table in tables:
+        print(f"ELIC route {'kernel_transforms' if route else 'default'}, "
+              "one graph encode_certified + decode:", flush=True)
+        print(table, flush=True)
 
 
 def single_image(model, image, reps, dev, smi):

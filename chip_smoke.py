@@ -75,7 +75,21 @@ Phases, each ending in one flushed line with its seconds:
    bits within 5 % of the bits the latency codec's bytes carry (the
    words and what the final rANS states hold), forward and backward
    ms;
-9. timing: every kernel call of those runs timed again by CUDA events,
+9. elic: ELIC (Elic2022GMM N=192, M=320, K=4, the synthetic weights)
+   through both of its codecs at lanes=512, cap_divisor=1 (``elic_phase``):
+   the batched codec on the two images and on the first alone, on both
+   routes, y_hat exact through the bytes, the launches of one encode +
+   decode (the z pass's coder once a direction, the GMM coder ten times,
+   the f32 conv 100 times with h_s's transposed convs, the bounds and
+   rows kernels never, the bf16 conv 131 times on the kernel route, each
+   distinct routed shape within tolerance of plain), bpp and PSNR of the
+   kernel route within 0.5 % and 0.05 dB of the default's; the
+   single-image codec (FastLatencyElicCodec) on both routes, certified on
+   its three graphs with the path's captured launches, bytes equal to the
+   eager batched codec's, a forced failure taking the fallback, the
+   medians of 20 runs, graph and eager; a truncated stream raising; the
+   eval forward's bits within 5 % of what the latency bytes carry;
+10. timing: every kernel call of those runs timed again by CUDA events,
    back to back ("ms"), beside its plain version, a library call where one
    computes the same function, and its bound; the encoders and the bounds
    kernel also on the device alone ("device_ms": the stream's queue filled
@@ -85,7 +99,10 @@ Phases, each ending in one flushed line with its seconds:
    kernel's calls of the latency path's eager run (batch 1), held to its
    plain version and timed ("latency_ms", "latency_device_ms",
    "latency_bound_ms"), beside its launches in each direction's graph
-   ("latency_launches").
+   ("latency_launches"); and each kernel's calls of ELIC's batched encode
+   + decode of the two images ("elic_launches", "elic_ms",
+   "elic_device_ms", "elic_bound_ms"), each distinct conv shape and each
+   coder call held to its plain version.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -121,6 +138,17 @@ W_WIDE = 8192  # the widest lanes the JAX bench swept: one pass decodes
 # the single-image latency codec: the JAX bench's lanes for it
 # (bench.py:108-134), and the runs each of its timings is the median of
 LAT_LANES, LAT_REPS = 1024, 20
+# ELIC (Elic2022GMM, the paper's own model): the weights, M, and its codecs'
+# lanes and cap_divisor (the JAX defaults, flashgmm_tpu/runtime/fast_elic.py:
+# 31-33 and latency_elic.py:37-39)
+ELIC_WEIGHTS = ROOT / "weights" / "elic_gmm_n192_m320_k4_synthetic.npz"
+ELIC_M, ELIC_LANES, ELIC_CAP = 320, 512, 1
+ELIC_PASSES = 11  # z, then two checkerboard passes of each of 5 groups
+# a direction's rows-chain convs: h_s 3, channel contexts 4 x 3, spatial
+# contexts 5, aggregation networks 10 x 3; the bf16 kernel's routed convs
+# of g_a, h_a and g_s at N=192, M=320
+ELIC_ROWS_CONVS, ELIC_BF16 = 50, {"g_a": 65, "h_a": 1, "g_s": 65}
+ELIC_INSERTED = 2  # of them h_s's stride-2 deconvs, on zero-inserted inputs
 # float32 operations of one mixture term of one rows entry, by APPROX_MODE
 # (each add, sub, mul, div, sqrt and floor 1, each FMA 2; XLA's exp is 22):
 # Pólya: sub, div, 2 mul, exp, sub, sqrt, add, and the mixture FMA = 31;
@@ -199,6 +227,28 @@ def ptxas_spills(lines):
     return spills
 
 
+def call_key(args, kwargs):
+    """A kernel call's shapes, types and options: calls with equal keys do
+    the same work on inputs of the same shapes."""
+    def key(v):
+        if hasattr(v, "kio"):  # packed bf16 weights
+            v = v.kio
+        if hasattr(v, "shape"):
+            return (tuple(v.shape), str(v.dtype))
+        return v
+    return (tuple(key(a) for a in args),
+            tuple(sorted((k, key(v)) for k, v in kwargs.items())))
+
+
+def inserted_stride(x):
+    """2 where the NHWC conv input x is a stride-2 transposed conv's
+    zero-inserted input (``ConvTranspose2d.canonical``: its values at
+    [:, ::2, ::2], zeros between), else 1."""
+    if x.shape[1] % 2 or x.shape[2] % 2 or not bool(x[:, ::2, ::2].any()):
+        return 1
+    return 1 if bool(x[:, 1::2].any() or x[:, :, 1::2].any()) else 2
+
+
 def cuda_ms(fn, reps, ahead=False):
     """Mean ms of fn over reps calls after one warm-up, by CUDA events. With
     ``ahead`` the events time the device's work alone, without the
@@ -257,14 +307,15 @@ def h2d_copies(fn):
     raise RuntimeError("h2d_copies: three traces without device kernels")
 
 
-def truncate_pass(data, lanes, which):
-    """Codec bytes (docs/bitstream.md §2: per pass u32 n_words, u32 x lanes
-    states, u16 x n_words words) with pass ``which`` (0 z, 1 y0, 2 y1) cut
-    to half its words: a truncated file."""
+def truncate_pass(data, lanes, which, n_passes):
+    """Codec bytes of ``n_passes`` passes (docs/bitstream.md §2: per pass
+    u32 n_words, u32 x lanes states, u16 x n_words words) with pass
+    ``which`` (0 z, then the y passes in order) cut to half its words: a
+    truncated file."""
     import numpy as np
 
     parts, off = [], 0
-    for i in range(3):
+    for i in range(n_passes):
         n = int(np.frombuffer(data, np.uint32, 1, off)[0])
         head, end = off + 4 + 4 * lanes, off + 4 + 4 * lanes + 2 * n
         if i == which:
@@ -277,16 +328,17 @@ def truncate_pass(data, lanes, which):
 
 
 def latency_run(codec, x, data, y_shape):
-    """One run of each single-image operation of a FastLatencyGmmCodec on
-    image x [1, H, W, 3] whose certified bytes are ``data``: the certified
-    encode, the encode alone (the encode direction and the bytes) and the
-    decode of ``data``, each timed by host clock around work that ends in a
-    synchronize and by CUDA events around it: {op: (host ms, events ms)}."""
+    """One run of each single-image operation of a FastLatencyGmmCodec (or
+    FastLatencyElicCodec) on image x [1, H, W, 3] whose certified bytes are
+    ``data``: the certified encode, the encode alone (the encode direction
+    and the bytes of its passes) and the decode of ``data``, each timed by
+    host clock around work that ends in a synchronize and by CUDA events
+    around it: {op: (host ms, events ms)}."""
     import torch
 
     ops = {"encode_certified": lambda: codec.encode_certified(x),
-           "encode": lambda: codec._batched.to_bytes(
-               dict(zip(("z", "y0", "y1"), codec._encode(x)[:3]))),
+           "encode": lambda: codec._batched._bytes_of(
+               codec._certifiable(x)[0]),
            "decode": lambda: codec.decode(data, y_shape)}
     out = {}
     for op, fn in ops.items():
@@ -466,9 +518,21 @@ def stage_digests(codec, x):
                     key=lambda e: e.time_range.start)
     return {"stages": stages, "kernels": [e.name for e in events]}
 
-def coded_bits(data, lanes):
-    """(payload bits, coded bits) of codec bytes (docs/bitstream.md §2: per
-    pass u32 n_words, u32 x lanes states, u16 x n_words words). Payload:
+def pass_words(data, lanes, n_passes):
+    """Each pass's n_words in codec bytes (docs/bitstream.md §2)."""
+    import numpy as np
+
+    words, off = [], 0
+    for _ in range(n_passes):
+        words.append(int(np.frombuffer(data, np.uint32, 1, off)[0]))
+        off += 4 + 4 * lanes + 2 * words[-1]
+    return words
+
+
+def coded_bits(data, lanes, n_passes):
+    """(payload bits, coded bits) of codec bytes of ``n_passes`` passes
+    (docs/bitstream.md §2: per pass u32 n_words, u32 x lanes states, u16 x
+    n_words words). Payload:
     the words alone, the bytes less the passes' headers and states. Coded:
     the information the passes carry, 16 bits a word plus what each lane's
     final state holds above its initial 2^16, log2(state) - 16 (rANS
@@ -477,7 +541,7 @@ def coded_bits(data, lanes):
 
     payload = coded = 0.0
     off = 0
-    for _ in range(3):
+    for _ in range(n_passes):
         n = int(np.frombuffer(data, np.uint32, 1, off)[0])
         states = np.frombuffer(data, np.uint32, lanes, off + 4)
         payload += 16 * n
@@ -487,16 +551,16 @@ def coded_bits(data, lanes):
     return payload, coded
 
 
-def forward_phase(dev, x, codec_data):
+def forward_phase(dev, x, codec_data, n_passes):
     """The training forward of the N=192, K=4 flagship with the bench
     weights on image x [1, H, W, 3]: eval, then training with a seeded
     generator, then one backward of bits per pixel + MSE. Requires finite
     outputs and g_a's first conv gradient, finite and not all zero;
     eval-mode y_hat = round(y); the eval likelihoods' bits within 5 % of
-    the bits the latency codec's bytes ``codec_data`` carry (``coded_bits``;
-    the payload alone, the bytes less the passes' headers and states, is
-    printed beside them); prints the forward and backward ms (CUDA events,
-    median of 5)."""
+    the bits the latency codec's bytes ``codec_data`` (``n_passes``
+    passes) carry (``coded_bits``; the payload alone, the bytes less the
+    passes' headers and states, is printed beside them); prints the
+    forward and backward ms (CUDA events, median of 5)."""
     import statistics
 
     import torch
@@ -524,7 +588,7 @@ def forward_phase(dev, x, codec_data):
                 "forward: eval y_hat is not round(y)")
         bits = sum(float(-torch.log2(v.double()).sum())
                    for v in ev["likelihoods"].values())
-        payload, coded = coded_bits(codec_data, LAT_LANES)
+        payload, coded = coded_bits(codec_data, LAT_LANES, n_passes)
         gap = bits / coded - 1
 
         def loss_of(out):
@@ -568,6 +632,257 @@ def forward_phase(dev, x, codec_data):
     require(abs(gap) <= 0.05, f"forward: the likelihoods' bits are "
             f"{100 * gap:+.2f} % from the codec's coded bits")
     phase("forward", "eval, training and one backward at full width")
+
+
+def elic_phase(dev, x, record, originals):
+    """ELIC (Elic2022GMM N=192, M=320, K=4, the synthetic weights,
+    update(update_quantiles=True)) through both of its codecs on the
+    smoke's images x [BATCH, H, W, 3]. Batched (FastElicGmmCodec,
+    lanes=512, cap_divisor=1) on the batch and on the first image, each
+    route: encode -> to_bytes -> from_bytes -> decode with y_hat exact,
+    the launches of one encode + decode (z encoder 1, GMM encoder 10, z
+    decoder 1, GMM decoder 10, the f32 conv 100, the bounds and rows
+    kernels never, the bf16 conv 131 on the kernel route), each distinct
+    routed bf16 shape once within tolerance of its plain version, the
+    kernel route's bpp and PSNR within 0.5 % and 0.05 dB of the default's.
+    Single image (FastLatencyElicCodec, the same settings), each route:
+    certified on its graphs with no fallback, three graphs whose captured
+    launches are the path's, bytes equal to the eager batched codec's,
+    y_hat exact, a forced certification failure taking the fallback whose
+    bytes decode, medians of LAT_REPS runs of encode_certified and decode,
+    graph and eager; a truncated stream raising after the decode-y replay
+    (at cap_divisor=4: at cap_divisor=1 a stream has room for one word a
+    symbol, which no decoder reads past, so truncation shows only as
+    wrong symbols, as in the reference). Then the eval forward at full
+    width on the first image, its likelihoods' bits within 5 % of the bits
+    the latency bytes carry. Returns (launches, recorded calls) of the
+    default route's batched encode + decode of the batch, the bf16 conv's
+    from the kernel route's, for the timing phase."""
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.models import Elic2022GMM
+    from flashgmm_tpu_torch.ops import conv_kernel
+    from flashgmm_tpu_torch.runtime import (FastElicGmmCodec,
+                                            FastLatencyElicCodec)
+    from flashgmm_tpu_torch.zoo import load_npz
+
+    model = Elic2022GMM(N=N, M=ELIC_M, K=K, seed=0, device=dev)
+    n_loaded = load_npz(model, ELIC_WEIGHTS)
+    model.update(update_quantiles=True)
+    x1 = x[:1].contiguous()
+    print(f"  ELIC N={N} M={ELIC_M} K={K} groups {model.groups}: "
+          f"{ELIC_WEIGHTS.name}, {n_loaded} tensors", flush=True)
+
+    def psnr_of(x_hat, xb):
+        mse = ((x_hat - xb) ** 2).mean(dim=(1, 2, 3)).double().cpu().numpy()
+        return float(np.mean(-10 * np.log10(np.maximum(mse, 1e-12))))
+
+    def batched(c, xb, tag):
+        """One warmed-up encode -> to_bytes -> from_bytes -> decode of xb,
+        launches counted from 0: (bytes, y_hat, launches, calls, bpp,
+        PSNR)."""
+        def once():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            data, out = c.encode_to_bytes(xb)
+            y_shape = tuple(out["y_hat"].shape)
+            t1 = time.perf_counter()
+            x_hat = c.decode(c.from_bytes(data, y_shape), y_shape)
+            torch.cuda.synchronize()
+            return data, out, x_hat, t1 - t0, time.perf_counter() - t1
+
+        once()
+        (data, out, x_hat, t_enc, t_dec), launches, calls = record(once)
+        y_shape = tuple(out["y_hat"].shape)
+        require(len(out["streams"]) == ELIC_PASSES,
+                f"{tag}: {len(out['streams'])} streams")
+        require(torch.equal(c.decode_y_hat(c.from_bytes(data, y_shape),
+                                           y_shape), out["y_hat"]),
+                f"{tag}: y_hat differs after the bytes")
+        require(tuple(x_hat.shape) == tuple(xb.shape)
+                and bool(torch.isfinite(x_hat).all()), f"{tag}: x_hat")
+        b = xb.shape[0]
+        bpp, psnr = len(data) * 8 / (b * H * W), psnr_of(x_hat, xb)
+        print(f"  {tag}: y_hat {list(y_shape)} exact through {len(data)} "
+              f"bytes; bpp {bpp:.7f}, PSNR {psnr:.4f} dB; encode "
+              f"{1e3 * t_enc / b:.2f} ms, decode {1e3 * t_dec / b:.2f} ms per "
+              f"image (host clock); launches {launches}", flush=True)
+        return data, out["y_hat"], launches, calls, bpp, psnr
+
+    want = {"rans_encode": 1, "rans_encode_gmm": 10, "rans_decode": 1,
+            "rans_decode_gmm": 10, "gmm_bounds": 0, "gmm_rows": 0,
+            "conv2d_nhwc": 2 * ELIC_ROWS_CONVS, "conv2d_nhwc_bf16": 0}
+    runs = {}
+    for kt in (False, True):
+        c = FastElicGmmCodec(model, lanes=ELIC_LANES, cap_divisor=ELIC_CAP,
+                             kernel_transforms=kt)
+        for xb, what in ((x, f"batch {BATCH}"), (x1, "image 1")):
+            tag = (f"ELIC batched {what}, "
+                   f"{'kernel' if kt else 'default'} route")
+            r = batched(c, xb, tag)
+            w = dict(want, conv2d_nhwc_bf16=sum(ELIC_BF16.values()) if kt
+                     else 0)
+            require(r[2] == w, f"{tag}: launches {r[2]}, not {w}")
+            # the timing phase takes the batch's calls; drop the others
+            runs[(kt, what)] = r if xb is x else r[:3] + (None,) + r[4:]
+        del c
+    shapes = {}  # each distinct routed bf16 conv of the path, once
+    for args, kwargs in runs[(True, f"batch {BATCH}")][3]["conv2d_nhwc_bf16"]:
+        key = (tuple(args[0].shape), tuple(args[1].shape),
+               kwargs.get("negative_slope"),
+               None if kwargs.get("residual") is None
+               else kwargs["residual"].dtype)
+        if key not in shapes:
+            got = originals["conv2d_nhwc_bf16"](*args, **kwargs)
+            ref = conv_kernel.conv2d_nhwc_bf16_plain(*args, **kwargs)
+            ok, err, _ = bf16_conv_ok(got, ref)
+            require(ok, f"ELIC bf16 conv {key}: beyond tolerance ({err})")
+            shapes[key] = err
+    print(f"  ELIC kernel route: {len(shapes)} distinct bf16 conv shapes, "
+          f"each within tolerance of plain (max|d| "
+          f"{max(shapes.values()):.3g})", flush=True)
+    for what in (f"batch {BATCH}", "image 1"):
+        (_, _, _, _, bpp, psnr), (_, _, _, _, k_bpp, k_psnr) = (
+            runs[(False, what)], runs[(True, what)])
+        require(abs(k_psnr - psnr) <= 0.05 and abs(k_bpp - bpp) <= 0.005 * bpp,
+                f"ELIC {what}: kernel route bpp {k_bpp} PSNR {k_psnr}, "
+                f"default {bpp} {psnr}")
+
+    # the single image: one CUDA graph a direction
+    names = {"encode_scan": "rans_encode",
+             "encode_scan_gmm": "rans_encode_gmm",
+             "decode_scan": "rans_decode", "decode_scan_gmm": "rans_decode_gmm",
+             "conv2d_nhwc": "conv2d_nhwc",
+             "conv2d_nhwc_bf16": "conv2d_nhwc_bf16"}
+    lat_data = None
+    for kt in (False, True):
+        tag = f"ELIC latency {'kernel' if kt else 'default'} route"
+        lat = FastLatencyElicCodec(model, lanes=ELIC_LANES,
+                                   cap_divisor=ELIC_CAP, kernel_transforms=kt)
+        fallbacks = []
+        encode_fallback = lat._encode_fallback
+
+        def counted(*args, _fallback=encode_fallback):
+            fallbacks.append(1)
+            return _fallback(*args)
+        lat._encode_fallback = counted
+
+        def first(lat=lat):
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                data, y_shape = lat.encode_certified(x1)
+                x_hat = lat.decode_bytes(data, y_shape)
+                torch.cuda.synchronize()
+            return data, y_shape, x_hat
+
+        (l_data, l_shape, l_xhat), l_launches, _ = record(first)
+        require(not fallbacks and not lat._fallback_digests,
+                f"{tag}: certification fell back on the graph path")
+        graphs = {d: g for (d, _), g in lat._graphs.items()}
+        require(len(lat._graphs) == 3 and sorted(graphs) == [
+            "decode_y", "encode", "g_s"], f"{tag}: graphs {list(lat._graphs)}")
+        g_launches = {d: {names[k]: v for k, v in g.launches.items() if v}
+                      for d, g in graphs.items()}
+        bf16 = ELIC_BF16 if kt else dict.fromkeys(ELIC_BF16, 0)
+        want_g = {"encode": {"rans_encode": 1, "rans_encode_gmm": 10,
+                             "conv2d_nhwc": ELIC_ROWS_CONVS,
+                             "conv2d_nhwc_bf16": bf16["g_a"] + bf16["h_a"]},
+                  "decode_y": {"rans_decode": 1, "rans_decode_gmm": 10,
+                               "conv2d_nhwc": ELIC_ROWS_CONVS},
+                  "g_s": {"conv2d_nhwc_bf16": bf16["g_s"]}}
+        want_g = {d: {k: v for k, v in c.items() if v}
+                  for d, c in want_g.items()}
+        require(g_launches == want_g, f"{tag}: captured launches {g_launches}"
+                f", not {want_g}")
+
+        def eager(lat=lat, y_shape=l_shape):
+            data, out = lat._batched.encode_to_bytes(x1)
+            x_hat = lat._batched.decode_bytes(data, y_shape)
+            torch.cuda.synchronize()
+            return data, out, x_hat
+
+        (e_data, e_out, e_xhat), e_launches, _ = record(eager)
+        require(e_data == l_data, f"{tag}: graph bytes differ from eager")
+        for name, count in e_launches.items():
+            require(count == sum(g.get(name, 0) for g in g_launches.values()),
+                    f"{tag}: eager launches {name} {count} times, the "
+                    "graphs another number")
+        y_graph = lat._decode_y(lat._passes(lat.from_bytes(l_data, l_shape)),
+                                l_shape).clone()
+        require(int(lat._err) == 0 and torch.equal(y_graph, e_out["y_hat"]),
+                f"{tag}: y_hat not exact through the bytes")
+        gs_diff = float((l_xhat - e_xhat).abs().max())
+        require(tuple(l_xhat.shape) == (1, H, W, 3)
+                and bool(torch.isfinite(l_xhat).all()) and gs_diff < 1e-2,
+                f"{tag}: x_hat, graph against eager max|d| {gs_diff}")
+        lat._cmp = lambda a, b: torch.zeros((), dtype=torch.bool,
+                                            device=a.device)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            f_data, f_shape = lat.encode_certified(x1)
+        del lat._cmp
+        require(len(fallbacks) == 1 and lat._fallback_digests and any(
+            issubclass(w_.category, RuntimeWarning) for w_ in caught),
+            f"{tag}: a forced failure did not take the fallback")
+        require(torch.equal(lat.decode_bytes(f_data, f_shape),
+                            lat._batched.decode_bytes(f_data, f_shape)),
+                f"{tag}: the fallback's bytes do not decode")
+        lat._fallback_digests.clear()
+        times = {"graph": latency_times(lat, x1, LAT_REPS)}
+        lat._graphed = False  # the same functions, eagerly
+        times["eager"] = latency_times(lat, x1, LAT_REPS)
+        lat._graphed = True
+        mse = float(((l_xhat - x1) ** 2).mean())
+        print(f"  {tag}: certified on its 3 graphs, y_hat {list(l_shape)} "
+              f"exact through {len(l_data)} bytes (the eager run's); bpp "
+              f"{len(l_data) * 8 / (H * W):.7f}, PSNR "
+              f"{-10 * np.log10(max(mse, 1e-12)):.4f} dB; forced failure: "
+              f"fallback taken, bytes decode; captured launches {g_launches}",
+              flush=True)
+        print(f"  {tag}: median ms of {LAT_REPS} runs (host clock, CUDA "
+              f"events): {json.dumps(times)}", flush=True)
+        if not kt:
+            lat_data = l_data
+        del lat
+    lat4 = FastLatencyElicCodec(model, lanes=ELIC_LANES, cap_divisor=4)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        d4, s4 = lat4.encode_certified(x1)
+    x4 = lat4.decode_bytes(d4, s4)
+    try:
+        lat4.decode_bytes(truncate_pass(d4, ELIC_LANES, 1, ELIC_PASSES), s4)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    require("past its end" in raised,
+            f"ELIC latency: a truncated stream did not raise ({raised})")
+    torch.cuda.synchronize()
+    require(torch.equal(lat4.decode_bytes(d4, s4), x4),
+            "ELIC latency: decode differs after the truncated stream")
+    print("  ELIC latency, cap_divisor=4: a truncated y0 stream raises after "
+          "the decode-y replay; the graphs decode the file again", flush=True)
+    del lat4
+
+    with torch.no_grad():
+        ev = model(x1, training=False)
+    for tag, t in (("x_hat", ev["x_hat"]), *ev["likelihoods"].items()):
+        require(bool(torch.isfinite(t).all()), f"ELIC forward: {tag}")
+    bits = sum(float(-torch.log2(v.double()).sum())
+               for v in ev["likelihoods"].values())
+    payload, coded = coded_bits(lat_data, ELIC_LANES, ELIC_PASSES)
+    gap = bits / coded - 1
+    print(f"  ELIC eval forward {H}x{W}: {bits:.1f} bits against the "
+          f"{coded:.1f} the latency bytes carry (gap {100 * gap:+.3f} %; "
+          f"payload alone {payload:.0f} bits)", flush=True)
+    require(abs(gap) <= 0.05, f"ELIC forward: the likelihoods' bits are "
+            f"{100 * gap:+.2f} % from the codec's coded bits")
+    default, kernel = runs[(False, f"batch {BATCH}")], runs[(True,
+                                                             f"batch {BATCH}")]
+    launches = dict(default[2], conv2d_nhwc_bf16=kernel[2]["conv2d_nhwc_bf16"])
+    calls = dict(default[3], conv2d_nhwc_bf16=kernel[3]["conv2d_nhwc_bf16"])
+    phase("elic", "batched and latency codecs, both routes, forward")
+    return launches, calls, pass_words(default[0], ELIC_LANES, ELIC_PASSES)
 
 
 def main() -> int:
@@ -1139,6 +1454,7 @@ def smoke():
             return data, y_shape, x_hat, time.perf_counter() - t0
 
         (l_data, l_shape, l_xhat, t_build), l_launches, _ = record(first)
+        n_lat_passes = len(lat._batched._pass_caps(l_shape))
         require(not fallbacks and not lat._fallback_digests,
                 f"latency {tag}: certification fell back on the graph path")
         graphs = {d: g for (d, _), g in lat._graphs.items()}
@@ -1209,7 +1525,8 @@ def smoke():
         lat._fallback_digests.clear()
         # a truncated stream raises after the decode-y replay (the flag)
         try:
-            lat.decode(truncate_pass(l_data, LAT_LANES, 1), l_shape)
+            lat.decode(truncate_pass(l_data, LAT_LANES, 1, n_lat_passes),
+                       l_shape)
             raised = ""
         except RuntimeError as e:
             raised = str(e)
@@ -1322,9 +1639,13 @@ def smoke():
           "one, both routes")
 
     # 8. the training forward at full width ------------------------------
-    forward_phase(dev, x1, lat_bytes[False])
+    forward_phase(dev, x1, lat_bytes[False], n_lat_passes)
 
-    # 9. timing of every recorded call ------------------------------------
+    # 9. ELIC through both codecs ------------------------------------------
+    elic_launches, elic_calls, elic_words = elic_phase(dev, x, record,
+                                                       originals)
+
+    # 10. timing of every recorded call -----------------------------------
     pass_words = [int(out[k].n_words) for k in ("z", "y0", "y1")]
 
     def probes_by_count(L):
@@ -1413,7 +1734,7 @@ def smoke():
             n_eval = int(probes[count].sum())
             # states, the consumed words, each symbol's parameters, active
             # (1 B), symbols out (int32)
-            return (4 * w + 4 * words[1 + i % 2] + 12 * n * k
+            return (4 * w + 4 * words[1 + i % (len(words) - 1)] + 12 * n * k
                     + t * w * 5, n_eval * (k * ROWS_FLOPS_PER_TERM[md] + 2),
                     err, None)
         xi, wi, bi = args
@@ -1444,9 +1765,13 @@ def smoke():
         got = originals[name](*args, **kwargs)
         ref = conv_kernel.conv2d_nhwc_plain(*args, **kwargs)
         require(torch.equal(got, ref), "conv on the main path: kernel != plain")
-        flops = 2 * xi.shape[0] * xi.shape[1] * xi.shape[2] * int(
-            torch.count_nonzero(wi))  # masked taps are not work
-        nbytes = 4 * (xi.numel() + wi.numel() + got.numel()
+        # masked taps and a transposed conv's inserted zeros are not work:
+        # such a conv reads its input's values alone, each with every tap
+        s = inserted_stride(xi)
+        x_in = xi[:, ::s, ::s]
+        flops = 2 * x_in.shape[0] * x_in.shape[1] * x_in.shape[2] * int(
+            torch.count_nonzero(wi))
+        nbytes = 4 * (x_in.numel() + wi.numel() + got.numel()
                       + (0 if bi is None else bi.numel())
                       + (0 if res is None else res.numel()))
         x_nchw = xi.permute(0, 3, 1, 2)
@@ -1544,7 +1869,7 @@ def smoke():
     lat_words = {route: [int(run[0][k].n_words) for k in ("z", "y0", "y1")]
                  for route, run in lat_runs.items()}
     results = []
-    t_lat = 0.0  # seconds spent on the latency path's calls
+    t_lat = t_elic = 0.0  # seconds spent on the latency and ELIC calls
     for name, kern in originals.items():
         ms = plain_ms = 0.0
         lib_ms = None
@@ -1586,6 +1911,34 @@ def smoke():
             lat_t["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_PER_S,
                                            flops / peak)
         t_lat += time.perf_counter() - t0
+        # the ELIC path's calls: each distinct conv shape (the decoder's
+        # rows-chain convs repeat the encoder's inputs) and every coder
+        # call held to its plain version once, every call timed
+        elic_t = {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
+        seen = {}
+        inserted = 0
+        t0 = time.perf_counter()
+        for i, (args, kwargs) in enumerate(elic_calls.get(name, [])):
+            key = i if name.startswith("rans") else call_key(args, kwargs)
+            if name == "conv2d_nhwc":
+                stride = inserted_stride(args[0])
+                inserted += stride > 1
+                key = key + (stride,)
+            if key not in seen:
+                nbytes, flops, e, _ = stats(name, i, args, kwargs, elic_words)
+                err = max(err, e)
+                seen[key] = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / peak)
+            elic_t["bound_ms"] += seen[key]
+            elic_t["ms"] += cuda_ms(lambda: kern(*args, **kwargs), 20)
+            if name in DEVICE_TIMED:
+                elic_t["device_ms"] += cuda_ms(lambda: kern(*args, **kwargs),
+                                               20, True)
+        t_elic += time.perf_counter() - t0
+        if name == "conv2d_nhwc":  # h_s's deconvs in the encode and decode
+            require(inserted == 2 * ELIC_INSERTED, f"ELIC: {inserted} "
+                    "zero-inserted conv inputs, not h_s's deconvs'")
+            require(all(inserted_stride(a[0]) == 1 for a, _ in calls[name]),
+                    "a zero-inserted conv input on the flagship's path")
         if name != "conv2d_nhwc_bf16":  # held to its tolerance in stats
             require(err == 0, f"{name} differs from its plain version")
         lat_launches = {d: g_launches[d].get(name, 0) for d in g_launches}
@@ -1602,10 +1955,14 @@ def smoke():
             "bound_by": max(by, key=by.get), "library_ms": lib_ms})
         results[-1].update({"latency_launches": lat_launches,
                             "latency_ms": lat_t["ms"],
-                            "latency_bound_ms": lat_t["bound_ms"]})
+                            "latency_bound_ms": lat_t["bound_ms"],
+                            "elic_launches": elic_launches[name],
+                            "elic_ms": elic_t["ms"],
+                            "elic_bound_ms": elic_t["bound_ms"]})
         if name in DEVICE_TIMED:
             results[-1]["device_ms"] = device_ms
             results[-1]["latency_device_ms"] = lat_t["device_ms"]
+            results[-1]["elic_device_ms"] = elic_t["device_ms"]
         if name in ("rans_decode_gmm", "rans_encode_gmm"):
             results[-1]["serial_floor_ms"] = floor_ms
         if name == "conv2d_nhwc_bf16":
@@ -1613,7 +1970,8 @@ def smoke():
             results[-1]["library_tflop_per_s"] = flops_total / lib_ms / 1e9
     phase("timing", "(sums over every launch of one encode + decode; "
           "latency_*: of one encode + decode at batch 1, eager, "
-          f"{t_lat:.2f} s of the phase)")
+          f"{t_lat:.2f} s of the phase; elic_*: of ELIC's batched encode + "
+          f"decode at batch {BATCH}, {t_elic:.2f} s)")
 
     print(json.dumps({"kernels": results, "card": kind,
                       "power_limit": smi_line.split(",")[-1].strip()}),

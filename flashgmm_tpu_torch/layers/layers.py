@@ -6,9 +6,10 @@ the JAX package's module paths, so ``zoo.npz.load_jax_params`` maps one onto
 the other. Convolutions keep NHWC at their boundary: the input is viewed as
 NCHW with channels-last strides (no copy) for ``F.conv2d``.
 
-:func:`run_canonical` is the rows-chain forward: every stride-1 "same" conv
-goes through the hand conv kernel in float32, so the encoder and the decoder
-compute bitwise-identical entropy parameters.
+:func:`run_canonical` is the rows-chain forward: every stride-1 "same" conv,
+and every transposed conv as a zero-inserted "same" conv, goes through the
+hand conv kernel in float32, so the encoder and the decoder compute
+bitwise-identical entropy parameters.
 
 :func:`route_bf16_kernel` marks a bf16 transform (the port's counterpart of
 the reference's ``use_pallas_conv`` at trace time): its stride-1 "same"
@@ -37,13 +38,28 @@ def _uniform(shape, bound, generator):
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
 
 
+def _activation(x, negative_slope):
+    """LeakyReLU with ``negative_slope``; slope 0 is ``torch.relu``."""
+    return torch.relu(x) if negative_slope == 0.0 else leaky_relu(
+        x, negative_slope)
+
+
 class LeakyReLU(nn.Module):
     def __init__(self, negative_slope: float = 0.01):
         super().__init__()
         self.negative_slope = negative_slope
 
     def forward(self, x):
-        return leaky_relu(x, self.negative_slope)
+        return _activation(x, self.negative_slope)
+
+
+class ReLU(LeakyReLU):
+    """ReLU, a LeakyReLU of slope 0: a conv's kernel epilogue applies it as
+    such (``slope * v`` for v < 0, so -0.0 where ``torch.relu`` gives
+    +0.0; the plain version rounds the same way)."""
+
+    def __init__(self):
+        super().__init__(0.0)
 
 
 class Sequential(nn.Module):
@@ -55,19 +71,8 @@ class Sequential(nn.Module):
         self.layers = nn.ModuleList(layers)
 
     def forward(self, x):
-        layers = list(self.layers)
-        i = 0
-        while i < len(layers):
-            layer = layers[i]
-            nxt = layers[i + 1] if i + 1 < len(layers) else None
-            if (isinstance(layer, Conv2d) and layer.kernel_route
-                    and isinstance(nxt, LeakyReLU)):
-                x = layer.forward_fused(x, negative_slope=nxt.negative_slope)
-                i += 2
-            else:
-                x = layer(x)
-                i += 1
-        return x
+        return _run_fused(list(self.layers), x, _kernel_route_fused,
+                          nn.Module.__call__)
 
     def __iter__(self):
         return iter(self.layers)
@@ -125,7 +130,7 @@ class Conv2d(nn.Module):
                 negative_slope=negative_slope, residual=residual)
         y = self(x)
         if negative_slope is not None:
-            y = leaky_relu(y, negative_slope)
+            y = _activation(y, negative_slope)
         return y if residual is None else y + residual
 
     def forward(self, x):
@@ -152,6 +157,88 @@ class Conv2d(nn.Module):
             x.float().contiguous(), self.kernel_hwio(),
             None if self.bias is None else self.bias.float(),
             negative_slope=negative_slope)
+
+
+class ConvTranspose2d(nn.Module):
+    """Transposed conv over NHWC with torch's ConvTranspose2d semantics
+    (padding ``k - 1 - p``, ``output_padding`` on the bottom and right).
+    The weight keeps torch's layout [in, out, kh, kw]; the JAX package
+    stores it [kh, kw, in, out] (``zoo.npz.load_jax_params`` maps one onto
+    the other). Initialised as the JAX package's (fan-in over the output
+    channels, as torch counts it) from an explicit ``torch.Generator``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size, stride=1,
+                 padding=0, output_padding=0, use_bias: bool = True, *,
+                 generator=None):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.output_padding = _pair(output_padding)
+        self.in_ch = in_ch
+        self.out_ch = out_ch
+        fan_in = kh * kw * out_ch
+        self.weight = nn.Parameter(_uniform(
+            (in_ch, out_ch, kh, kw), math.sqrt(3.0 / fan_in), generator))
+        self.bias = (nn.Parameter(_uniform((out_ch,), 1.0 / math.sqrt(fan_in),
+                                           generator))
+                     if use_bias else None)
+
+    def forward(self, x):
+        y = F.conv_transpose2d(
+            x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+            None if self.bias is None else self.bias.to(x.dtype),
+            self.stride, self.padding, self.output_padding)
+        return y.permute(0, 2, 3, 1)
+
+    def kernel_hwio(self):
+        """The equivalent stride-1 conv's kernel: the weight flipped
+        spatially, as a contiguous float32 HWIO [kh, kw, in, out]."""
+        return self.weight.detach().float().permute(2, 3, 0, 1).flip(
+            0, 1).contiguous()
+
+    def canonical(self, x, negative_slope=None):
+        """Rows-chain forward through the hand conv kernel (float32): the
+        input zero-inserted to [B, sH, sW, C] (values at ``[:, ::s, ::s]``),
+        then a stride-1 "same" conv with the flipped kernel. That pads the
+        dilated input by k//2 before and k//2 + s - 1 after, which is
+        torch's ``k - 1 - p`` and ``k - 1 - p + output_padding`` for a
+        square odd k, p = k//2 and output_padding = s - 1 (CompressAI's
+        ``deconv``). The inserted zeros leave each output's fmaf chain
+        unchanged (fma(0, w, acc) == acc), so its bits depend only on the
+        fixed (dy, dx, c_in) order, as in every rows-chain conv."""
+        kh, kw = self.weight.shape[-2:]
+        s = self.stride[0]
+        if (kh != kw or kh % 2 == 0 or self.stride != (s, s)
+                or self.padding != (kh // 2, kh // 2)
+                or self.output_padding != (s - 1, s - 1)):
+            raise ValueError("the rows-chain conv kernel takes transposed "
+                             "convs with a square odd k, padding k//2 and "
+                             "output_padding stride - 1 only")
+        x = x.float()
+        if s > 1:
+            b, h, w, c = x.shape
+            up = x.new_zeros((b, s * h, s * w, c))
+            up[:, ::s, ::s] = x
+            x = up
+        return conv_kernel.conv2d_nhwc(
+            x.contiguous(), self.kernel_hwio(),
+            None if self.bias is None else self.bias.float(),
+            negative_slope=negative_slope)
+
+
+def conv(in_ch, out_ch, kernel_size=5, stride=2, *, generator=None):
+    """CompressAI's default strided conv (models/utils.py ``conv``)."""
+    return Conv2d(in_ch, out_ch, kernel_size, stride=stride,
+                  padding=kernel_size // 2, generator=generator)
+
+
+def deconv(in_ch, out_ch, kernel_size=5, stride=2, *, generator=None):
+    """CompressAI's default up-sampling deconv (models/utils.py
+    ``deconv``)."""
+    return ConvTranspose2d(in_ch, out_ch, kernel_size, stride=stride,
+                           padding=kernel_size // 2,
+                           output_padding=stride - 1, generator=generator)
 
 
 def conv3x3(in_ch, out_ch, stride=1, *, generator=None):
@@ -317,6 +404,113 @@ class ResidualBlock(nn.Module):
                                         residual=identity)
 
 
+def _run_fused(layers, x, fused, run):
+    """A list of layers in order. Where ``fused(layer)`` gives a call
+    ``f(x, negative_slope=None)`` and a LeakyReLU (or ReLU) follows the
+    layer, the activation runs inside that call; every other layer runs as
+    ``run(layer, x)``."""
+    i = 0
+    while i < len(layers):
+        layer = layers[i]
+        nxt = layers[i + 1] if i + 1 < len(layers) else None
+        f = fused(layer)
+        if f is not None and isinstance(nxt, LeakyReLU):
+            x = f(x, negative_slope=nxt.negative_slope)
+            i += 2
+        else:
+            x = run(layer, x)
+            i += 1
+    return x
+
+
+def _kernel_route_fused(layer):
+    """A Conv2d on the kernel route fuses into its bf16 kernel's epilogue."""
+    if isinstance(layer, Conv2d) and layer.kernel_route:
+        return layer.forward_fused
+    return None
+
+
+def _canonical_fused(layer):
+    """Every rows-chain conv fuses into the f32 kernel's epilogue."""
+    if isinstance(layer, (Conv2d, ConvTranspose2d)):
+        return layer.canonical
+    return None
+
+
+class ResidualBottleneckBlock(nn.Module):
+    """1x1 -> relu -> 3x3 -> relu -> 1x1 + skip, ELIC's block
+    (reference models/elic_gmm.py:238-274). On the kernel route the relus
+    and the residual add fuse into the convs' epilogues."""
+
+    def __init__(self, in_ch, out_ch, *, generator=None):
+        super().__init__()
+        mid_ch = min(in_ch, out_ch) // 2
+        self.conv1 = conv1x1(in_ch, mid_ch, generator=generator)
+        self.conv2 = conv3x3(mid_ch, mid_ch, generator=generator)
+        self.conv3 = conv1x1(mid_ch, out_ch, generator=generator)
+        self.skip = (conv1x1(in_ch, out_ch, generator=generator)
+                     if in_ch != out_ch else None)
+
+    def forward(self, x):
+        identity = x if self.skip is None else self.skip(x)
+        out = self.conv1.forward_fused(x, negative_slope=0.0)
+        out = self.conv2.forward_fused(out, negative_slope=0.0)
+        return self.conv3.forward_fused(out, residual=identity)
+
+
+class _ResidualUnit(nn.Module):
+    """relu(conv(x) + x) over conv = 1x1 -> relu -> 3x3 -> relu -> 1x1.
+    The residual fuses into the last conv's epilogue; its relu comes after
+    the residual, which the epilogue's order (bias, activation, residual)
+    does not allow, so it stays a separate op."""
+
+    def __init__(self, N, *, generator=None):
+        super().__init__()
+        self.conv = Sequential(
+            conv1x1(N, N // 2, generator=generator), ReLU(),
+            conv3x3(N // 2, N // 2, generator=generator), ReLU(),
+            conv1x1(N // 2, N, generator=generator))
+
+    def forward(self, x):
+        layers = list(self.conv.layers)
+        h = _run_fused(layers[:-1], x, _kernel_route_fused,
+                       nn.Module.__call__)
+        return torch.relu(layers[-1].forward_fused(h, residual=x))
+
+
+class AttentionBlock(nn.Module):
+    """Cheng2020's simplified attention block: x + a * sigmoid(b)
+    (reference layers.py:285-336)."""
+
+    def __init__(self, N, *, generator=None):
+        super().__init__()
+        self.conv_a = Sequential(*(_ResidualUnit(N, generator=generator)
+                                   for _ in range(3)))
+        self.conv_b = Sequential(*(_ResidualUnit(N, generator=generator)
+                                   for _ in range(3)),
+                                 conv1x1(N, N, generator=generator))
+
+    def forward(self, x):
+        a = self.conv_a(x)
+        b = self.conv_b(x)
+        return x + a * torch.sigmoid(b)
+
+
+def sequential_channel_ramp(in_ch: int, out_ch: int, *, min_ch: int = 0,
+                            num_layers: int = 3, make_layer=None,
+                            make_act=None, generator=None):
+    """Layers of linearly ramping channel counts (the inner ones at least
+    ``min_ch``) with an activation between each two (reference
+    layers.py:391-417)."""
+    channels = [int(math.floor(in_ch + (out_ch - in_ch) * i / num_layers))
+                for i in range(num_layers + 1)]
+    channels[1:-1] = [max(c, min_ch) for c in channels[1:-1]]
+    layers = []
+    for ch_in, ch_out in zip(channels[:-1], channels[1:]):
+        layers += [make_layer(ch_in, ch_out, generator=generator), make_act()]
+    return Sequential(*layers[:-1])
+
+
 def route_bf16_kernel(module):
     """Mark every conv of ``module`` that the bf16 conv kernel takes
     (``conv_kernel.bf16_route_takes``), and the fused subpel convs of its
@@ -330,22 +524,13 @@ def route_bf16_kernel(module):
 
 
 def run_canonical(module, x):
-    """Rows-chain forward of a conv, or of a Sequential of convs, pixel
-    shuffles and LeakyReLUs: every conv goes through the hand conv kernel in
-    float32, and a LeakyReLU right after a conv fuses into its epilogue."""
-    if isinstance(module, Conv2d):
+    """Rows-chain forward of a conv, a transposed conv, or a Sequential of
+    them, pixel shuffles, LeakyReLUs and ReLUs: every conv goes through the
+    hand conv kernel in float32, and an activation right after a conv fuses
+    into its epilogue (a ReLU as slope 0)."""
+    if isinstance(module, (Conv2d, ConvTranspose2d)):
         return module.canonical(x)
     if not isinstance(module, Sequential):
         return module(x)
-    layers = list(module.layers)
-    i = 0
-    while i < len(layers):
-        layer = layers[i]
-        nxt = layers[i + 1] if i + 1 < len(layers) else None
-        if isinstance(layer, Conv2d) and isinstance(nxt, LeakyReLU):
-            x = layer.canonical(x, negative_slope=nxt.negative_slope)
-            i += 2
-        else:
-            x = run_canonical(layer, x)
-            i += 1
-    return x
+    return _run_fused(list(module.layers), x, _canonical_fused,
+                      run_canonical)

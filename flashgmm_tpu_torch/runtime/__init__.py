@@ -1,5 +1,8 @@
 from .fast_codec import FastCheckerboardGmmCodec, PassStream, StreamOverflow
+from .fast_elic import FastElicGmmCodec
 from .latency_codec import FastLatencyGmmCodec
+from .latency_elic import FastLatencyElicCodec
 
-__all__ = ["FastCheckerboardGmmCodec", "FastLatencyGmmCodec", "PassStream",
+__all__ = ["FastCheckerboardGmmCodec", "FastElicGmmCodec",
+           "FastLatencyElicCodec", "FastLatencyGmmCodec", "PassStream",
            "StreamOverflow"]

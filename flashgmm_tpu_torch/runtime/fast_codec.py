@@ -28,6 +28,10 @@ pixels) and run in bfloat16 by default: as library convs, or with
 ``FLASHGMM_PALLAS_CONV_TRANSFORMS=1``) with their stride-1 convs of at least
 64 channels, and the fused subpel convs of g_s, on the bf16 conv kernel
 (``layers.route_bf16_kernel``).
+
+``_FastCodec`` holds what this codec shares with ELIC's
+(``runtime/fast_elic.py``): the transforms, the z pass, the y passes'
+coder calls and the bytes of any list of passes with their packed layout.
 """
 
 import copy
@@ -118,39 +122,50 @@ def _decode_pass(ps: PassStream, rows, n: int, lo: int, w: int, err=None):
     return il.from_lanes(symbols, n)
 
 
-class FastCheckerboardGmmCodec:
-    """Batched encode/decode around a Cheng2020AnchorCheckerboardGMMv2 (run
-    ``model.update()`` first). Works on the model's device.
+def _gmm_pass_params(ckbd, gmm, y_ctx, side):
+    """A checkerboard pass's entropy parameters -> per-symbol [n, K]
+    (scales, means, weights), NHWC-ravel symbol order (reference
+    :333-353): the aggregation network on the rows chain, then the GMM
+    codec's chunking and softmax."""
+    p = run_canonical(ckbd.entropy_parameters, ckbd.merge(y_ctx, side))
+    scales, means, weights = gmm._chunk(p)
+    weights = gmm._reshape_gmm_weight(weights)
+    K = gmm.K
 
-    ``lanes`` (W) is not written into the bytes: a decoder must use the
-    encoder's. The default is the JAX package's (128); the batched
-    benchmark configuration uses 4096.
+    def flat(v):
+        b, h, w2, km = v.shape
+        v = v.reshape(b, h, w2, K, km // K).transpose(3, 4)
+        return v.reshape(-1, K)
 
-    ``kernel_transforms=True`` sends the bf16 transforms' eligible convs
-    through the bf16 conv kernel (off by default, as the reference's
-    ``FLASHGMM_PALLAS_CONV_TRANSFORMS``). It changes pixels and the
-    quantized latents by bf16 roundings, never the rows chain, the coder
-    or the byte format."""
+    return torch.clamp(flat(scales), 0.11, 256.0), flat(means), flat(weights)
 
-    def __init__(self, model, lanes: int = 128, max_abs: int = 47,
-                 cap_divisor: int = 4, bf16_transforms: bool = True,
-                 kernel_transforms: bool = False):
+
+class _FastCodec:
+    """What the batched codecs share (the flagship's and ELIC's): the
+    transforms' snapshots and their input, the z pass over the
+    EntropyBottleneck's tables, the y passes' coder calls, and the bytes of
+    any list of passes (docs/bitstream.md §2: per pass u32 n_words, u32 x W
+    states, u16 x n_words words) with their packed single-transfer layout.
+
+    A codec says how many passes it has and their capacities
+    (``_pass_caps``), and how its streams and its encoder's output hold
+    them (``_passes``, ``_streams``, ``_out_passes``)."""
+
+    def __init__(self, model, hyper, lanes, max_abs, cap_divisor,
+                 bf16_transforms, kernel_transforms):
         self.lanes = int(lanes)
         self.max_abs = int(max_abs)  # symbols clamped to [-max_abs, max_abs]
         self.cap_divisor = int(cap_divisor)
         self.mode = get_approx_mode()
         self.model = model
-        lc = model.latent_codec.latent_codec
-        self._ckbd = lc["y"]
-        self._hyper = lc["hyper"]
-        self._gmm = self._ckbd.latent_codec["y"]
-        self._eb = self._hyper.entropy_bottleneck
+        self._hyper = hyper
+        self._eb = hyper.entropy_bottleneck
         self.device = self._eb.quantiles.device
         # snapshots of the transforms, like the reference's nnx.split
         self._dtype = torch.bfloat16 if bf16_transforms else torch.float32
         self._g_a, self._h_a, self._g_s = (
             copy.deepcopy(m).to(self._dtype).requires_grad_(False)
-            for m in (model.g_a, self._hyper.h_a, model.g_s))
+            for m in (model.g_a, hyper.h_a, model.g_s))
         if kernel_transforms:
             if not bf16_transforms:
                 raise ValueError("kernel_transforms needs bf16_transforms: "
@@ -188,41 +203,33 @@ class FastCheckerboardGmmCodec:
         rows = torch.where(j[None, :] < lengths[:, None], cdf, 65536)
         return rows, self._eb.offset.to(torch.int32), lengths - 2
 
-    def _gmm_pass_params(self, y_ctx, side):
-        """EP -> per-symbol [N, K] (scales, means, weights), NHWC-ravel
-        symbol order (reference :333-353)."""
-        p = run_canonical(self._ckbd.entropy_parameters,
-                          self._ckbd.merge(y_ctx, side))
-        scales, means, weights = self._gmm._chunk(p)
-        weights = self._gmm._reshape_gmm_weight(weights)
-        K = self._gmm.K
-
-        def flat(v):
-            b, h, w2, km = v.shape
-            v = v.reshape(b, h, w2, K, km // K).transpose(3, 4)
-            return v.reshape(-1, K)
-
-        return torch.clamp(flat(scales), 0.11, 256.0), flat(means), flat(weights)
-
     def _lo_bins(self):
         return -(self.max_abs + 1), 2 * (self.max_abs + 1) + 1
 
-    def _side(self, z_bin):
-        """SHARED enc/dec: dequantize z and run h_s (rows chain)."""
-        z_hat = (z_bin + self._z_off).float() + self._med
-        return self._ckbd.unembed(run_canonical(self._hyper.h_s, z_hat))
+    def _encode_z(self, z):
+        """z quantized against the EntropyBottleneck's tables and its pass
+        encoded: (z_bin int32, PassStream). z is ~10% of the payload; not
+        worth the overflow risk of capping."""
+        z_bin = torch.round(z - self._med).to(torch.int32) - self._z_off
+        z_bin = torch.minimum(torch.clamp_min(z_bin, 0), self._z_maxbin)
+        zb = z_bin.reshape(-1).long()
+        ch = torch.arange(zb.shape[0], device=zb.device) % z.shape[-1]
+        z_start = self._z_rows[ch, zb]
+        z_freq = self._z_rows[ch, zb + 1] - z_start
+        return z_bin, _encode_pass(z_start, z_freq, self.lanes, 1)
 
-    def _params0(self, side0):
-        """SHARED enc/dec: anchor-pass GMM parameters (context is zero)."""
-        return self._gmm_pass_params(torch.zeros_like(side0), side0)
+    def _decode_z(self, ps, b, h, w, err=None):
+        """The z pass of a latent y [b, h, w, .] decoded: z_bin [b, h/4,
+        w/4, C_z]."""
+        zh, zw, cz = h // 4, w // 4, self._z_channels()
+        n_z = b * zh * zw * cz
+        rows_z = self._z_rows[None].expand(b * zh * zw, cz, -1)
+        return _decode_pass(ps, rows_z.reshape(n_z, -1), n_z, 0, self.lanes,
+                            err).reshape(b, zh, zw, cz)
 
-    def _params1(self, side1, sym0):
-        """SHARED enc/dec: non-anchor-pass GMM parameters conditioned on the
-        decoded anchors (integer symbols -> deterministic input)."""
-        y_hat_ = torch.stack([sym0.float(), torch.zeros_like(sym0, dtype=torch.float32)])
-        ctx = self._ckbd.unembed(run_canonical(
-            self._ckbd.context_prediction, self._ckbd.embed(y_hat_)))[1]
-        return self._gmm_pass_params(ctx, side1)
+    def _z_hat(self, z_bin):
+        """Dequantized z, the rows chain's input."""
+        return (z_bin + self._z_off).float() + self._med
 
     def _encpass(self, params, sym_flat, cap_divisor):
         """Encode one y pass, each symbol's (start, freq) evaluated by the
@@ -247,44 +254,6 @@ class FastCheckerboardGmmCodec:
     def _z_channels(self):
         return self._eb.channels
 
-    # -- orchestration ---------------------------------------------------------
-
-    @torch.inference_mode()
-    def encode(self, x, full: bool = False):
-        """x: [B, H, W, 3] float in [0, 1] on the codec's device. Returns
-        {"z", "y0", "y1": PassStream, "y_hat": [B, H/16, W/16, N]}.
-
-        ``full=True`` disables the stream cap (the overflow fallback)."""
-        ps_z, ps0, ps1, _, _, y_hat = self._encode(
-            x, 1 if full else self.cap_divisor)
-        return {"z": ps_z, "y0": ps0, "y1": ps1, "y_hat": y_hat}
-
-    def _encode(self, x, cd):
-        """The encode core, y passes capped at 1/``cd``: (z, y0, y1
-        PassStreams, anchor and non-anchor symbols int32 [B, H/16, W/32,
-        N], y_hat). Waits for nothing, so a CUDA graph can capture it."""
-        y = self._transform(self._g_a, x)
-        z = self._transform(self._h_a, y)
-
-        z_bin = torch.round(z - self._med).to(torch.int32) - self._z_off
-        z_bin = torch.minimum(torch.clamp_min(z_bin, 0), self._z_maxbin)
-        zb = z_bin.reshape(-1).long()
-        ch = torch.arange(zb.shape[0], device=zb.device) % z.shape[-1]
-        z_start = self._z_rows[ch, zb]
-        z_freq = self._z_rows[ch, zb + 1] - z_start
-        # z is ~10% of the payload; not worth the overflow risk of capping
-        ps_z = _encode_pass(z_start, z_freq, self.lanes, 1)
-
-        sym = torch.clamp(torch.round(self._ckbd.unembed(y)).to(torch.int32),
-                          -self.max_abs, self.max_abs)  # [2, b, h, w/2, c]
-        y_hat = self._ckbd.embed(sym.float())
-
-        side = self._side(z_bin)
-        ps0 = self._encpass(self._params0(side[0]), sym[0].reshape(-1), cd)
-        ps1 = self._encpass(self._params1(side[1], sym[0]),
-                            sym[1].reshape(-1), cd)
-        return ps_z, ps0, ps1, sym[0], sym[1], y_hat
-
     @staticmethod
     def _y_shape_parts(y_shape):
         if len(y_shape) == 4:
@@ -293,50 +262,22 @@ class FastCheckerboardGmmCodec:
         return 1, h, w, c
 
     @torch.inference_mode()
-    def decode_y_hat(self, streams, y_shape, err=None):
-        """Streams -> y_hat [B, H/16, W/16, N]. Without ``err`` a decoder
-        that reads past its stream raises at once; with it (int32 [1] on
-        the device) the three decoders OR 1 into it and nothing waits for
-        the device (``rans_kernels.decode_scan``)."""
-        b, h, w, c = self._y_shape_parts(y_shape)
-        zh, zw, cz = h // 4, w // 4, self._z_channels()
-        n_z = b * zh * zw * cz
-        rows_z = self._z_rows[None].expand(b * zh * zw, cz, -1)
-        z_bin = _decode_pass(streams["z"], rows_z.reshape(n_z, -1), n_z, 0,
-                             self.lanes, err).reshape(b, zh, zw, cz)
-        side = self._side(z_bin)
-        n = b * h * (w // 2) * c
-        sym0 = self._decpass(streams["y0"], self._params0(side[0]), n,
-                             err).reshape(b, h, w // 2, c)
-        sym1 = self._decpass(streams["y1"], self._params1(side[1], sym0), n,
-                             err).reshape(b, h, w // 2, c)
-        return self._ckbd.embed(torch.stack([sym0, sym1]).float())
-
-    @torch.inference_mode()
     def decode(self, streams, y_shape):
         """Streams -> reconstructed images [B, H, W, 3] in [0, 1]."""
         y_hat = self.decode_y_hat(streams, y_shape)
         return torch.clamp(self._transform(self._g_s, y_hat), 0.0, 1.0)
 
-    def stream_capacities(self, y_shape):
-        """(cap_z, cap_y) capped stream lengths for latent y_shape =
-        (h, w, c) or (b, h, w, c)."""
-        b, h, w, c = self._y_shape_parts(y_shape)
-        n_y = b * h * (w // 2) * c
-        n_z = b * (h // 4) * (w // 4) * self._z_channels()
-        t_y, _ = il.layout(n_y, self.lanes)
-        t_z, _ = il.layout(n_z, self.lanes)
-        return (t_z * self.lanes,  # z is never capped
-                max(t_y * self.lanes // self.cap_divisor, self.lanes))
-
     # -- bytes -------------------------------------------------------------------
 
     def to_bytes(self, out) -> bytes:
-        """Fetch the three streams and pack them (docs/bitstream.md §2):
+        """Fetch the encoder's passes and pack them (docs/bitstream.md §2):
         per pass u32 n_words, u32 x W states, u16 x n_words words."""
+        return self._bytes_of(self._out_passes(out))
+
+    def _bytes_of(self, passes) -> bytes:
+        """``to_bytes`` of PassStreams in byte order."""
         parts = []
-        for name in _PASSES:
-            p = out[name]
+        for p in passes:
             n = int(p.n_words)
             if n > p.stream.shape[0]:
                 raise StreamOverflow(
@@ -348,13 +289,12 @@ class FastCheckerboardGmmCodec:
         return b"".join(parts)
 
     def _parse(self, data: bytes, y_shape):
-        """The three passes of ``to_bytes`` output on the host: [(n_words,
-        states u32 [W], words u16 [n_words], cap)], ``cap`` the stream length
+        """The passes of ``to_bytes`` output on the host: [(n_words, states
+        u32 [W], words u16 [n_words], cap)], ``cap`` the stream length
         ``from_bytes`` gives the pass (an overflow pass, n_words above its
-        capped length: the single uncapped one)."""
-        cap_z, cap_y = self.stream_capacities(y_shape)
+        capped length: the uncapped one)."""
         passes, off = [], 0
-        for cap in (cap_z, cap_y, cap_y):
+        for cap in self._pass_caps(y_shape):
             n = int(np.frombuffer(data, np.uint32, 1, off)[0])
             off += 4
             states = np.frombuffer(data, np.uint32, self.lanes, off)
@@ -369,28 +309,27 @@ class FastCheckerboardGmmCodec:
     def from_bytes(self, data: bytes, y_shape):
         """Parse ``to_bytes`` output back into pass streams on the device,
         one pageable copy a tensor (the overflow path of ``decode_bytes``)."""
-        out = {}
-        for name, (n, states, words, cap) in zip(
-                _PASSES, self._parse(data, y_shape)):
+        passes = []
+        for n, states, words, cap in self._parse(data, y_shape):
             stream = np.zeros((cap,), np.int32)
             stream[:n] = words
-            out[name] = PassStream(
+            passes.append(PassStream(
                 torch.from_numpy(states.astype(np.int64)).to(self.device),
                 torch.from_numpy(stream).to(self.device),
-                torch.tensor(n, dtype=torch.int64, device=self.device))
-        return out
+                torch.tensor(n, dtype=torch.int64, device=self.device)))
+        return self._streams(passes)
 
     # -- the packed single-transfer decode path (reference :583-635) ------------
 
     def packed_layout(self, caps):
         """(offsets, sizes) in u32 words of each pass inside the packed
-        buffer for stream capacities ``caps`` (z, y0, y1): a pass is
-        [n_words, W states, cap/2 words of two u16], the first u16 of a
-        word in its low half (the reference's ``_packed_layout``)."""
+        buffer for stream capacities ``caps`` (one a pass, in byte order):
+        a pass is [n_words, W states, cap/2 words of two u16], the first
+        u16 of a word in its low half (the reference's ``_packed_layout``)."""
         if any(c % 2 for c in caps):
             raise ValueError(f"packed layout: odd stream capacity in {caps}")
         sizes = [1 + self.lanes + c // 2 for c in caps]
-        return [0, sizes[0], sizes[0] + sizes[1]], sizes
+        return [sum(sizes[:i]) for i in range(len(sizes))], sizes
 
     def pack(self, data: bytes, y_shape):
         """``to_bytes`` output in the packed layout, in a host buffer this
@@ -438,25 +377,25 @@ class FastCheckerboardGmmCodec:
         return dst
 
     def unpack(self, packed, caps):
-        """The packed device buffer as {"z", "y0", "y1": PassStream}: states
-        int64, the stream int32 of u16 words zero-padded to its cap, n_words
-        int64 (device ops only; the reference's ``_unpack_jit``)."""
+        """The packed device buffer as the codec's streams: each pass's
+        states int64, its stream int32 of u16 words zero-padded to its cap,
+        n_words int64 (device ops only; the reference's ``_unpack_jit``)."""
         offs, _ = self.packed_layout(caps)
         w = self.lanes
-        out = {}
-        for name, slot, cap in zip(_PASSES, offs, caps):
+        passes = []
+        for slot, cap in zip(offs, caps):
             states = packed[slot + 1:slot + 1 + w].long() & il.MASK32
             u32 = packed[slot + 1 + w:slot + 1 + w + cap // 2]
             stream = torch.stack([u32 & il.MASK16, (u32 >> 16) & il.MASK16],
                                  dim=1).reshape(-1)
-            out[name] = PassStream(states, stream, packed[slot].long())
-        return out
+            passes.append(PassStream(states, stream, packed[slot].long()))
+        return self._streams(passes)
 
     def pack_device(self, passes, out=None):
-        """Three encoder PassStreams (z, y0, y1) in the packed layout of
-        their stream lengths, by device ops only (no host round trip):
-        the buffer the bytes would give when no pass overflowed, since
-        the encoder's streams are zero past n_words. Into ``out`` if given
+        """The encoder's PassStreams (in byte order) in the packed layout of
+        their stream lengths, by device ops only (no host round trip): the
+        buffer the bytes would give when no pass overflowed, since the
+        encoder's streams are zero past n_words. Into ``out`` if given
         (int32 of the layout's size), else a new buffer."""
         caps = tuple(p.stream.shape[0] for p in passes)
         offs, sizes = self.packed_layout(caps)
@@ -474,12 +413,11 @@ class FastCheckerboardGmmCodec:
 
     def decode_bytes(self, data: bytes, y_shape):
         """Bytes -> reconstructed images, with one host-to-device transfer:
-        the three passes packed into one pinned buffer, copied once, and
-        unpacked on the device. An overflow file (a pass longer than its
-        capped stream) takes the unpacked path, as in the reference."""
-        cap_z, cap_y = self.stream_capacities(y_shape)
+        the passes packed into one pinned buffer, copied once, and unpacked
+        on the device. An overflow file (a pass longer than its capped
+        stream) takes the unpacked path, as in the reference."""
         host, caps = self.pack(data, y_shape)
-        if caps != (cap_z, cap_y, cap_y):
+        if caps != tuple(self._pass_caps(y_shape)):
             return self.decode(self.from_bytes(data, y_shape), y_shape)
         return self.decode(self.unpack(self.copy_staged(host), caps), y_shape)
 
@@ -493,5 +431,127 @@ class FastCheckerboardGmmCodec:
             return self.to_bytes(out), out
 
     def num_bytes(self, out) -> int:
-        return sum(int(out[k].n_words) * 2 + self.lanes * 4
-                   for k in _PASSES)
+        return sum(int(p.n_words) * 2 + self.lanes * 4
+                   for p in self._out_passes(out))
+
+
+class FastCheckerboardGmmCodec(_FastCodec):
+    """Batched encode/decode around a Cheng2020AnchorCheckerboardGMMv2 (run
+    ``model.update()`` first). Works on the model's device.
+
+    ``lanes`` (W) is not written into the bytes: a decoder must use the
+    encoder's. The default is the JAX package's (128); the batched
+    benchmark configuration uses 4096.
+
+    ``kernel_transforms=True`` sends the bf16 transforms' eligible convs
+    through the bf16 conv kernel (off by default, as the reference's
+    ``FLASHGMM_PALLAS_CONV_TRANSFORMS``). It changes pixels and the
+    quantized latents by bf16 roundings, never the rows chain, the coder
+    or the byte format."""
+
+    def __init__(self, model, lanes: int = 128, max_abs: int = 47,
+                 cap_divisor: int = 4, bf16_transforms: bool = True,
+                 kernel_transforms: bool = False):
+        lc = model.latent_codec.latent_codec
+        super().__init__(model, lc["hyper"], lanes, max_abs, cap_divisor,
+                         bf16_transforms, kernel_transforms)
+        self._ckbd = lc["y"]
+        self._gmm = self._ckbd.latent_codec["y"]
+
+    # -- shared pieces -------------------------------------------------------
+
+    def _gmm_pass_params(self, y_ctx, side):
+        """EP -> per-symbol [N, K] (scales, means, weights), NHWC-ravel
+        symbol order (reference :333-353)."""
+        return _gmm_pass_params(self._ckbd, self._gmm, y_ctx, side)
+
+    def _side(self, z_bin):
+        """SHARED enc/dec: dequantize z and run h_s (rows chain)."""
+        return self._ckbd.unembed(run_canonical(self._hyper.h_s,
+                                                self._z_hat(z_bin)))
+
+    def _params0(self, side0):
+        """SHARED enc/dec: anchor-pass GMM parameters (context is zero)."""
+        return self._gmm_pass_params(torch.zeros_like(side0), side0)
+
+    def _params1(self, side1, sym0):
+        """SHARED enc/dec: non-anchor-pass GMM parameters conditioned on the
+        decoded anchors (integer symbols -> deterministic input)."""
+        y_hat_ = torch.stack([sym0.float(), torch.zeros_like(sym0, dtype=torch.float32)])
+        ctx = self._ckbd.unembed(run_canonical(
+            self._ckbd.context_prediction, self._ckbd.embed(y_hat_)))[1]
+        return self._gmm_pass_params(ctx, side1)
+
+    # -- orchestration ---------------------------------------------------------
+
+    @torch.inference_mode()
+    def encode(self, x, full: bool = False):
+        """x: [B, H, W, 3] float in [0, 1] on the codec's device. Returns
+        {"z", "y0", "y1": PassStream, "y_hat": [B, H/16, W/16, N]}.
+
+        ``full=True`` disables the stream cap (the overflow fallback)."""
+        ps_z, ps0, ps1, _, _, y_hat = self._encode(
+            x, 1 if full else self.cap_divisor)
+        return {"z": ps_z, "y0": ps0, "y1": ps1, "y_hat": y_hat}
+
+    def _encode(self, x, cd):
+        """The encode core, y passes capped at 1/``cd``: (z, y0, y1
+        PassStreams, anchor and non-anchor symbols int32 [B, H/16, W/32,
+        N], y_hat). Waits for nothing, so a CUDA graph can capture it."""
+        y = self._transform(self._g_a, x)
+        z = self._transform(self._h_a, y)
+        z_bin, ps_z = self._encode_z(z)
+
+        sym = torch.clamp(torch.round(self._ckbd.unembed(y)).to(torch.int32),
+                          -self.max_abs, self.max_abs)  # [2, b, h, w/2, c]
+        y_hat = self._ckbd.embed(sym.float())
+
+        side = self._side(z_bin)
+        ps0 = self._encpass(self._params0(side[0]), sym[0].reshape(-1), cd)
+        ps1 = self._encpass(self._params1(side[1], sym[0]),
+                            sym[1].reshape(-1), cd)
+        return ps_z, ps0, ps1, sym[0], sym[1], y_hat
+
+    @torch.inference_mode()
+    def decode_y_hat(self, streams, y_shape, err=None):
+        """Streams -> y_hat [B, H/16, W/16, N]. Without ``err`` a decoder
+        that reads past its stream raises at once; with it (int32 [1] on
+        the device) the three decoders OR 1 into it and nothing waits for
+        the device (``rans_kernels.decode_scan``)."""
+        b, h, w, c = self._y_shape_parts(y_shape)
+        z_bin = self._decode_z(streams["z"], b, h, w, err)
+        side = self._side(z_bin)
+        n = b * h * (w // 2) * c
+        sym0 = self._decpass(streams["y0"], self._params0(side[0]), n,
+                             err).reshape(b, h, w // 2, c)
+        sym1 = self._decpass(streams["y1"], self._params1(side[1], sym0), n,
+                             err).reshape(b, h, w // 2, c)
+        return self._ckbd.embed(torch.stack([sym0, sym1]).float())
+
+    def stream_capacities(self, y_shape):
+        """(cap_z, cap_y) capped stream lengths for latent y_shape =
+        (h, w, c) or (b, h, w, c)."""
+        b, h, w, c = self._y_shape_parts(y_shape)
+        n_y = b * h * (w // 2) * c
+        n_z = b * (h // 4) * (w // 4) * self._z_channels()
+        t_y, _ = il.layout(n_y, self.lanes)
+        t_z, _ = il.layout(n_z, self.lanes)
+        return (t_z * self.lanes,  # z is never capped
+                max(t_y * self.lanes // self.cap_divisor, self.lanes))
+
+    # -- the passes: z, y0, y1 ---------------------------------------------------
+
+    def _pass_caps(self, y_shape):
+        cap_z, cap_y = self.stream_capacities(y_shape)
+        return cap_z, cap_y, cap_y
+
+    @staticmethod
+    def _passes(streams):
+        """{"z", "y0", "y1": PassStream} -> the passes in byte order."""
+        return tuple(streams[name] for name in _PASSES)
+
+    _out_passes = _passes
+
+    @staticmethod
+    def _streams(passes):
+        return dict(zip(_PASSES, passes))

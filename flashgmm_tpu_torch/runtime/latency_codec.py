@@ -52,6 +52,9 @@ capture reuses their memory.
 On a CPU model the same functions run eagerly on the kernels' plain
 versions. The bytes are the batched codec's ``to_bytes`` format at the same
 lanes.
+
+``_GraphedCodec`` is this machinery over any batched codec's passes;
+``FastLatencyElicCodec`` (``runtime/latency_elic.py``) shares it.
 """
 
 import hashlib
@@ -62,7 +65,7 @@ import torch
 from flashgmm_tpu_torch.ans import rans_kernels
 from flashgmm_tpu_torch.ops import conv_kernel
 
-from .fast_codec import _PASSES, FastCheckerboardGmmCodec, StreamOverflow
+from .fast_codec import FastCheckerboardGmmCodec, StreamOverflow
 
 # the kernel wrappers whose ``.launches`` a capture records, read through
 # their modules so that a wrapper rebound there is the one counted
@@ -106,32 +109,25 @@ class _Graph:
         return self.outputs
 
 
-class FastLatencyGmmCodec:
-    """One-graph encode / one-graph decode around a
-    Cheng2020AnchorCheckerboardGMMv2 (run ``model.update()`` first), on the
-    model's device.
+class _GraphedCodec:
+    """The single-image codecs' machinery over a batched codec
+    (``self._batched``, a ``fast_codec._FastCodec``): the three directions'
+    graphs in one pool, the certificate, the fallback and the decode of
+    bytes. A codec gives its encode graph's passes, y_hat and packed
+    streams (``_certifiable``)."""
 
-    ``kernel_transforms=True`` sends the bf16 transforms' eligible convs
-    through the bf16 conv kernel, as in ``FastCheckerboardGmmCodec`` (the
-    reference's ``FLASHGMM_PALLAS_CONV_TRANSFORMS``)."""
-
-    def __init__(self, model, lanes: int = 1024, max_abs: int = 47,
-                 cap_divisor: int = 4, bf16_transforms: bool = True,
-                 kernel_transforms: bool = False):
+    def __init__(self, batched):
         # the stage functions, the bytes and the certification's fallback
-        self._batched = FastCheckerboardGmmCodec(
-            model, lanes=lanes, max_abs=max_abs, cap_divisor=cap_divisor,
-            bf16_transforms=bf16_transforms,
-            kernel_transforms=kernel_transforms)
-        self.lanes = self._batched.lanes
-        self.max_abs = self._batched.max_abs
-        self.cap_divisor = self._batched.cap_divisor
-        self.device = self._batched.device
+        self._batched = batched
+        self.lanes = batched.lanes
+        self.max_abs = batched.max_abs
+        self.cap_divisor = batched.cap_divisor
+        self.device = batched.device
         self._graphed = self.device.type == "cuda"
         self._graphs = {}  # (direction, shape key) -> _Graph
         self._pool = None
-        # the decoders' deferred error flag, shared by the three decodes of
-        # a direction (they only ever write 1 to it)
+        # the decoders' deferred error flag, shared by the decoders of a
+        # direction (they only ever write 1 to it)
         self._err = torch.zeros(1, dtype=torch.int32, device=self.device)
         self._fallback_digests = set()
 
@@ -163,27 +159,16 @@ class FastLatencyGmmCodec:
         else:
             dst.copy_(src)
 
-    def _encode_packed(self, x):
-        """Encode graph: (z, y0, y1 PassStreams, sym0, sym1, y_hat, the
-        three streams in the packed layout)."""
-        b = self._batched
-
-        def encode(x_):
-            out = b._encode(x_, self.cap_divisor)
-            return out + (b.pack_device(out[:3]),)
-
-        return self._run("encode", tuple(x.shape), encode, [x])
-
-    def _encode(self, x):
-        """The encode graph's (z, y0, y1 PassStreams, sym0, sym1, y_hat)."""
-        return self._encode_packed(x)[:6]
+    def _certifiable(self, x):
+        """The encode graph's (passes in byte order, y_hat, the passes in
+        the packed layout)."""
+        raise NotImplementedError
 
     def _decode_y_packed(self, packed, y_shape, caps):
-        """Decode-y graph over the three passes in the packed layout of
-        stream capacities ``caps`` (a pinned host buffer from
-        ``FastCheckerboardGmmCodec.pack``, or a device one): y_hat. The
-        decoders' error flag is zeroed inside the graph; read ``self._err``
-        after it."""
+        """Decode-y graph over the passes in the packed layout of stream
+        capacities ``caps`` (a pinned host buffer from the batched codec's
+        ``pack``, or a device one): y_hat. The decoders' error flag is
+        zeroed inside the graph; read ``self._err`` after it."""
         y_shape = tuple(y_shape)
 
         def decode_y(buf):
@@ -195,12 +180,16 @@ class FastLatencyGmmCodec:
                          [packed])
 
     def _decode_y(self, passes, y_shape):
-        """The decode-y graph over three PassStreams, packed on the device
-        first: y_hat."""
+        """The decode-y graph over PassStreams in byte order, packed on the
+        device first: y_hat."""
         caps = tuple(p.stream.shape[0] for p in passes)
         with torch.inference_mode():
             packed = self._batched.pack_device(passes)
         return self._decode_y_packed(packed, y_shape, caps)
+
+    def _passes(self, streams):
+        """The batched codec's streams as PassStreams in byte order."""
+        return self._batched._passes(streams)
 
     def _gs(self, y_hat):
         """g_s graph: x_hat clamped to [0, 1]."""
@@ -229,10 +218,6 @@ class FastLatencyGmmCodec:
         y_dec = self._decode_y_packed(packed, y_shape, caps)
         return self._cmp(y_dec, y_hat) & (self._err == 0).all()
 
-    @staticmethod
-    def _passes(streams):
-        return tuple(streams[name] for name in _PASSES)
-
     @torch.inference_mode()
     def encode_certified(self, x):
         """Encode x [B, H, W, 3] (float in [0, 1]; the codec is for one
@@ -241,17 +226,15 @@ class FastLatencyGmmCodec:
         either they passed certification, or they are the batched codec's
         (certified too, or remembered and routed through its decoder)."""
         x = x.to(self.device, torch.float32)
-        ps_z, ps0, ps1, sym0, _, y_hat, packed = self._encode_packed(x)
-        y_shape = (x.shape[0], sym0.shape[1], sym0.shape[2] * 2,
-                   sym0.shape[3])
-        passes = (ps_z, ps0, ps1)
+        passes, y_hat, packed = self._certifiable(x)
+        y_shape = tuple(y_hat.shape)
         # the encoder's streams always have the capacities from_bytes gives
         # (both from stream_capacities' rule), zero-padded as the bytes are,
         # so decode-y reads their packed buffer as it reads the bytes'
         caps = tuple(p.stream.shape[0] for p in passes)
         ok = self._certificate(packed, y_shape, caps, y_hat)
         try:
-            data = self._batched.to_bytes(dict(zip(_PASSES, passes)))
+            data = self._batched._bytes_of(passes)
         except StreamOverflow:
             return self._encode_fallback(x, y_shape)
         if bool(ok):
@@ -268,24 +251,25 @@ class FastLatencyGmmCodec:
         if not bool(self._certificate(host, y_shape, caps, enc["y_hat"])):
             self._fallback_digests.add(hashlib.sha256(data).hexdigest())
             # the digest memory is per instance: another process must decode
-            # these bytes with FastCheckerboardGmmCodec.decode_bytes
+            # these bytes with the batched codec's decode_bytes
+            name = type(self._batched).__name__
             warnings.warn(
                 "latency-codec certification and cross-certification both "
                 "failed; returning batched-codec bytes routed via in-memory "
-                "digest. Decode these bytes in other processes with "
-                "FastCheckerboardGmmCodec.decode_bytes.", RuntimeWarning)
+                f"digest. Decode these bytes in other processes with "
+                f"{name}.decode_bytes.", RuntimeWarning)
         return data, y_shape
 
     # -- bytes and decode ------------------------------------------------------
 
     def stream_capacities(self, y_shape):
-        """(cap_z, cap_y) stream lengths for latent y_shape (b, h, w, c)."""
+        """The batched codec's stream lengths for latent y_shape."""
         return self._batched.stream_capacities(y_shape)
 
     def from_bytes(self, data: bytes, y_shape):
-        """Parse ``encode_certified`` bytes into {"z", "y0", "y1":
-        PassStream} on the device, unpacked (an overflow file gets the
-        uncapped capacity); ``decode`` reads the packed layout instead."""
+        """Parse ``encode_certified`` bytes into the batched codec's streams
+        on the device, unpacked (an overflow file gets the uncapped
+        capacity); ``decode`` reads the packed layout instead."""
         return self._batched.from_bytes(data, y_shape)
 
     @torch.inference_mode()
@@ -304,3 +288,40 @@ class FastLatencyGmmCodec:
         x_hat = self._gs(y_hat)
         self._check_err()
         return x_hat.clone()
+
+
+class FastLatencyGmmCodec(_GraphedCodec):
+    """One-graph encode / one-graph decode around a
+    Cheng2020AnchorCheckerboardGMMv2 (run ``model.update()`` first), on the
+    model's device.
+
+    ``kernel_transforms=True`` sends the bf16 transforms' eligible convs
+    through the bf16 conv kernel, as in ``FastCheckerboardGmmCodec`` (the
+    reference's ``FLASHGMM_PALLAS_CONV_TRANSFORMS``)."""
+
+    def __init__(self, model, lanes: int = 1024, max_abs: int = 47,
+                 cap_divisor: int = 4, bf16_transforms: bool = True,
+                 kernel_transforms: bool = False):
+        super().__init__(FastCheckerboardGmmCodec(
+            model, lanes=lanes, max_abs=max_abs, cap_divisor=cap_divisor,
+            bf16_transforms=bf16_transforms,
+            kernel_transforms=kernel_transforms))
+
+    def _encode_packed(self, x):
+        """Encode graph: (z, y0, y1 PassStreams, sym0, sym1, y_hat, the
+        three streams in the packed layout)."""
+        b = self._batched
+
+        def encode(x_):
+            out = b._encode(x_, self.cap_divisor)
+            return out + (b.pack_device(out[:3]),)
+
+        return self._run("encode", tuple(x.shape), encode, [x])
+
+    def _encode(self, x):
+        """The encode graph's (z, y0, y1 PassStreams, sym0, sym1, y_hat)."""
+        return self._encode_packed(x)[:6]
+
+    def _certifiable(self, x):
+        out = self._encode_packed(x)
+        return out[:3], out[5], out[6]

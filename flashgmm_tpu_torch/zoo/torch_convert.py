@@ -7,7 +7,9 @@ the port keeps the JAX package's paths, whose ``Sequential`` adds a
 ``layers`` level and whose ``latent_codec`` containers nest one
 ``latent_codec`` dict level that the reference registers with
 ``save_direct=True`` (reference latent_codecs/base.py:50-76), so it is
-absent from the checkpoint's keys. Also reproduced: the reference's legacy
+absent from the checkpoint's keys; ChannelGroupsLatentCodec's is an
+``nn.ModuleDict`` there (channel_groups.py:84) and stays. Transposed-conv
+weights are [in, out, kh, kw] in both. Also reproduced: the reference's legacy
 key renames (zoo/pretrained.py:39-62), and the EntropyBottleneck's integer
 tables, resized to the checkpoint's shapes (models/utils.py:66-131).
 """
@@ -19,7 +21,8 @@ import torch
 
 from flashgmm_tpu_torch.entropy_models import (EntropyBottleneck,
                                                GaussianConditional)
-from flashgmm_tpu_torch.layers import GDN, Conv2d, MaskedConv2d
+from flashgmm_tpu_torch.latent_codecs import ChannelGroupsLatentCodec
+from flashgmm_tpu_torch.layers import GDN, Conv2d, ConvTranspose2d, MaskedConv2d
 
 
 def rename_legacy_keys(state_dict):
@@ -35,12 +38,16 @@ def rename_legacy_keys(state_dict):
     return out
 
 
-def torch_path(path: str) -> str:
+def torch_path(path: str, kept=()) -> str:
     """A port module path -> the checkpoint's: the ``layers`` levels and
-    every ``latent_codec`` level but the first dropped."""
+    every ``latent_codec`` level but the first dropped, except where the
+    path up to that level is in ``kept`` (a ChannelGroupsLatentCodec's
+    ``<path>.latent_codec``)."""
     parts = path.split(".") if path else []
-    return ".".join(p for i, p in enumerate(parts)
-                    if p != "layers" and not (p == "latent_codec" and i > 0))
+    return ".".join(
+        p for i, p in enumerate(parts)
+        if p != "layers" and not (p == "latent_codec" and i > 0
+                                  and ".".join(parts[:i + 1]) not in kept))
 
 
 def _as_tensor(v):
@@ -74,10 +81,12 @@ def load_torch_state_dict(model, state_dict, strict: bool = True):
         with torch.no_grad():
             param.copy_(v.to(param.dtype))
 
+    kept = {f"{path}.latent_codec" for path, node in model.named_modules()
+            if isinstance(node, ChannelGroupsLatentCodec)}
     for path, node in model.named_modules():
-        prefix = torch_path(path)
+        prefix = torch_path(path, kept)
         key = (lambda name: f"{prefix}.{name}" if prefix else name)
-        if isinstance(node, Conv2d):  # MaskedConv2d too
+        if isinstance(node, (Conv2d, ConvTranspose2d)):  # MaskedConv2d too
             fill(node.weight, key("weight"))
             if node.bias is not None:
                 fill(node.bias, key("bias"))

@@ -51,7 +51,7 @@ def models():
     pre = jax_params(jm)
     jm.update(update_quantiles=True)
     tm = TModel(N=N, K=K, device="cpu")
-    tm.load_state_dict(load_jax_params(jax_params(jm)), strict=True)
+    tm.load_state_dict(load_jax_params(jax_params(jm), tm), strict=True)
     tm.update()
     return jm, pre, tm
 
@@ -76,7 +76,7 @@ def test_eb_tables_exact_from_jax_quantiles(models):
 def test_eb_own_quantile_bisection_matches_jax(models):
     jm, pre, _ = models
     tm = TModel(N=N, K=K, device="cpu")
-    tm.load_state_dict(load_jax_params(pre), strict=True)
+    tm.load_state_dict(load_jax_params(pre, tm), strict=True)
     tm.update(update_quantiles=True)
     jeb = jm.latent_codec["hyper"].entropy_bottleneck
     np.testing.assert_array_equal(_eb(tm).quantiles.detach().numpy(),

@@ -59,7 +59,7 @@ def jax_params(mod):
 def models():
     jm = JModel(N=N, K=K, rngs=nnx.Rngs(0))
     tm = TModel(N=N, K=K, device="cpu")
-    tm.load_state_dict(load_jax_params(jax_params(jm)), strict=True)
+    tm.load_state_dict(load_jax_params(jax_params(jm), tm), strict=True)
     return jm, tm
 
 

@@ -21,7 +21,10 @@ sums in another order (1e-5 of max|plain| for an f32 result), at every
 shape the N=192 transforms route to it (with HWIO and with packed
 weights), at a full batch of 24 of the largest level, at ragged edges and
 in each shape class the wrapper takes; operands off the kernel's alignment
-or not contiguous are copied, never read wrongly.
+or not contiguous are copied, never read wrongly. ELIC's rows chain on the
+card (h_s's transposed convs as zero-inserted convs included) gives the
+CPU plain version's GMM parameters bit for bit, its batched and latency
+codecs round-trip exactly, and its three graphs launch as the eager run.
 """
 
 import importlib.util
@@ -38,6 +41,7 @@ from flashgmm_tpu_torch.ans.gaussian_cdf import (gmm_guarded_bounds,
                                                  gmm_guarded_bounds_plain,
                                                  gmm_guarded_rows,
                                                  gmm_guarded_rows_plain)
+from flashgmm_tpu_torch.layers import run_canonical
 from flashgmm_tpu_torch.ops import conv_kernel
 
 pytestmark = pytest.mark.gpu
@@ -529,7 +533,8 @@ def test_latency_truncated_stream_raises_after_the_replay(cuda):
     lat = FastLatencyGmmCodec(model)
     data, y_shape = _certified(lat, x)
     x_hat = lat.decode(data, y_shape)
-    bad = _smoke().truncate_pass(data, lat.lanes, 1)
+    bad = _smoke().truncate_pass(data, lat.lanes, 1,
+                                 len(lat._batched._pass_caps(y_shape)))
     with pytest.raises(RuntimeError, match="past its end"):
         lat.decode(bad, y_shape)
     torch.cuda.synchronize()  # the card is still healthy
@@ -824,3 +829,133 @@ def test_forward_and_backward_on_card_match_the_cpu(cuda):
     tr = model(x, training=True, generator=gen)
     assert all(bool(torch.isfinite(t).all())
                for t in (tr["x_hat"], *tr["likelihoods"].values()))
+
+
+def _elic(dev, n, m, k, groups=None):
+    """An ELIC from seed 0 after update(update_quantiles=True) on ``dev``."""
+    from flashgmm_tpu_torch.models import Elic2022GMM
+
+    model = Elic2022GMM(N=n, M=m, K=k, groups=groups, seed=0, device=dev)
+    model.update(update_quantiles=True)
+    return model
+
+
+def test_elic_rows_chain_on_card_equals_the_cpu_plain_version(cuda):
+    """The ELIC codec's shared stages on the card against the CPU (the
+    conv kernel's plain version) for the same z bins and symbols: h_s (its
+    transposed convs as zero-inserted convs), each group's context
+    parameters, spatial contexts and aggregation networks through
+    ``conv2d_nhwc`` bit for bit, and so each pass's scales and means; the
+    mixture weights are ``torch.softmax`` of those bits, whose CUDA and CPU
+    versions round differently: within one float32 ulp (2^-23 below 1)."""
+    import copy
+
+    from flashgmm_tpu_torch.runtime import FastElicGmmCodec
+
+    groups = [8, 8, 16, 16, 16]
+    cpu_model = _elic("cpu", 32, 64, 2, groups)
+    codecs = {dev: FastElicGmmCodec(m, lanes=64) for dev, m in (
+        ("cpu", cpu_model), ("cuda", copy.deepcopy(cpu_model).to(cuda)))}
+    rs = np.random.RandomState(3)
+    z_max = codecs["cpu"]._z_maxbin.numpy()
+    z_bin = torch.from_numpy(np.stack([rs.randint(0, z_max + 1)
+                                       for _ in range(2 * 6)]).reshape(
+        2, 2, 3, 32).astype(np.int32))
+    syms = [torch.from_numpy(rs.randint(-6, 7, (2, 8, 6, g)).astype(np.int32))
+            for g in groups for _ in range(2)]
+    stages = {}
+    with torch.inference_mode():
+        for dev, c in codecs.items():
+            side_all = c._side(z_bin.to(c.device))
+            ss = [s.to(c.device) for s in syms]
+            out = {"h_s": side_all}
+            for k, ckbd in enumerate(c._ckbds):
+                ctx_params = c._ctxparams(side_all, ss[:2 * k], k)
+                side = ckbd.unembed(ctx_params)
+                y_ = torch.stack([ss[2 * k].float(),
+                                  torch.zeros_like(ss[2 * k],
+                                                   dtype=torch.float32)])
+                ctxs = [side[0].new_zeros(side[0].shape[:-1] + (
+                    ckbd.context_prediction.out_ch,)), ckbd.unembed(
+                    run_canonical(ckbd.context_prediction, ckbd.embed(y_)))[1]]
+                out[f"group {k} context parameters"] = ctx_params
+                out[f"group {k} spatial context"] = ctxs[1]
+                for i in range(2):
+                    out[f"pass {k}.{i} aggregation"] = run_canonical(
+                        ckbd.entropy_parameters, ckbd.merge(ctxs[i], side[i]))
+                    params = c._pass_params(k, side[i],
+                                            None if i == 0 else ss[2 * k])
+                    for n, t in zip(("scales", "means", "weights"), params):
+                        out[f"pass {k}.{i} {n}"] = t
+            stages[dev] = out
+    for name, ref in stages["cpu"].items():
+        got = stages["cuda"][name].cpu()
+        if name.endswith("weights"):
+            assert float((got - ref).abs().max()) <= 2.0 ** -23, name
+        else:
+            assert torch.equal(got, ref), name
+
+
+@pytest.mark.parametrize("kernel_transforms", [False, True])
+def test_elic_roundtrips_exact_on_card(cuda, kernel_transforms):
+    """The batched codec at batch 2 and the latency codec at batch 1 (N=64,
+    M=160, K=4, 128x128 textured leaves): y_hat exact through the bytes,
+    certified with no fallback on three graphs, the latency bytes equal to
+    the batched codec's at the same settings."""
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.runtime import (FastElicGmmCodec,
+                                            FastLatencyElicCodec)
+
+    model = _elic(cuda, 64, 160, 4)
+    x = torch.from_numpy(np.stack([textured_leaves(128, 128, seed=500001 + i)
+                                   for i in range(2)])).to(cuda)
+    codec = FastElicGmmCodec(model, lanes=128,
+                             kernel_transforms=kernel_transforms)
+    data, out = codec.encode_to_bytes(x)
+    y_shape = tuple(out["y_hat"].shape)
+    assert len(out["streams"]) == 11
+    assert torch.equal(codec.decode_y_hat(codec.from_bytes(data, y_shape),
+                                          y_shape), out["y_hat"])
+    x_hat = codec.decode_bytes(data, y_shape)
+    assert x_hat.shape == x.shape and bool(torch.isfinite(x_hat).all())
+    lat = FastLatencyElicCodec(model, lanes=128,
+                               kernel_transforms=kernel_transforms)
+    x1 = x[:1].contiguous()
+    l_data, l_shape = _certified(lat, x1)
+    l_xhat = lat.decode_bytes(l_data, l_shape).clone()
+    assert not lat._fallback_digests and len(lat._graphs) == 3
+    e_data, e_out = codec.encode_to_bytes(x1)
+    assert l_data == e_data
+    y_graph = lat._decode_y(lat._passes(lat.from_bytes(l_data, l_shape)),
+                            l_shape)
+    assert torch.equal(y_graph, e_out["y_hat"]) and int(lat._err) == 0
+    assert torch.equal(lat.decode_bytes(l_data, l_shape), l_xhat)
+
+
+def test_elic_latency_graphs_launch_as_the_eager_run(cuda):
+    """Each of the three ELIC graphs captured the launches its direction
+    makes eagerly: the eager encode + decode of the same functions launches
+    each kernel as often as the graphs together; the coder 1 + 10 times a
+    direction, the rows-chain conv 50."""
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.runtime import FastLatencyElicCodec, latency_codec
+
+    model = _elic(cuda, 64, 160, 4)
+    x = torch.from_numpy(textured_leaves(128, 128, seed=500001)[None]).to(cuda)
+    lat = FastLatencyElicCodec(model, lanes=128, kernel_transforms=True)
+    data, y_shape = _certified(lat, x)
+    lat.decode_bytes(data, y_shape)
+    graphs = {d: g.launches for (d, _), g in lat._graphs.items()}
+    assert graphs["encode"]["encode_scan"] == 1
+    assert graphs["encode"]["encode_scan_gmm"] == 10
+    assert graphs["decode_y"]["decode_scan"] == 1
+    assert graphs["decode_y"]["decode_scan_gmm"] == 10
+    assert graphs["encode"]["conv2d_nhwc"] == graphs["decode_y"][
+        "conv2d_nhwc"] == 50
+    assert graphs["g_s"]["conv2d_nhwc_bf16"] > 0
+    before = latency_codec._launch_counts()
+    e_data, _ = lat._batched.encode_to_bytes(x)
+    lat._batched.decode_bytes(e_data, y_shape)
+    eager = {k: v - before[k] for k, v in latency_codec._launch_counts().items()}
+    assert e_data == data
+    assert eager == {k: sum(g[k] for g in graphs.values()) for k in eager}

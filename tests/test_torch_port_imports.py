@@ -50,10 +50,14 @@ def test_smoke_refuses_without_a_card():
     "flashgmm_tpu_torch.zoo.torch_convert",
     "flashgmm_tpu_torch.models.base",
     "flashgmm_tpu_torch.entropy_models.entropy_models",
+    "flashgmm_tpu_torch.models.elic_gmm",
+    "flashgmm_tpu_torch.runtime.fast_elic",
+    "flashgmm_tpu_torch.runtime.latency_elic",
 ])
 def test_forward_and_converter_modules_import_no_jax(module):
-    """The CompressAI state-dict converter and the training forward's
-    modules, each imported alone in a fresh interpreter."""
+    """The CompressAI state-dict converter, the training forward's modules
+    and the ELIC model and codecs, each imported alone in a fresh
+    interpreter."""
     probe = (f"import importlib, sys; importlib.import_module({module!r}); "
              "print(','.join(sorted(k for k in sys.modules if k.split('.')[0] "
              "in ('jax', 'jaxlib', 'flax', 'flashgmm_tpu'))))")

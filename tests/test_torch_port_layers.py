@@ -34,7 +34,7 @@ def jax_params(mod):
 
 
 def port_of(jmod, tmod):
-    tmod.load_state_dict(load_jax_params(jax_params(jmod)), strict=True)
+    tmod.load_state_dict(load_jax_params(jax_params(jmod), tmod), strict=True)
     return tmod.eval()
 
 

@@ -46,7 +46,7 @@ def models():
     jm = JModel(N=N, K=K, rngs=nnx.Rngs(0))
     jm.update()
     tm = TModel(N=N, K=K, device="cpu")
-    tm.load_state_dict(load_jax_params(jax_params(jm)), strict=True)
+    tm.load_state_dict(load_jax_params(jax_params(jm), tm), strict=True)
     tm.update()
     return jm, tm
 
