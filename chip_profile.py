@@ -4,7 +4,7 @@
     python3 chip_profile.py [--batch 2 24] [--reps 3]
                             [--tiles | --decode | --encode |
                              --kernel-transforms | --latency | --bytes |
-                             --forward | --elic]
+                             --forward | --elic | --gsm]
 
 For each batch size: N=192, K=4 flagship with weights/ckbd_gmm_n192_k4_
 synthetic.npz, lanes=4096, cap_divisor=4, 768x512 textured-leaves images
@@ -77,6 +77,15 @@ encode_certified and decode medians of at least 20 runs, graph and eager
 alternating, and each direction's device ms, busy and idle share and the
 y decoders' share on the graph path (torch.profiler); then each route's
 table of device time by kernel over one graph encode_certified + decode.
+``--gsm`` instead runs the single-Gaussian checkerboard
+(Cheng2020AnchorCheckerboard N=128, weights/ckbd_gc_n128_synthetic.npz)
+through FastCheckerboardGsmCodec at lanes=4096, cap_divisor=4 on both
+transform routes, as ``--kernel-transforms`` runs the flagship's: for each
+batch, one JSON line of alternating pairs (encode and decode ms, ms per
+image, bytes, bpp, PSNR, g_a, h_a and g_s stage ms) and one of the GSM
+codec's own stages one at a time on the default route (h_s, each pass's
+parameters, one y pass's encode and decode), the routed bf16 convs, and
+each route's table of device time by kernel at the last batch.
 Needs a CUDA device; imports no JAX.
 """
 
@@ -108,6 +117,7 @@ def main() -> int:
     ap.add_argument("--bytes", action="store_true")
     ap.add_argument("--forward", action="store_true")
     ap.add_argument("--elic", action="store_true")
+    ap.add_argument("--gsm", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -141,6 +151,9 @@ def main() -> int:
         return 0
     if args.elic:
         elic_profile(args.reps, dev, smi)
+        return 0
+    if args.gsm:
+        gsm_profile(args.batch, args.reps, dev, smi)
         return 0
     model = Cheng2020AnchorCheckerboardGMMv2(N=192, K=4, seed=0, device=dev)
     load_npz(model, WEIGHTS)
@@ -319,6 +332,60 @@ def elic_stages(c, x, data, y_shape):
         y_hat = c._embed_full(syms)
         _, ms["g_s"] = timed(lambda: c._transform(c._g_s, y_hat))
     return ms
+
+
+def gsm_stages(c, x, data, y_shape):
+    """FastCheckerboardGsmCodec c's rows-chain and coder stages one at a
+    time, each ending in a synchronize (g_a, h_a and g_s: both_routes)."""
+    import torch
+
+    b, h, w, ch = y_shape
+    n = b * h * (w // 2) * ch
+    ms = {}
+    with torch.inference_mode():
+        y = c._transform(c._g_a, x)
+        z_bin, _ = c._encode_z(c._transform(c._h_a, y))
+        y_ = c._ckbd.unembed(y)
+        side, ms["h_s (conv kernel)"] = timed(lambda: c._side(z_bin))
+        (p0, mu0), ms["params0 (EP convs)"] = timed(
+            lambda: c._params0(side[0]))
+        sym0 = c._quantize(y_[0], mu0)
+        _, ms["params1 (context + EP convs)"] = timed(
+            lambda: c._params1(side[1], sym0, mu0))
+        _, ms["y pass encode (K=1 encoder + pack)"] = timed(
+            lambda: c._encpass(p0, sym0.reshape(-1), c.cap_divisor))
+        streams = c.from_bytes(data, y_shape)
+        _, ms["y pass decode (K=1 rows on demand)"] = timed(
+            lambda: c._decpass(streams["y0"], p0, n))
+    return ms
+
+
+def gsm_profile(batches, reps, dev, smi):
+    """The GSM codec on both routes (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboard
+    from flashgmm_tpu_torch.runtime import FastCheckerboardGsmCodec
+    from flashgmm_tpu_torch.zoo import load_npz
+
+    model = Cheng2020AnchorCheckerboard(N=128, seed=0, device=dev)
+    load_npz(model, ROOT / "weights" / "ckbd_gc_n128_synthetic.npz")
+    model.update(update_quantiles=True)
+    codecs = {name: FastCheckerboardGsmCodec(
+        model, lanes=4096, cap_divisor=4,
+        kernel_transforms=name == "kernel_transforms")
+        for name in ("default", "kernel_transforms")}
+    images = [textured_leaves(H, W, seed=500001 + i) for i in range(max(batches))]
+    for b in batches:
+        x = torch.from_numpy(np.stack(images[:b])).to(dev)
+        c = codecs["default"]
+        with torch.inference_mode():
+            data, out = c.encode_to_bytes(x)
+        print(json.dumps({"gsm_batch": b, "stages_ms": gsm_stages(
+            c, x, data, tuple(out["y_hat"].shape)), "card": smi}), flush=True)
+    both_routes(codecs, images, batches, reps, dev, smi)
 
 
 def elic_profile(reps, dev, smi):

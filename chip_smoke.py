@@ -10,7 +10,8 @@ Phases, each ending in one flushed line with its seconds:
    shared library), with the -Xptxas -v register and shared-memory lines;
    the bf16 conv kernel's SASS, read from the library by cuobjdump, must
    hold wgmma (HGMMA) and TMA loads (UTMALDG), ptxas must report no spill
-   stores or loads for it nor for any instance of the rANS encoder, and the
+   stores or loads for it nor for any of the 10 instances of the rANS
+   encoder (its K=1 instances, the GSM passes', among them), and the
    library must hold no mma.sync conv kernel;
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, all bit-exact: the GMM rows and bounds kernels, rANS
@@ -89,7 +90,16 @@ Phases, each ending in one flushed line with its seconds:
    eager batched codec's, a forced failure taking the fallback, the
    medians of 20 runs, graph and eager; a truncated stream raising; the
    eval forward's bits within 5 % of what the latency bytes carry;
-10. timing: every kernel call of those runs timed again by CUDA events,
+10. gsm: the single-Gaussian checkerboard (Cheng2020AnchorCheckerboard
+   N=128, the synthetic weights) through FastCheckerboardGsmCodec at the
+   codec phase's settings on the two images, on both routes
+   (``gsm_phase``): the launches of one encode_to_bytes + decode_bytes
+   (every GMM coder call on the K=1 instances), whether the overflow
+   fallback fired, y_hat exact through the bytes, every GMM coder call and
+   every distinct rows-chain conv shape (426 and 341 channels among them)
+   held to its plain version bit for bit, bytes, bpp and PSNR; the eval
+   (two-pass) forward's bits within 5 % of what the bytes carry;
+11. timing: every kernel call of those runs timed again by CUDA events,
    back to back ("ms"), beside its plain version, a library call where one
    computes the same function, and its bound; the encoders and the bounds
    kernel also on the device alone ("device_ms": the stream's queue filled
@@ -101,8 +111,11 @@ Phases, each ending in one flushed line with its seconds:
    "latency_bound_ms"), beside its launches in each direction's graph
    ("latency_launches"); and each kernel's calls of ELIC's batched encode
    + decode of the two images ("elic_launches", "elic_ms",
-   "elic_device_ms", "elic_bound_ms"), each distinct conv shape and each
-   coder call held to its plain version.
+   "elic_device_ms", "elic_bound_ms"), and of the GSM codec's ("gsm_*"),
+   each distinct conv shape and each coder call held to its plain version;
+   the coders' K=1 instances on lines of their own
+   ("rans_encode_gmm_k1", "rans_decode_gmm_k1", their launches and times
+   the GSM path's).
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -149,6 +162,15 @@ ELIC_PASSES = 11  # z, then two checkerboard passes of each of 5 groups
 # of g_a, h_a and g_s at N=192, M=320
 ELIC_ROWS_CONVS, ELIC_BF16 = 50, {"g_a": 65, "h_a": 1, "g_s": 65}
 ELIC_INSERTED = 2  # of them h_s's stride-2 deconvs, on zero-inserted inputs
+# the single-Gaussian checkerboard (Cheng2020AnchorCheckerboard): the local
+# weights' N, and a direction's rows-chain convs (h_s 5, the context 1, the
+# entropy parameters 2 x 3), coded at the flagship's batched settings
+GSM_WEIGHTS = ROOT / "weights" / "ckbd_gc_n128_synthetic.npz"
+GSM_N, GSM_ROWS_CONVS = 128, 12
+GSM_REPS = 5  # the encode and decode times are the medians of as many runs
+# the coder kernels' K=1 instances (the GSM passes), named apart on the
+# kernels line; their wrappers count them in ``launches_k1``
+K1_INSTANCES = ("rans_encode_gmm", "rans_decode_gmm")
 # float32 operations of one mixture term of one rows entry, by APPROX_MODE
 # (each add, sub, mul, div, sqrt and floor 1, each FMA 2; XLA's exp is 22):
 # Pólya: sub, div, 2 mul, exp, sub, sqrt, add, and the mixture FMA = 31;
@@ -551,6 +573,37 @@ def coded_bits(data, lanes, n_passes):
     return payload, coded
 
 
+def psnr_of(x_hat, x):
+    """Mean PSNR (dB) over the batch of images x_hat against x."""
+    import numpy as np
+
+    mse = ((x_hat - x) ** 2).mean(dim=(1, 2, 3)).double().cpu().numpy()
+    return float(np.mean(-10 * np.log10(np.maximum(mse, 1e-12))))
+
+
+def eval_bits_gap(model, x, data, lanes, n_passes, tag):
+    """The eval forward of ``model`` on images x: finite outputs, and its
+    likelihoods' bits within 5 % of the bits that codec bytes ``data`` of
+    the same images carry (``coded_bits``; the payload alone printed
+    beside them)."""
+    import torch
+
+    with torch.no_grad():
+        ev = model(x, training=False)
+    for name, t in (("x_hat", ev["x_hat"]), *ev["likelihoods"].items()):
+        require(bool(torch.isfinite(t).all()), f"{tag}: {name}")
+    bits = sum(float(-torch.log2(v.double()).sum())
+               for v in ev["likelihoods"].values())
+    payload, coded = coded_bits(data, lanes, n_passes)
+    gap = bits / coded - 1
+    print(f"  {tag}, {x.shape[0]} x {x.shape[1]}x{x.shape[2]}: {bits:.1f} "
+          f"bits against the {coded:.1f} the bytes carry (gap "
+          f"{100 * gap:+.3f} %; payload alone {payload:.0f} bits)",
+          flush=True)
+    require(abs(gap) <= 0.05, f"{tag}: the likelihoods' bits are "
+            f"{100 * gap:+.2f} % from the codec's coded bits")
+
+
 def forward_phase(dev, x, codec_data, n_passes):
     """The training forward of the N=192, K=4 flagship with the bench
     weights on image x [1, H, W, 3]: eval, then training with a seeded
@@ -673,10 +726,6 @@ def elic_phase(dev, x, record, originals):
     x1 = x[:1].contiguous()
     print(f"  ELIC N={N} M={ELIC_M} K={K} groups {model.groups}: "
           f"{ELIC_WEIGHTS.name}, {n_loaded} tensors", flush=True)
-
-    def psnr_of(x_hat, xb):
-        mse = ((x_hat - xb) ** 2).mean(dim=(1, 2, 3)).double().cpu().numpy()
-        return float(np.mean(-10 * np.log10(np.maximum(mse, 1e-12))))
 
     def batched(c, xb, tag):
         """One warmed-up encode -> to_bytes -> from_bytes -> decode of xb,
@@ -864,25 +913,210 @@ def elic_phase(dev, x, record, originals):
           "the decode-y replay; the graphs decode the file again", flush=True)
     del lat4
 
-    with torch.no_grad():
-        ev = model(x1, training=False)
-    for tag, t in (("x_hat", ev["x_hat"]), *ev["likelihoods"].items()):
-        require(bool(torch.isfinite(t).all()), f"ELIC forward: {tag}")
-    bits = sum(float(-torch.log2(v.double()).sum())
-               for v in ev["likelihoods"].values())
-    payload, coded = coded_bits(lat_data, ELIC_LANES, ELIC_PASSES)
-    gap = bits / coded - 1
-    print(f"  ELIC eval forward {H}x{W}: {bits:.1f} bits against the "
-          f"{coded:.1f} the latency bytes carry (gap {100 * gap:+.3f} %; "
-          f"payload alone {payload:.0f} bits)", flush=True)
-    require(abs(gap) <= 0.05, f"ELIC forward: the likelihoods' bits are "
-            f"{100 * gap:+.2f} % from the codec's coded bits")
+    eval_bits_gap(model, x1, lat_data, ELIC_LANES, ELIC_PASSES,
+                  "ELIC eval forward against the latency bytes")
     default, kernel = runs[(False, f"batch {BATCH}")], runs[(True,
                                                              f"batch {BATCH}")]
     launches = dict(default[2], conv2d_nhwc_bf16=kernel[2]["conv2d_nhwc_bf16"])
     calls = dict(default[3], conv2d_nhwc_bf16=kernel[3]["conv2d_nhwc_bf16"])
     phase("elic", "batched and latency codecs, both routes, forward")
     return launches, calls, pass_words(default[0], ELIC_LANES, ELIC_PASSES)
+
+
+def conv_shape_times(kernel, args, kwargs):
+    """Print one rows-chain conv call's kernel ms and TFLOP/s beside
+    F.conv2d's (float32, TF32 off) on the same inputs, each on the device
+    alone (``cuda_ms(..., ahead=True)``: neither waits for the device, and
+    calls this short are bound by the host's enqueue back to back), and
+    the kernel's copy route: 4-wide when C_in and C_out are multiples of
+    4, else one float a copy. Masked taps are no work."""
+    import torch
+
+    x, w, b = args
+    flops = 2 * x.shape[0] * x.shape[1] * x.shape[2] * int(
+        torch.count_nonzero(w))
+    x_nchw = x.permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    t_k = cuda_ms(lambda: kernel(*args, **kwargs), 20, True)
+    t_l = cuda_ms(lambda: torch.nn.functional.conv2d(
+        x_nchw, w_oihw, b, padding=w.shape[0] // 2), 20, True)
+    c_in, c_out = w.shape[2], w.shape[3]
+    wide = c_in % 4 == 0 and c_out % 4 == 0
+    print(f"    conv {'x'.join(map(str, x.shape[:3]))} {c_in}->{c_out} "
+          f"k{w.shape[0]} ({'4-wide' if wide else 'scalar'} copies), device "
+          f"ms: kernel {t_k:.4f} ({flops / t_k / 1e9:.2f} TFLOP/s), F.conv2d "
+          f"{t_l:.4f} ({flops / t_l / 1e9:.2f} TFLOP/s)", flush=True)
+
+
+def gsm_phase(dev, x, record, originals):
+    """The single-Gaussian checkerboard (Cheng2020AnchorCheckerboard N=128,
+    the synthetic weights, update(update_quantiles=True)) through
+    FastCheckerboardGsmCodec on the smoke's images x [BATCH, H, W, 3] at
+    lanes=LANES, cap_divisor=CAP_DIVISOR (the flagship's batched
+    configuration), on each route: one warmed-up encode_to_bytes +
+    decode_bytes with the launches counted from 0 (z encoder 1, GMM
+    encoder 2 and z decoder 1, GMM decoder 2, all four GMM calls on the K=1
+    instances; the f32 conv 24; the bounds and rows kernels never; the
+    bf16 conv 26 on the kernel route; the encoder's twice over if the
+    overflow fallback fired), whether the fallback (full=True) fired,
+    y_hat exact through from_bytes and through the
+    packed decode_bytes path (x_hat equal to decode(from_bytes)), every GMM
+    coder call and every distinct rows-chain conv shape (the 426- and
+    341-channel entropy-parameter convs among them) equal to its plain
+    version bit for bit and timed on the device beside F.conv2d
+    (``conv_shape_times``),
+    every distinct bf16 conv shape within tolerance,
+    bytes, bpp, PSNR and the medians of GSM_REPS more runs' encode and
+    decode times (host clock); then the eval forward's bits within 5 % of the
+    bits the default route's bytes carry. Returns (launches, recorded
+    calls, pass words) of the default route's run, the bf16 conv's from
+    the kernel route's, with the K=1 instances' launches and calls under
+    "rans_encode_gmm_k1" and "rans_decode_gmm_k1"."""
+    import statistics
+
+    import torch
+
+    from flashgmm_tpu_torch.ans import rans_kernels
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboard
+    from flashgmm_tpu_torch.ops import conv_kernel
+    from flashgmm_tpu_torch.runtime import FastCheckerboardGsmCodec
+    from flashgmm_tpu_torch.zoo import load_npz
+
+    model = Cheng2020AnchorCheckerboard(N=GSM_N, seed=0, device=dev)
+    n_loaded = load_npz(model, GSM_WEIGHTS)
+    model.update(update_quantiles=True)
+    ep = [m.out_ch for m in model.latent_codec.latent_codec["y"]
+          .entropy_parameters if hasattr(m, "out_ch")]
+    print(f"  GSM N={GSM_N}: {GSM_WEIGHTS.name}, {n_loaded} tensors; entropy "
+          f"parameters {4 * GSM_N} -> {' -> '.join(map(str, ep))}", flush=True)
+
+    want = {"rans_encode": 1, "rans_encode_gmm": 2, "rans_decode": 1,
+            "rans_decode_gmm": 2, "gmm_bounds": 0, "gmm_rows": 0}
+    runs = {}
+    for kt in (False, True):
+        tag = f"GSM batch {BATCH}, {'kernel' if kt else 'default'} route"
+        c = FastCheckerboardGsmCodec(model, lanes=LANES,
+                                     cap_divisor=CAP_DIVISOR,
+                                     kernel_transforms=kt)
+        d0, o0 = c.encode_to_bytes(x)  # warm-up (the library's autotuning)
+        c.decode_bytes(d0, tuple(o0["y_hat"].shape))
+
+        def once(c=c):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            data, out = c.encode_to_bytes(x)
+            y_shape = tuple(out["y_hat"].shape)
+            t1 = time.perf_counter()
+            x_hat = c.decode_bytes(data, y_shape)
+            torch.cuda.synchronize()
+            return data, out, x_hat, t1 - t0, time.perf_counter() - t1
+
+        (data, out, x_hat, t_enc, t_dec), launches, calls = record(once)
+        k1 = dict(record.k1)
+        y_shape = tuple(out["y_hat"].shape)
+        cap_y = c.stream_capacities(y_shape)[1]
+        # the overflow fallback encodes a second time, uncapped
+        fell_back = any(out[p].stream.shape[0] != cap_y for p in ("y0", "y1"))
+        n_enc = 2 if fell_back else 1
+        w = {name: v * (n_enc if name.startswith("rans_encode") else 1)
+             for name, v in want.items()}
+        w["conv2d_nhwc"] = GSM_ROWS_CONVS * (n_enc + 1)
+        w["conv2d_nhwc_bf16"] = (12 * n_enc + 14) if kt else 0  # g_a + h_a, g_s
+        require(launches == w, f"{tag}: launches {launches}, not {w}")
+        require(k1 == {"rans_encode_gmm": 2 * n_enc, "rans_decode_gmm": 2},
+                f"{tag}: K=1 instance launches {k1}, not {2 * n_enc} and 2")
+        streams = c.from_bytes(data, y_shape)
+        require(torch.equal(c.decode_y_hat(streams, y_shape), out["y_hat"]),
+                f"{tag}: y_hat differs after from_bytes")
+        host, caps = c.pack(data, y_shape)
+        packed = caps == tuple(c._pass_caps(y_shape))  # decode_bytes' path
+        if packed:
+            y_packed = c.decode_y_hat(c.unpack(c.copy_staged(host), caps),
+                                      y_shape)
+            require(torch.equal(y_packed, out["y_hat"]),
+                    f"{tag}: y_hat differs after the packed decode_bytes path")
+        require(torch.equal(x_hat, c.decode(c.from_bytes(data, y_shape),
+                                             y_shape)),
+                f"{tag}: decode_bytes differs from decode(from_bytes)")
+        require(tuple(x_hat.shape) == tuple(x.shape)
+                and bool(torch.isfinite(x_hat).all()), f"{tag}: x_hat")
+        bpp, psnr = len(data) * 8 / (BATCH * H * W), psnr_of(x_hat, x)
+        words = pass_words(data, LANES, 3)
+        reps = [once()[3:] for _ in range(GSM_REPS)]
+        t_enc, t_dec = (statistics.median(r[i] for r in reps) for i in (0, 1))
+        print(f"  {tag}: y_hat {list(y_shape)} exact through {len(data)} "
+              f"bytes (from_bytes{' and the packed decode_bytes' if packed else ''}"
+              f"); overflow "
+              f"fallback {'fired' if fell_back else 'not fired'} (pass words "
+              f"{words}, y cap {cap_y}); bpp {bpp:.7f}, PSNR {psnr:.4f} dB; "
+              f"encode {1e3 * t_enc:.2f} ms, decode {1e3 * t_dec:.2f} ms, "
+              f"{1e3 * (t_enc + t_dec) / BATCH:.2f} ms per image (batch "
+              f"{BATCH}, host clock, medians of {GSM_REPS} runs); launches "
+              f"{launches}, K=1 instances {k1}", flush=True)
+        for name in ("rans_encode_gmm", "rans_decode_gmm"):
+            enc = name.startswith("rans_encode")
+            plain = (rans_kernels.encode_scan_gmm_plain if enc
+                     else rans_kernels.decode_scan_gmm_plain)
+            for args, kwargs in calls[name]:
+                k = args[1 if enc else 2].shape[1]
+                require(k == 1, f"{tag}: {name} at K={k}")
+                got, ref = originals[name](*args, **kwargs), plain(*args,
+                                                                   **kwargs)
+                same = (all(torch.equal(a, b) for a, b in zip(got, ref))
+                        if isinstance(got, tuple) else torch.equal(got, ref))
+                require(same, f"{tag}: {name} differs from its plain version")
+        shapes = {}
+        for args, kwargs in calls["conv2d_nhwc"]:
+            key = call_key(args, kwargs)
+            if key not in shapes:
+                got = originals["conv2d_nhwc"](*args, **kwargs)
+                ref = conv_kernel.conv2d_nhwc_plain(*args, **kwargs)
+                require(torch.equal(got, ref), f"{tag}: conv {key[0]} kernel "
+                        f"!= plain, max|d| {float((got - ref).abs().max())}")
+                shapes[key] = (args[1].shape[2], args[1].shape[3])
+                if not kt:  # B3's data: each shape's ms beside F.conv2d's
+                    conv_shape_times(originals["conv2d_nhwc"], args, kwargs)
+        chans = sorted(set(shapes.values()))
+        n = GSM_N  # 512 -> 426 -> 341 -> 256 at N=128
+        require({(4 * n, 10 * n // 3), (10 * n // 3, 8 * n // 3),
+                 (8 * n // 3, 2 * n)} <= set(chans),
+                f"{tag}: the entropy parameters' convs not among {chans}")
+        print(f"  {tag}: every GMM coder call (4, K=1) and each of the "
+              f"{len(shapes)} distinct rows-chain conv shapes equal to plain "
+              f"bit for bit; (C_in, C_out) {chans}", flush=True)
+        if kt:
+            errs = {}
+            for args, kwargs in calls["conv2d_nhwc_bf16"]:
+                key = call_key(args, kwargs)
+                if key not in errs:
+                    ok, err, _ = bf16_conv_ok(
+                        originals["conv2d_nhwc_bf16"](*args, **kwargs),
+                        conv_kernel.conv2d_nhwc_bf16_plain(*args, **kwargs))
+                    require(ok, f"{tag}: bf16 conv beyond tolerance ({err})")
+                    errs[key] = err
+            print(f"  {tag}: {len(errs)} distinct bf16 conv shapes within "
+                  f"tolerance of plain (max|d| {max(errs.values()):.3g})",
+                  flush=True)
+        launches.update({f"{n}_k1": v for n, v in k1.items()})
+        for name in ("rans_encode_gmm", "rans_decode_gmm"):
+            calls[f"{name}_k1"], calls[name] = calls[name], []
+            launches[name] -= launches[f"{name}_k1"]
+        runs[kt] = (data, launches, calls, words, bpp, psnr)
+        del c
+    (_, _, _, _, bpp, psnr), (_, _, _, _, k_bpp, k_psnr) = runs[False], \
+        runs[True]
+    require(abs(k_psnr - psnr) <= 0.05 and abs(k_bpp - bpp) <= 0.005 * bpp,
+            f"GSM: kernel route bpp {k_bpp} PSNR {k_psnr}, default {bpp} "
+            f"{psnr}")
+
+    eval_bits_gap(model, x, runs[False][0], LANES, 3,
+                  "GSM eval (two-pass) forward against the default route's "
+                  "bytes")
+    data, launches, calls, words = runs[False][:4]
+    launches["conv2d_nhwc_bf16"] = runs[True][1]["conv2d_nhwc_bf16"]
+    calls["conv2d_nhwc_bf16"] = runs[True][2]["conv2d_nhwc_bf16"]
+    phase("gsm", "GSM codec on both routes, K=1 coder instances, forward")
+    return launches, calls, words
 
 
 def main() -> int:
@@ -950,8 +1184,15 @@ def smoke():
     enc_spills = {fn: c for fn, c in spills.items() if "rans_encode_kernel" in fn}
     print(f"  rans encoder instances: {len(enc_spills)}, spills (stores, loads) "
           f"{sorted(set(enc_spills.values()))}", flush=True)
-    require(len(enc_spills) == 7, "not the 7 rans encoder instances "
-            "(Bounds; GmmBounds in 3 modes at K=4 and at runtime K)")
+    require(len(enc_spills) == 10, "not the 10 rans encoder instances "
+            "(Bounds; GmmBounds in 3 modes at K=4, K=1 and runtime K)")
+    k1_spills = {fn: c for fn, c in enc_spills.items()
+                 if re.search(r"GmmBounds<\(int\)\d+, \(int\)1>|"
+                              r"GmmBoundsILi\dELi1E", fn)}
+    print(f"  rans encoder K=1 instances: {len(k1_spills)}, spills (stores, "
+          f"loads) {sorted(set(k1_spills.values()))}", flush=True)
+    require(len(k1_spills) == 3, f"not the 3 K=1 encoder instances among "
+            f"{sorted(enc_spills)}")
     require(all(c == (0, 0) for c in enc_spills.values()),
             f"rans encoder spills: {enc_spills}")
     phase("build", f"nvcc {kernels.seconds:.2f} s -> {kernels.path.name}")
@@ -1222,6 +1463,7 @@ def smoke():
                 calls[name].append((args, kept))
                 return fn(*args, **kwargs)
             wrapped.launches = 0
+            wrapped.launches_k1 = 0
             return wrapped
 
         for name, (module, attr) in bound.items():
@@ -1230,6 +1472,8 @@ def smoke():
             result = run()
             launches = {name: getattr(*where).launches
                         for name, where in bound.items()}
+            record.k1 = {name: getattr(*bound[name]).launches_k1
+                         for name in K1_INSTANCES}
         finally:
             for name, (module, attr) in bound.items():
                 setattr(module, attr, originals[name])
@@ -1645,7 +1889,10 @@ def smoke():
     elic_launches, elic_calls, elic_words = elic_phase(dev, x, record,
                                                        originals)
 
-    # 10. timing of every recorded call -----------------------------------
+    # 10. the single-Gaussian checkerboard through its codec --------------
+    gsm_launches, gsm_calls, gsm_words = gsm_phase(dev, x, record, originals)
+
+    # 11. timing of every recorded call -----------------------------------
     pass_words = [int(out[k].n_words) for k in ("z", "y0", "y1")]
 
     def probes_by_count(L):
@@ -1868,9 +2115,45 @@ def smoke():
     # the functions its graphs capture; the bf16 conv's on the kernel route
     lat_words = {route: [int(run[0][k].n_words) for k in ("z", "y0", "y1")]
                  for route, run in lat_runs.items()}
+    # the K=1 instances run on the GSM path alone: their launches, calls and
+    # times there are their main path's
+    for name in K1_INSTANCES:
+        calls[f"{name}_k1"] = gsm_calls[f"{name}_k1"]
+        launches[f"{name}_k1"] = gsm_launches[f"{name}_k1"]
+
+    def path_times(base, kern, peak, path_calls, words):
+        """A batched path's calls of one kernel (ELIC's, the GSM codec's):
+        each distinct conv shape (the decoder's rows-chain convs repeat the
+        encoder's inputs) and every coder call held to its plain version
+        once, every call timed: ({"ms", "device_ms", "bound_ms"}, max|kernel
+        - plain|, zero-inserted conv inputs)."""
+        t = {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
+        seen = {}
+        err = 0.0
+        inserted = 0
+        for i, (args, kwargs) in enumerate(path_calls):
+            key = i if base.startswith("rans") else call_key(args, kwargs)
+            if base == "conv2d_nhwc":
+                stride = inserted_stride(args[0])
+                inserted += stride > 1
+                key = key + (stride,)
+            if key not in seen:
+                nbytes, flops, e, _ = stats(base, i, args, kwargs, words)
+                err = max(err, e)
+                seen[key] = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / peak)
+            t["bound_ms"] += seen[key]
+            t["ms"] += cuda_ms(lambda: kern(*args, **kwargs), 20)
+            if base in DEVICE_TIMED:
+                t["device_ms"] += cuda_ms(lambda: kern(*args, **kwargs), 20,
+                                          True)
+        return t, err, inserted
+
     results = []
-    t_lat = t_elic = 0.0  # seconds spent on the latency and ELIC calls
-    for name, kern in originals.items():
+    t_lat = t_elic = t_gsm = 0.0  # seconds spent on those paths' calls
+    for name in [*originals, *(f"{n}_k1" for n in K1_INSTANCES)]:
+        base = name.removesuffix("_k1")
+        kern = originals[base]
+        words = gsm_words if name != base else pass_words
         ms = plain_ms = 0.0
         lib_ms = None
         err = 0.0
@@ -1879,13 +2162,12 @@ def smoke():
         flops_total = 0
         peak = BF16_FLOP_PER_S if name == "conv2d_nhwc_bf16" else F32_FLOP_PER_S
         for i, (args, kwargs) in enumerate(calls[name]):
-            nbytes, flops, e, library = stats(name, i, args, kwargs,
-                                              pass_words)
+            nbytes, flops, e, library = stats(base, i, args, kwargs, words)
             err = max(err, e)
             ms += cuda_ms(lambda: kern(*args, **kwargs), 20)
-            if name in DEVICE_TIMED:
+            if base in DEVICE_TIMED:
                 device_ms += cuda_ms(lambda: kern(*args, **kwargs), 20, True)
-            plain_ms += cuda_ms(lambda: plains[name](*args, **kwargs), 1)
+            plain_ms += cuda_ms(lambda: plains[base](*args, **kwargs), 1)
             if library is not None:
                 lib_ms = (lib_ms or 0.0) + cuda_ms(library, 20)
             if name == "rans_decode_gmm":
@@ -1911,34 +2193,27 @@ def smoke():
             lat_t["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_PER_S,
                                            flops / peak)
         t_lat += time.perf_counter() - t0
-        # the ELIC path's calls: each distinct conv shape (the decoder's
-        # rows-chain convs repeat the encoder's inputs) and every coder
-        # call held to its plain version once, every call timed
-        elic_t = {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
-        seen = {}
-        inserted = 0
         t0 = time.perf_counter()
-        for i, (args, kwargs) in enumerate(elic_calls.get(name, [])):
-            key = i if name.startswith("rans") else call_key(args, kwargs)
-            if name == "conv2d_nhwc":
-                stride = inserted_stride(args[0])
-                inserted += stride > 1
-                key = key + (stride,)
-            if key not in seen:
-                nbytes, flops, e, _ = stats(name, i, args, kwargs, elic_words)
-                err = max(err, e)
-                seen[key] = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / peak)
-            elic_t["bound_ms"] += seen[key]
-            elic_t["ms"] += cuda_ms(lambda: kern(*args, **kwargs), 20)
-            if name in DEVICE_TIMED:
-                elic_t["device_ms"] += cuda_ms(lambda: kern(*args, **kwargs),
-                                               20, True)
+        elic_t, e, inserted = path_times(base, kern, peak,
+                                         elic_calls.get(name, []), elic_words)
+        err = max(err, e)
         t_elic += time.perf_counter() - t0
+        if name == base:
+            t0 = time.perf_counter()
+            gsm_t, e, gsm_inserted = path_times(
+                base, kern, peak, gsm_calls.get(name, []), gsm_words)
+            err = max(err, e)
+            t_gsm += time.perf_counter() - t0
+        else:  # timed above: the GSM path is the K=1 instances' own
+            gsm_t = {"ms": ms, "device_ms": device_ms,
+                     "bound_ms": by["bytes"] + by["operations"]}
+            gsm_inserted = 0
         if name == "conv2d_nhwc":  # h_s's deconvs in the encode and decode
             require(inserted == 2 * ELIC_INSERTED, f"ELIC: {inserted} "
                     "zero-inserted conv inputs, not h_s's deconvs'")
-            require(all(inserted_stride(a[0]) == 1 for a, _ in calls[name]),
-                    "a zero-inserted conv input on the flagship's path")
+            require(gsm_inserted == 0 and all(
+                inserted_stride(a[0]) == 1 for a, _ in calls[name]),
+                "a zero-inserted conv input on the flagship's or GSM path")
         if name != "conv2d_nhwc_bf16":  # held to its tolerance in stats
             require(err == 0, f"{name} differs from its plain version")
         lat_launches = {d: g_launches[d].get(name, 0) for d in g_launches}
@@ -1948,21 +2223,27 @@ def smoke():
             lat_launches["encode"] + 2 * lat_launches["decode_y"]
             + lat_launches["g_s"])
         results.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
+            "name": name, "route": "cuda", "source": sources[base][0],
+            "replaces": sources[base][1], "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": by["bytes"] + by["operations"],
             "bound_by": max(by, key=by.get), "library_ms": lib_ms})
+        if name != base:
+            results[-1]["instance"] = "K=1 (zero means, unit weights)"
         results[-1].update({"latency_launches": lat_launches,
                             "latency_ms": lat_t["ms"],
                             "latency_bound_ms": lat_t["bound_ms"],
-                            "elic_launches": elic_launches[name],
+                            "elic_launches": elic_launches.get(name, 0),
                             "elic_ms": elic_t["ms"],
-                            "elic_bound_ms": elic_t["bound_ms"]})
-        if name in DEVICE_TIMED:
+                            "elic_bound_ms": elic_t["bound_ms"],
+                            "gsm_launches": gsm_launches[name],
+                            "gsm_ms": gsm_t["ms"],
+                            "gsm_bound_ms": gsm_t["bound_ms"]})
+        if base in DEVICE_TIMED:
             results[-1]["device_ms"] = device_ms
             results[-1]["latency_device_ms"] = lat_t["device_ms"]
             results[-1]["elic_device_ms"] = elic_t["device_ms"]
+            results[-1]["gsm_device_ms"] = gsm_t["device_ms"]
         if name in ("rans_decode_gmm", "rans_encode_gmm"):
             results[-1]["serial_floor_ms"] = floor_ms
         if name == "conv2d_nhwc_bf16":
@@ -1971,7 +2252,8 @@ def smoke():
     phase("timing", "(sums over every launch of one encode + decode; "
           "latency_*: of one encode + decode at batch 1, eager, "
           f"{t_lat:.2f} s of the phase; elic_*: of ELIC's batched encode + "
-          f"decode at batch {BATCH}, {t_elic:.2f} s)")
+          f"decode at batch {BATCH}, {t_elic:.2f} s; gsm_*: of the GSM "
+          f"codec's at batch {BATCH}, {t_gsm:.2f} s)")
 
     print(json.dumps({"kernels": results, "card": kind,
                       "power_limit": smi_line.split(",")[-1].strip()}),

@@ -15,7 +15,11 @@ evaluated inside it from the symbol's [K] mixture parameters
 codec's y passes), and ``decode_scan_gmm`` the same decoder with the rows'
 entries evaluated at the probes of its search: both by the code the full
 rows come from, ``csrc/gmm_entry.cuh``, so no bounds or rows tensor is
-built.
+built. Both kernels have compile-time instances for K = 4 (the GMM codecs)
+and K = 1 (the single-Gaussian codec, ``FastCheckerboardGsmCodec``: zero
+means, unit weights) and a runtime-K loop for any other K; the bits do not
+depend on the instance. ``<wrapper>.launches_k1`` counts the K = 1
+instance's launches among ``launches``.
 
 What bounds them on the card: encode spreads the lanes over the card in
 slabs of 32, one CTA each; 16 producer warps a CTA stage the inputs of
@@ -177,10 +181,13 @@ def encode_scan_gmm(values, scales, means, weights, lo: int, num_bins: int,
             _ptr(words), _ptr(emits), _build.stream_ptr(values))
     _build.check(rc, name)
     encode_scan_gmm.launches += 1
+    if k == 1:
+        encode_scan_gmm.launches_k1 += 1
     return states, words, emits
 
 
 encode_scan_gmm.launches = 0
+encode_scan_gmm.launches_k1 = 0  # of them the K = 1 instance's
 
 
 def _gmm_params(name, scales, means, weights, lanes, lo, num_bins, mode):
@@ -323,8 +330,11 @@ def decode_scan_gmm(states, stream, scales, means, weights, active, lo: int,
         (_ptr(scales), _ptr(means), _ptr(weights), n, k), active,
         (int(lo), T, W, L, int(mode)), err)
     decode_scan_gmm.launches += 1
+    if k == 1:
+        decode_scan_gmm.launches_k1 += 1
     return out
 
 
 decode_scan_gmm.launches = 0
+decode_scan_gmm.launches_k1 = 0  # of them the K = 1 instance's
 

@@ -61,8 +61,10 @@ constexpr uint32_t kRansL = 1u << 16;
 // row[j + 1], j = value - lo, of each symbol's guarded GMM row from its [K]
 // scales, means and weights with gmm::entry (gmm_entry.cuh), the same code
 // as gmm_bounds_kernel and the decoder's probes; symbol i is at (step i / W,
-// lane i % W) and a lane is active when i < n. K = 4, the flagship's, is a
-// compile-time instance; any other K takes a runtime-K loop. So the y
+// lane i % W) and a lane is active when i < n. K = 4, the flagship's, and
+// K = 1, the single-Gaussian (GSM) codec's (zero means, unit weights), are
+// compile-time instances; any other K takes a runtime-K loop sized for
+// kMaxK. The bits are the runtime loop's either way (gmm::entry). So the y
 // passes' bounds never reach device memory.
 //
 // Bound on the card (chip_profile.py --encode, PERF.md): the GmmBounds
@@ -348,6 +350,9 @@ int launch_encode_gmm(const int32_t* v, const float* sc, const float* mu,
   if (K == 4)
     return launch_encode(GmmBounds<MODE, 4>{v, sc, mu, wt, n, K, lo, L}, T, W,
                          states, words, emits, s);
+  if (K == 1)
+    return launch_encode(GmmBounds<MODE, 1>{v, sc, mu, wt, n, K, lo, L}, T, W,
+                         states, words, emits, s);
   return launch_encode(GmmBounds<MODE, 0>{v, sc, mu, wt, n, K, lo, L}, T, W,
                        states, words, emits, s);
 }
@@ -379,8 +384,9 @@ int launch_encode_gmm(const int32_t* v, const float* sc, const float* mu,
 // GmmRows evaluates row[j] on demand at each probe of the search with
 // gmm::entry (gmm_entry.cuh), the same code the encoder's bounds and the
 // full rows come from: about 7 entries a symbol instead of L = 98, and no
-// rows tensor; K = 4, the flagship's, is a compile-time instance (the
-// runtime-K entry that any other K takes is much slower). A symbol's
+// rows tensor; K = 4, the flagship's, and K = 1, the GSM codec's, are
+// compile-time instances (the runtime-K entry that any other K takes is
+// much slower). A symbol's
 // parameters do not depend on the rANS
 // state, so a thread loads its next symbol's parameters into registers
 // while it searches the current one. Both sources give count =
@@ -679,8 +685,8 @@ int launch_decode(const Src& src, const void* states, const void* words,
   }
 }
 
-// The GMM source at compile-time K for the flagship's K = 4; any other
-// K <= kMaxK takes the runtime-K loop.
+// The GMM source at compile-time K for the flagship's K = 4 and the GSM
+// codec's K = 1; any other K <= kMaxK takes the runtime-K loop.
 template <int MODE>
 int launch_decode_gmm(const float* sc, const float* mu, const float* wt,
                       long long n, int K, int lo, int L, const void* states,
@@ -689,6 +695,10 @@ int launch_decode_gmm(const float* sc, const float* mu, const float* wt,
                       void* out, void* err, cudaStream_t s) {
   if (K == 4)
     return launch_decode(GmmRows<MODE, 4>{sc, mu, wt, n, K, lo, L}, states,
+                         words, n_stream, active, lo, T, W, max_cluster, out,
+                         err, s);
+  if (K == 1)
+    return launch_decode(GmmRows<MODE, 1>{sc, mu, wt, n, K, lo, L}, states,
                          words, n_stream, active, lo, T, W, max_cluster, out,
                          err, s);
   return launch_decode(GmmRows<MODE, 0>{sc, mu, wt, n, K, lo, L}, states,

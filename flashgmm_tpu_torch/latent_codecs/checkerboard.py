@@ -1,14 +1,16 @@
 """Two-pass checkerboard context codec (port of
 flashgmm_tpu/latent_codecs/checkerboard.py: the container, the
-checkerboard packing helpers and the "onepass" training forward, :22-171;
-"twopass", which serves the GSM model, waits for ROADMAP item 8). All
-tensors NHWC.
+checkerboard packing helpers and the training forwards "onepass",
+"twopass" and "twopass_faster", :22-189). All tensors NHWC.
 """
 
 import torch
 from torch import nn
 
 from flashgmm_tpu_torch.entropy_models.entropy_models import uniform_noise
+from flashgmm_tpu_torch.ops import quantize_ste
+
+_FORWARDS = ("onepass", "twopass", "twopass_faster")
 
 
 def _checkerboard_mask(h, w, parity: str, dtype=torch.float32, device=None):
@@ -41,9 +43,8 @@ class CheckerboardLatentCodec(nn.Module):
                  context_prediction=None, anchor_parity: str = "even",
                  forward_method: str = "onepass"):
         super().__init__()
-        if forward_method != "onepass":
-            raise ValueError(f"forward_method {forward_method!r}: the port "
-                             "has the one-pass forward only")
+        if forward_method not in _FORWARDS:
+            raise ValueError(f"Unknown forward method: {forward_method!r}")
         self.forward_method = forward_method
         self.anchor_parity = anchor_parity
         self.non_anchor_parity = {"odd": "even", "even": "odd"}[anchor_parity]
@@ -65,11 +66,20 @@ class CheckerboardLatentCodec(nn.Module):
         return self._mask(y, parity)
 
     def forward(self, y, side_params, training: bool = True, generator=None):
+        """The training forward named by ``forward_method``: {"likelihoods":
+        {"y"}, "y_hat"}, both of y's shape."""
+        if self.forward_method == "twopass":
+            return self._forward_twopass(y, side_params, training, generator)
+        if self.forward_method == "twopass_faster":
+            return self._forward_twopass_faster(y, side_params, training,
+                                                generator)
+        return self._forward_onepass(y, side_params, training, generator)
+
+    def _forward_onepass(self, y, side_params, training, generator):
         """One entropy-parameter pass over the whole latent (reference
         :154-171): y_hat is y with uniform noise when training, else
-        round(y); the context sees y_hat at the anchors only, and the GMM
-        likelihoods are those of y given it. Returns {"likelihoods": {"y"},
-        "y_hat"}."""
+        round(y); the context sees y_hat at the anchors only, and the
+        likelihoods are those of y given it."""
         if training:
             y_hat = y + uniform_noise(y.shape, generator, y)
         else:
@@ -78,6 +88,56 @@ class CheckerboardLatentCodec(nn.Module):
         params = self.entropy_parameters(self.merge(y_ctx, side_params))
         y_out = self.latent_codec["y"](y, params, training=training,
                                        generator=generator)
+        return {"likelihoods": {"y": y_out["likelihoods"]["y"]},
+                "y_hat": y_hat}
+
+    def _zero_context(self, y):
+        return y.new_zeros(tuple(y.shape[:-1])
+                           + (self.context_prediction.out_ch,))
+
+    def _forward_twopass(self, y, side_params, training, generator):
+        """Two entropy-parameter passes (reference :134-162): the anchors
+        are rounded around the first pass's means with a straight-through
+        gradient, the second pass is conditioned on them, and the latent
+        codec gives the likelihoods of y under each position's own pass's
+        parameters."""
+        codec = self.latent_codec["y"]
+
+        def step(y_ctx, step_name):
+            params = self.entropy_parameters(self.merge(y_ctx, side_params))
+            params = self._keep_only(params, step_name)
+            y_i = self._keep_only(y, step_name)
+            _, means = codec._chunk(params)
+            y_hat_i = self._keep_only(quantize_ste(y_i - means) + means,
+                                      step_name)
+            return y_hat_i, params
+
+        y_hat_anchors, params_a = step(self._zero_context(y), "anchor")
+        y_hat_non, params_n = step(self.context_prediction(y_hat_anchors),
+                                   "non_anchor")
+        params = (self._keep_only(params_a, "anchor")
+                  + self._keep_only(params_n, "non_anchor"))
+        y_out = codec(y, params, training=training, generator=generator)
+        return {"likelihoods": {"y": y_out["likelihoods"]["y"]},
+                "y_hat": y_hat_anchors + y_hat_non}
+
+    def _forward_twopass_faster(self, y, side_params, training, generator):
+        """Two entropy-parameter passes with fewer redundant ops (reference
+        :164-189): the anchors are rounded around the first pass's means
+        with a straight-through gradient; the latent codec runs once, on the
+        second pass's parameters, and its y_hat is kept at the
+        non-anchors."""
+        codec = self.latent_codec["y"]
+        params = self.entropy_parameters(
+            self.merge(self._zero_context(y), side_params))
+        _, means = codec._chunk(self._keep_only(params, "anchor"))
+        y_hat_anchors = self._keep_only(quantize_ste(y - means) + means,
+                                        "anchor")
+        y_ctx = self._keep_only(self.context_prediction(y_hat_anchors),
+                                "non_anchor")
+        params = self.entropy_parameters(self.merge(y_ctx, side_params))
+        y_out = codec(y, params, training=training, generator=generator)
+        y_hat = self._keep_only(y_out["y_hat"], "non_anchor") + y_hat_anchors
         return {"likelihoods": {"y": y_out["likelihoods"]["y"]},
                 "y_hat": y_hat}
 

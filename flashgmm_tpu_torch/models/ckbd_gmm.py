@@ -25,15 +25,11 @@ from flashgmm_tpu_torch.layers import (
     CheckerboardMaskedConv2d,
     Conv2d,
     LeakyReLU,
-    ResidualBlock,
-    ResidualBlockUpsample,
-    ResidualBlockWithStride,
     Sequential,
-    conv3x3,
-    subpel_conv3x3,
 )
 
 from .base import SimpleVAECompressionModel
+from .waseda import _cheng_g_a, _cheng_g_s, _cheng_h_a, _cheng_h_s
 
 
 class Cheng2020AnchorCheckerboardGMMv2(SimpleVAECompressionModel):
@@ -44,42 +40,10 @@ class Cheng2020AnchorCheckerboardGMMv2(SimpleVAECompressionModel):
         self.N = int(N)
         self.K = int(K)
 
-        self.g_a = Sequential(
-            ResidualBlockWithStride(3, N, stride=2, generator=g),
-            ResidualBlock(N, N, generator=g),
-            ResidualBlockWithStride(N, N, stride=2, generator=g),
-            ResidualBlock(N, N, generator=g),
-            ResidualBlockWithStride(N, N, stride=2, generator=g),
-            ResidualBlock(N, N, generator=g),
-            conv3x3(N, N, stride=2, generator=g),
-        )
-
-        self.g_s = Sequential(
-            ResidualBlock(N, N, generator=g),
-            ResidualBlockUpsample(N, N, 2, generator=g),
-            ResidualBlock(N, N, generator=g),
-            ResidualBlockUpsample(N, N, 2, generator=g),
-            ResidualBlock(N, N, generator=g),
-            ResidualBlockUpsample(N, N, 2, generator=g),
-            ResidualBlock(N, N, generator=g),
-            subpel_conv3x3(N, 3, 2, generator=g),
-        )
-
-        h_a = Sequential(
-            conv3x3(N, N, generator=g), LeakyReLU(),
-            conv3x3(N, N, generator=g), LeakyReLU(),
-            conv3x3(N, N, stride=2, generator=g), LeakyReLU(),
-            conv3x3(N, N, generator=g), LeakyReLU(),
-            conv3x3(N, N, stride=2, generator=g),
-        )
-
-        h_s = Sequential(
-            conv3x3(N, N, generator=g), LeakyReLU(),
-            subpel_conv3x3(N, N, 2, generator=g), LeakyReLU(),
-            conv3x3(N, N * 3 // 2, generator=g), LeakyReLU(),
-            subpel_conv3x3(N * 3 // 2, N * 3 // 2, 2, generator=g), LeakyReLU(),
-            conv3x3(N * 3 // 2, N * 2, generator=g),
-        )
+        self.g_a = _cheng_g_a(N, g)
+        self.g_s = _cheng_g_s(N, g)
+        h_a = _cheng_h_a(N, g)
+        h_s = _cheng_h_s(N, g)
 
         self.latent_codec = HyperpriorLatentCodec({
             "y": CheckerboardLatentCodec(

@@ -44,98 +44,115 @@ def _conv_factory(ksize, pad):
     return make
 
 
+def _elic_modules(N, M, groups, params_per_channel, make_codec,
+                  forward_method, g):
+    """(g_a, g_s, latent codec) of an ELIC model (the reference's
+    elic_gmm.py and sensetime.py:83-183 build the same networks): uneven
+    channel groups, each coded by a checkerboard codec whose aggregation
+    network makes ``params_per_channel`` parameters a channel of its
+    group and whose conditional codec is ``make_codec()``. Weights are
+    drawn from the ``torch.Generator`` ``g`` in module order."""
+    def rbb():
+        return ResidualBottleneckBlock(N, N, generator=g)
+
+    g_a = Sequential(
+        conv(3, N, kernel_size=5, stride=2, generator=g),
+        rbb(), rbb(), rbb(),
+        conv(N, N, kernel_size=5, stride=2, generator=g),
+        rbb(), rbb(), rbb(),
+        AttentionBlock(N, generator=g),
+        conv(N, N, kernel_size=5, stride=2, generator=g),
+        rbb(), rbb(), rbb(),
+        conv(N, M, kernel_size=5, stride=2, generator=g),
+        AttentionBlock(M, generator=g),
+    )
+
+    g_s = Sequential(
+        AttentionBlock(M, generator=g),
+        deconv(M, N, kernel_size=5, stride=2, generator=g),
+        rbb(), rbb(), rbb(),
+        deconv(N, N, kernel_size=5, stride=2, generator=g),
+        AttentionBlock(N, generator=g),
+        rbb(), rbb(), rbb(),
+        deconv(N, N, kernel_size=5, stride=2, generator=g),
+        rbb(), rbb(), rbb(),
+        deconv(N, 3, kernel_size=5, stride=2, generator=g),
+    )
+
+    h_a = Sequential(
+        conv(M, N, kernel_size=3, stride=1, generator=g), ReLU(),
+        conv(N, N, kernel_size=5, stride=2, generator=g), ReLU(),
+        conv(N, N, kernel_size=5, stride=2, generator=g),
+    )
+
+    h_s = Sequential(
+        deconv(N, N, kernel_size=5, stride=2, generator=g), ReLU(),
+        deconv(N, N * 3 // 2, kernel_size=5, stride=2, generator=g),
+        ReLU(),
+        deconv(N * 3 // 2, N * 2, kernel_size=3, stride=1, generator=g),
+    )
+
+    gs = groups
+    # g_ch^(t): channel context over the groups decoded before t
+    channel_context = {
+        f"y{t}": sequential_channel_ramp(
+            sum(gs[:t]), gs[t] * 2, min_ch=N, num_layers=3,
+            make_layer=_conv_factory(5, 2), make_act=ReLU, generator=g)
+        for t in range(1, len(gs))
+    }
+    # g_sp^(t): checkerboard spatial context of each group
+    spatial_context = [
+        CheckerboardMaskedConv2d(gs[t], gs[t] * 2, kernel_size=5,
+                                 stride=1, padding=2, generator=g)
+        for t in range(len(gs))
+    ]
+    # parameter aggregation: spatial + channel context + side -> the
+    # group's parameters
+    param_aggregation = [
+        sequential_channel_ramp(
+            gs[t] * 2 + (t > 0) * gs[t] * 2 + N * 2,
+            gs[t] * params_per_channel, min_ch=N * 2, num_layers=3,
+            make_layer=_conv_factory(1, 0), make_act=ReLU, generator=g)
+        for t in range(len(gs))
+    ]
+    scctx_latent_codec = {
+        f"y{t}": CheckerboardLatentCodec(
+            latent_codec={"y": make_codec()},
+            context_prediction=spatial_context[t],
+            entropy_parameters=param_aggregation[t],
+            forward_method=forward_method,
+        )
+        for t in range(len(gs))
+    }
+
+    latent_codec = HyperpriorLatentCodec({
+        "y": ChannelGroupsLatentCodec(
+            groups=gs, channel_context=channel_context,
+            latent_codec=scctx_latent_codec),
+        "hyper": HyperLatentCodec(
+            entropy_bottleneck=EntropyBottleneck(N, generator=g),
+            h_a=h_a, h_s=h_s, quantizer="ste"),
+    })
+    return g_a, g_s, latent_codec
+
+
+def _elic_groups(M, groups):
+    groups = list(groups) if groups is not None else [16, 16, 32, 64, M - 128]
+    if sum(groups) != M:
+        raise ValueError(f"groups {groups} do not sum to M={M}")
+    return groups
+
+
 class Elic2022GMM(SimpleVAECompressionModel):
     def __init__(self, N=192, M=320, K=4, quantizer: str = "noise",
                  groups=None, *, seed: int = 0, device="cuda"):
         super().__init__()
         g = torch.Generator().manual_seed(int(seed))
         self.N, self.M, self.K = int(N), int(M), int(K)
-        self.groups = list(groups) if groups is not None else \
-            [16, 16, 32, 64, M - 128]
-        if sum(self.groups) != M:
-            raise ValueError(f"groups {self.groups} do not sum to M={M}")
-
-        def rbb():
-            return ResidualBottleneckBlock(N, N, generator=g)
-
-        self.g_a = Sequential(
-            conv(3, N, kernel_size=5, stride=2, generator=g),
-            rbb(), rbb(), rbb(),
-            conv(N, N, kernel_size=5, stride=2, generator=g),
-            rbb(), rbb(), rbb(),
-            AttentionBlock(N, generator=g),
-            conv(N, N, kernel_size=5, stride=2, generator=g),
-            rbb(), rbb(), rbb(),
-            conv(N, M, kernel_size=5, stride=2, generator=g),
-            AttentionBlock(M, generator=g),
-        )
-
-        self.g_s = Sequential(
-            AttentionBlock(M, generator=g),
-            deconv(M, N, kernel_size=5, stride=2, generator=g),
-            rbb(), rbb(), rbb(),
-            deconv(N, N, kernel_size=5, stride=2, generator=g),
-            AttentionBlock(N, generator=g),
-            rbb(), rbb(), rbb(),
-            deconv(N, N, kernel_size=5, stride=2, generator=g),
-            rbb(), rbb(), rbb(),
-            deconv(N, 3, kernel_size=5, stride=2, generator=g),
-        )
-
-        h_a = Sequential(
-            conv(M, N, kernel_size=3, stride=1, generator=g), ReLU(),
-            conv(N, N, kernel_size=5, stride=2, generator=g), ReLU(),
-            conv(N, N, kernel_size=5, stride=2, generator=g),
-        )
-
-        h_s = Sequential(
-            deconv(N, N, kernel_size=5, stride=2, generator=g), ReLU(),
-            deconv(N, N * 3 // 2, kernel_size=5, stride=2, generator=g),
-            ReLU(),
-            deconv(N * 3 // 2, N * 2, kernel_size=3, stride=1, generator=g),
-        )
-
-        gs = self.groups
-        # g_ch^(t): channel context over the groups decoded before t
-        channel_context = {
-            f"y{t}": sequential_channel_ramp(
-                sum(gs[:t]), gs[t] * 2, min_ch=N, num_layers=3,
-                make_layer=_conv_factory(5, 2), make_act=ReLU, generator=g)
-            for t in range(1, len(gs))
-        }
-        # g_sp^(t): checkerboard spatial context of each group
-        spatial_context = [
-            CheckerboardMaskedConv2d(gs[t], gs[t] * 2, kernel_size=5,
-                                     stride=1, padding=2, generator=g)
-            for t in range(len(gs))
-        ]
-        # parameter aggregation: spatial + channel context + side -> 3KM_t
-        param_aggregation = [
-            sequential_channel_ramp(
-                gs[t] * 2 + (t > 0) * gs[t] * 2 + N * 2, gs[t] * 3 * self.K,
-                min_ch=N * 2, num_layers=3, make_layer=_conv_factory(1, 0),
-                make_act=ReLU, generator=g)
-            for t in range(len(gs))
-        ]
-        scctx_latent_codec = {
-            f"y{t}": CheckerboardLatentCodec(
-                latent_codec={
-                    "y": GaussianMixtureConditionalLatentCodec(
-                        K=self.K, quantizer=quantizer),
-                },
-                context_prediction=spatial_context[t],
-                entropy_parameters=param_aggregation[t],
-                forward_method="onepass",
-            )
-            for t in range(len(gs))
-        }
-
-        self.latent_codec = HyperpriorLatentCodec({
-            "y": ChannelGroupsLatentCodec(
-                groups=gs, channel_context=channel_context,
-                latent_codec=scctx_latent_codec),
-            "hyper": HyperLatentCodec(
-                entropy_bottleneck=EntropyBottleneck(N, generator=g),
-                h_a=h_a, h_s=h_s, quantizer="ste"),
-        })
+        self.groups = _elic_groups(M, groups)
+        self.g_a, self.g_s, self.latent_codec = _elic_modules(
+            N, M, self.groups, 3 * self.K,
+            lambda: GaussianMixtureConditionalLatentCodec(
+                K=self.K, quantizer=quantizer),
+            "onepass", g)
         self.to(device)

@@ -1,8 +1,9 @@
-from .fast_codec import FastCheckerboardGmmCodec, PassStream, StreamOverflow
+from .fast_codec import (FastCheckerboardGmmCodec, FastCheckerboardGsmCodec,
+                         PassStream, StreamOverflow)
 from .fast_elic import FastElicGmmCodec
 from .latency_codec import FastLatencyGmmCodec
 from .latency_elic import FastLatencyElicCodec
 
-__all__ = ["FastCheckerboardGmmCodec", "FastElicGmmCodec",
-           "FastLatencyElicCodec", "FastLatencyGmmCodec", "PassStream",
-           "StreamOverflow"]
+__all__ = ["FastCheckerboardGmmCodec", "FastCheckerboardGsmCodec",
+           "FastElicGmmCodec", "FastLatencyElicCodec", "FastLatencyGmmCodec",
+           "PassStream", "StreamOverflow"]

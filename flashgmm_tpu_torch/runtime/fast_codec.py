@@ -29,6 +29,9 @@ pixels) and run in bfloat16 by default: as library convs, or with
 64 channels, and the fused subpel convs of g_s, on the bf16 conv kernel
 (``layers.route_bf16_kernel``).
 
+``FastCheckerboardGsmCodec`` is the same codec for the single-Gaussian
+``Cheng2020AnchorCheckerboard`` (reference :680-826).
+
 ``_FastCodec`` holds what this codec shares with ELIC's
 (``runtime/fast_elic.py``): the transforms, the z pass, the y passes'
 coder calls and the bytes of any list of passes with their packed layout.
@@ -555,3 +558,98 @@ class FastCheckerboardGmmCodec(_FastCodec):
     @staticmethod
     def _streams(passes):
         return dict(zip(_PASSES, passes))
+
+
+class FastCheckerboardGsmCodec(FastCheckerboardGmmCodec):
+    """Batched encode/decode around a Cheng2020AnchorCheckerboard, the
+    single-Gaussian (GSM) counterpart of the flagship (port of
+    flashgmm_tpu/runtime/fast_codec.py:680-826). Run ``model.update()``
+    first. Options, byte format (three passes: z, y0, y1), lanes, stream
+    caps and the StreamOverflow fallback are the flagship codec's.
+
+    Each y symbol is coded as a K = 1 mixture of zero mean and unit weight
+    under its pass's clamped scale (the rANS kernels' K = 1 instances), so
+    the rows are zero-mean and the symbols mean-centred: ``sym =
+    clamp(round(y - mu), +-max_abs)`` with mu the pass's means, and ``y_hat
+    = sym + mu``. The encoder therefore quantizes each pass only after its
+    parameters, and the non-anchor pass's context reads ``sym0 + mu0``, not
+    an integer: the encoder and the decoder agree because mu0 comes from the
+    same rows-chain convs (``run_canonical``, bit for bit the same on both
+    sides), and no softmax enters the chain, so the card's and the CPU's
+    parameters, and bytes, are equal too."""
+
+    def __init__(self, model, lanes: int = 128, max_abs: int = 47,
+                 cap_divisor: int = 4, bf16_transforms: bool = True,
+                 kernel_transforms: bool = False):
+        super().__init__(model, lanes, max_abs, cap_divisor, bf16_transforms,
+                         kernel_transforms)
+        self._gc = self._ckbd.latent_codec["y"]  # GaussianConditionalLatentCodec
+        self._unit = {}  # n -> (zero means, unit weights), float32 [n, 1]
+
+    def _gsm_pass_params(self, y_ctx, side):
+        """A pass's entropy parameters -> ((scales clamped, zero means,
+        unit weights) float32 [n, 1] in NHWC-ravel symbol order, means mu
+        [b, h, w/2, c]) (reference :702-707)."""
+        p = run_canonical(self._ckbd.entropy_parameters,
+                          self._ckbd.merge(y_ctx, side))
+        scales, mu = self._gc._chunk(p)
+        scales = torch.clamp(scales.reshape(-1, 1), 0.11, 256.0)
+        n = scales.shape[0]
+        if n not in self._unit:
+            self._unit[n] = (torch.zeros_like(scales), torch.ones_like(scales))
+        return (scales, *self._unit[n]), mu
+
+    def _params0(self, side0):
+        """SHARED enc/dec: anchor-pass parameters and means (context is
+        zero)."""
+        return self._gsm_pass_params(torch.zeros_like(side0), side0)
+
+    def _params1(self, side1, sym0, mu0):
+        """SHARED enc/dec: non-anchor-pass parameters and means, conditioned
+        on the reconstructed anchors sym0 + mu0."""
+        y_hat0 = sym0.float() + mu0
+        y_hat_ = torch.stack([y_hat0, torch.zeros_like(y_hat0)])
+        ctx = self._ckbd.unembed(run_canonical(
+            self._ckbd.context_prediction, self._ckbd.embed(y_hat_)))[1]
+        return self._gsm_pass_params(ctx, side1)
+
+    def _quantize(self, y_half, mu):
+        return torch.clamp(torch.round(y_half - mu).to(torch.int32),
+                           -self.max_abs, self.max_abs)
+
+    def _embed(self, sym0, sym1, mu0, mu1):
+        return self._ckbd.embed(torch.stack([sym0.float() + mu0,
+                                             sym1.float() + mu1]))
+
+    def _encode(self, x, cd):
+        """The encode core, y passes capped at 1/``cd``: (z, y0, y1
+        PassStreams, anchor and non-anchor symbols int32 [B, H/16, W/32,
+        N], y_hat)."""
+        y = self._transform(self._g_a, x)
+        z = self._transform(self._h_a, y)
+        z_bin, ps_z = self._encode_z(z)
+        y_ = self._ckbd.unembed(y)  # [2, b, h, w/2, c]
+
+        side = self._side(z_bin)
+        params0, mu0 = self._params0(side[0])
+        sym0 = self._quantize(y_[0], mu0)
+        ps0 = self._encpass(params0, sym0.reshape(-1), cd)
+        params1, mu1 = self._params1(side[1], sym0, mu0)
+        sym1 = self._quantize(y_[1], mu1)
+        ps1 = self._encpass(params1, sym1.reshape(-1), cd)
+        return ps_z, ps0, ps1, sym0, sym1, self._embed(sym0, sym1, mu0, mu1)
+
+    @torch.inference_mode()
+    def decode_y_hat(self, streams, y_shape, err=None):
+        """Streams -> y_hat [B, H/16, W/16, N] (see the flagship's)."""
+        b, h, w, c = self._y_shape_parts(y_shape)
+        z_bin = self._decode_z(streams["z"], b, h, w, err)
+        side = self._side(z_bin)
+        n = b * h * (w // 2) * c
+        params0, mu0 = self._params0(side[0])
+        sym0 = self._decpass(streams["y0"], params0, n,
+                             err).reshape(b, h, w // 2, c)
+        params1, mu1 = self._params1(side[1], sym0, mu0)
+        sym1 = self._decpass(streams["y1"], params1, n,
+                             err).reshape(b, h, w // 2, c)
+        return self._embed(sym0, sym1, mu0, mu1)

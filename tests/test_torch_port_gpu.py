@@ -25,6 +25,10 @@ or not contiguous are copied, never read wrongly. ELIC's rows chain on the
 card (h_s's transposed convs as zero-inserted convs included) gives the
 CPU plain version's GMM parameters bit for bit, its batched and latency
 codecs round-trip exactly, and its three graphs launch as the eager run.
+The coders' K=1 instances (the single-Gaussian passes) equal their plain
+versions; the GSM codec's rows chain on the card gives the CPU plain
+version's scales and means bit for bit, its round trips are exact on both
+routes, and its bytes cross between the card and the CPU.
 """
 
 import importlib.util
@@ -199,13 +203,17 @@ def test_rans_encode_gmm_refuses_what_it_does_not_take(cuda):
 
 def test_rans_encoder_instances_do_not_spill(cuda):
     """ptxas reports no spill stores or loads for any instance of the
-    encoder (Bounds, and GmmBounds in 3 modes at K = 4 and runtime K), as
-    chip_smoke.py requires."""
+    encoder (Bounds, and GmmBounds in 3 modes at K = 4, K = 1 and runtime
+    K), as chip_smoke.py requires."""
+    import re
+
     from flashgmm_tpu_torch import _build
 
     spills = {fn: c for fn, c in _smoke().ptxas_spills(_build.load().ptxas).items()
               if "rans_encode_kernel" in fn}
-    assert len(spills) == 7, spills
+    assert len(spills) == 10, spills
+    assert sum(bool(re.search(r"GmmBoundsILi\dELi1E", fn))
+               for fn in spills) == 3, spills
     assert all(c == (0, 0) for c in spills.values()), spills
 
 
@@ -959,3 +967,136 @@ def test_elic_latency_graphs_launch_as_the_eager_run(cuda):
     eager = {k: v - before[k] for k, v in latency_codec._launch_counts().items()}
     assert e_data == data
     assert eager == {k: sum(g[k] for g in graphs.values()) for k in eager}
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("w,n", [(4096, 2 * 4096 - 1000), (128, 5000),
+                                 (37, 3000)])
+def test_k1_coder_instances_match_plain(cuda, w, n, mode):
+    """The encoder's and the decoder's K=1 instances (a GSM pass: scales
+    [n, 1], zero means, unit weights) against their plain versions, the
+    launches counted on the K=1 instance."""
+    rs = np.random.RandomState(w + mode)
+    scales = torch.from_numpy(rs.uniform(0.11, 20, (n, 1)).astype(
+        np.float32)).to(cuda)
+    params = (scales, torch.zeros_like(scales), torch.ones_like(scales))
+    lo, num_bins = -48, 97
+    v = np.clip(np.round(rs.normal(0, 6, n)), lo, lo + num_bins - 1)
+    v[:3], v[3:6] = lo, lo + num_bins - 1
+    values = torch.from_numpy(v.astype(np.int32)).to(cuda)
+    before = (rans_kernels.encode_scan_gmm.launches_k1,
+              rans_kernels.decode_scan_gmm.launches_k1)
+    got = rans_kernels.encode_scan_gmm(values, *params, lo, num_bins, mode, w)
+    ref = rans_kernels.encode_scan_gmm_plain(values, *params, lo, num_bins,
+                                             mode, w)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    stream, n_words = il.pack_words(*got[1:])
+    t, _ = il.layout(n, w)
+    active = il.active_mask(n, t, w, cuda)
+    sym = rans_kernels.decode_scan_gmm(got[0], stream[: int(n_words)],
+                                       *params, active, lo, num_bins, mode)
+    sym_p = rans_kernels.decode_scan_gmm_plain(got[0], stream, *params,
+                                               active, lo, num_bins, mode)
+    assert torch.equal(sym, sym_p)
+    assert torch.equal(il.from_lanes(sym, n), values)
+    assert (rans_kernels.encode_scan_gmm.launches_k1,
+            rans_kernels.decode_scan_gmm.launches_k1) == \
+        (before[0] + 1, before[1] + 1)
+
+
+def _gsm(dev, n):
+    """A Cheng2020AnchorCheckerboard from seed 0 after
+    update(update_quantiles=True) on ``dev``."""
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboard
+
+    model = Cheng2020AnchorCheckerboard(N=n, seed=0, device=dev)
+    model.update(update_quantiles=True)
+    return model
+
+
+def test_gsm_rows_chain_on_card_equals_the_cpu_plain_version(cuda):
+    """The GSM codec's shared stages on the card against the CPU (the conv
+    kernel's plain version) on the same z bins and anchor symbols: h_s,
+    both passes' clamped scales and means (the non-anchor pass on
+    sym0 + mu0) bit for bit. No softmax enters this chain (ROADMAP C11)."""
+    import copy
+
+    from flashgmm_tpu_torch.runtime import FastCheckerboardGsmCodec
+
+    cpu_model = _gsm("cpu", 64)
+    codecs = {dev: FastCheckerboardGsmCodec(m, lanes=256) for dev, m in (
+        ("cpu", cpu_model), ("cuda", copy.deepcopy(cpu_model).to(cuda)))}
+    rs = np.random.RandomState(3)
+    z_max = codecs["cpu"]._z_maxbin.numpy()
+    z_bin = torch.from_numpy(np.stack([rs.randint(0, z_max + 1)
+                                       for _ in range(2 * 6)]).reshape(
+        2, 2, 3, 64).astype(np.int32))
+    sym0 = torch.from_numpy(rs.randint(-6, 7, (2, 8, 6, 64)).astype(np.int32))
+    stages = {}
+    with torch.inference_mode():
+        for dev, c in codecs.items():
+            side = c._side(z_bin.to(c.device))
+            (s0, _, _), mu0 = c._params0(side[0])
+            (s1, _, _), mu1 = c._params1(side[1], sym0.to(c.device), mu0)
+            stages[dev] = {"h_s": side, "scales0": s0, "means0": mu0,
+                           "scales1": s1, "means1": mu1}
+    for name, ref in stages["cpu"].items():
+        assert torch.equal(stages["cuda"][name].cpu(), ref), name
+
+
+@pytest.mark.parametrize("kernel_transforms", [False, True])
+def test_gsm_roundtrips_exact_on_card(cuda, kernel_transforms):
+    """The GSM codec at batch 2 (N=64, 128x128 textured leaves): y_hat
+    exact through the bytes, four GMM coder launches on the K=1 instances,
+    24 rows-chain convs."""
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.runtime import FastCheckerboardGsmCodec
+
+    model = _gsm(cuda, 64)
+    x = torch.from_numpy(np.stack([textured_leaves(128, 128, seed=500001 + i)
+                                   for i in range(2)])).to(cuda)
+    codec = FastCheckerboardGsmCodec(model, lanes=256, cap_divisor=1,
+                                     kernel_transforms=kernel_transforms)
+    wrappers = (rans_kernels.encode_scan_gmm, rans_kernels.decode_scan_gmm)
+    before = [(f.launches, f.launches_k1) for f in wrappers]
+    conv_before = conv_kernel.conv2d_nhwc.launches
+    data, out = codec.encode_to_bytes(x)
+    y_shape = tuple(out["y_hat"].shape)
+    x_hat = codec.decode_bytes(data, y_shape)
+    assert [(f.launches - a, f.launches_k1 - b)
+            for f, (a, b) in zip(wrappers, before)] == [(2, 2), (2, 2)]
+    assert conv_kernel.conv2d_nhwc.launches - conv_before == 24
+    assert torch.equal(codec.decode_y_hat(codec.from_bytes(data, y_shape),
+                                          y_shape), out["y_hat"])
+    assert x_hat.shape == x.shape and bool(torch.isfinite(x_hat).all())
+
+
+def test_gsm_card_bytes_decode_on_the_cpu(cuda):
+    """Bytes written by the GSM codec on the card decode with the port on
+    the CPU to the card's y_hat, bit for bit: the rows chain is the conv
+    kernel's fmaf chain on both (its plain version on the CPU) and the row
+    entries are gmm_entry's on both, with no softmax between (the
+    flagship's weights are a softmax, whose CUDA and CPU roundings differ:
+    ROADMAP C11). The CPU's own bytes of the same image may differ (its
+    bf16 g_a is not cuDNN's), and decode there too."""
+    import copy
+
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.runtime import FastCheckerboardGsmCodec
+
+    cpu_model = _gsm("cpu", 64)
+    codecs = {dev: FastCheckerboardGsmCodec(m, lanes=256, cap_divisor=4)
+              for dev, m in (("cpu", cpu_model),
+                             ("cuda", copy.deepcopy(cpu_model).to(cuda)))}
+    x = torch.from_numpy(np.stack([textured_leaves(128, 128, seed=500001 + i)
+                                   for i in range(2)]))
+    data, out = codecs["cuda"].encode_to_bytes(x.to(cuda))
+    y_shape = tuple(out["y_hat"].shape)
+    cpu = codecs["cpu"]
+    y_cpu = cpu.decode_y_hat(cpu.from_bytes(data, y_shape), y_shape)
+    assert torch.equal(y_cpu, out["y_hat"].cpu())
+    c_data, c_out = cpu.encode_to_bytes(x)
+    assert torch.equal(codecs["cuda"].decode_y_hat(
+        codecs["cuda"].from_bytes(c_data, y_shape), y_shape).cpu(),
+        c_out["y_hat"])

@@ -53,11 +53,15 @@ def test_smoke_refuses_without_a_card():
     "flashgmm_tpu_torch.models.elic_gmm",
     "flashgmm_tpu_torch.runtime.fast_elic",
     "flashgmm_tpu_torch.runtime.latency_elic",
+    "flashgmm_tpu_torch.models.sensetime",
+    "flashgmm_tpu_torch.models.waseda",
+    "flashgmm_tpu_torch.latent_codecs.gaussian_conditional",
+    "flashgmm_tpu_torch.runtime.fast_codec",
 ])
 def test_forward_and_converter_modules_import_no_jax(module):
-    """The CompressAI state-dict converter, the training forward's modules
-    and the ELIC model and codecs, each imported alone in a fresh
-    interpreter."""
+    """The CompressAI state-dict converter, the training forward's modules,
+    the ELIC model and codecs, and the single-Gaussian models and codec,
+    each imported alone in a fresh interpreter."""
     probe = (f"import importlib, sys; importlib.import_module({module!r}); "
              "print(','.join(sorted(k for k in sys.modules if k.split('.')[0] "
              "in ('jax', 'jaxlib', 'flax', 'flashgmm_tpu'))))")
