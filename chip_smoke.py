@@ -35,8 +35,9 @@ Phases, each ending in one flushed line with its seconds:
    at cap_divisor=64 takes the unpacked path and decodes exactly), y_hat
    exact through the bytes, bpp and PSNR, and
    every kernel's launch count from that run (one encode + decode: the z
-   pass's encoder over its tables once, the GMM encoder twice, the bounds
-   kernel and the full rows never; the y passes decode on demand); then the
+   pass's encoder over its tables once, the GMM encoder twice, the coding
+   softmax once a y pass, the bounds kernel, the full rows and the
+   boundary rows never; the y passes decode on demand); then the
    same with ``kernel_transforms=True``, whose g_a, h_a and g_s launch the
    bf16 conv 26 times (each call within tolerance of its plain version),
    decode y_hat exactly, and stay within 0.05 dB and 0.5 % bpp of the
@@ -99,7 +100,18 @@ Phases, each ending in one flushed line with its seconds:
    every distinct rows-chain conv shape (426 and 341 channels among them)
    held to its plain version bit for bit, bytes, bpp and PSNR; the eval
    (two-pass) forward's bits within 5 % of what the bytes carry;
-11. timing: every kernel call of those runs timed again by CUDA events,
+11. reference: reference-format coding (``model.compress`` /
+   ``decompress``, the host coder csrc/rans.cpp) on the first image at
+   full width (``reference_phase``): the flagship in both modes (device
+   rows, host math), ELIC in device-rows mode and the GSM model on its
+   scale table; the launches of one compress + decompress (the f32 conv
+   for every entropy-parameter conv, the coding softmax and the boundary
+   rows a GMM pass each, no rANS kernel), every softmax and boundary-rows
+   call equal to its plain version bit for bit, y_hat exact, bytes and
+   PSNR beside the batched codec's, compress and decompress ms with the
+   host coder's share and the card's busy ms, and the port on the CPU
+   decoding the card's strings of a 64x64 image to the card's y_hat;
+12. timing: every kernel call of those runs timed again by CUDA events,
    back to back ("ms"), beside its plain version, a library call where one
    computes the same function, and its bound; the encoders and the bounds
    kernel also on the device alone ("device_ms": the stream's queue filled
@@ -115,7 +127,9 @@ Phases, each ending in one flushed line with its seconds:
    each distinct conv shape and each coder call held to its plain version;
    the coders' K=1 instances on lines of their own
    ("rans_encode_gmm_k1", "rans_decode_gmm_k1", their launches and times
-   the GSM path's).
+   the GSM path's); each kernel's calls of the flagship's reference-format
+   compress + decompress ("reference_*"), where the boundary-rows kernel
+   has its main path's launches and calls.
 
 It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its
 last line ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -168,6 +182,9 @@ ELIC_INSERTED = 2  # of them h_s's stride-2 deconvs, on zero-inserted inputs
 GSM_WEIGHTS = ROOT / "weights" / "ckbd_gc_n128_synthetic.npz"
 GSM_N, GSM_ROWS_CONVS = 128, 12
 GSM_REPS = 5  # the encode and decode times are the medians of as many runs
+# reference-format coding: its compress and decompress times are the
+# medians of as many runs
+REF_REPS = 3
 # the coder kernels' K=1 instances (the GSM passes), named apart on the
 # kernels line; their wrappers count them in ``launches_k1``
 K1_INSTANCES = ("rans_encode_gmm", "rans_decode_gmm")
@@ -180,7 +197,11 @@ ROWS_FLOPS_PER_TERM = {0: 31, 1: 44, 2: 29}
 # kernels also timed on the device alone (cuda_ms(..., ahead=True)): their
 # wrappers never wait for the device, and their calls are short enough for
 # the host's enqueue to bound back-to-back calls
-DEVICE_TIMED = ("rans_encode", "rans_encode_gmm", "gmm_bounds")
+DEVICE_TIMED = ("rans_encode", "rans_encode_gmm", "gmm_bounds",
+                "gmm_boundary_rows", "gmm_softmax")
+# float32 operations of one softmax entry: the max's compare, the subtract,
+# XLA's exp (22), the sum's add, the divide, and the flushes' compares (4)
+SOFTMAX_FLOPS_PER_ENTRY = 30
 
 _t_phase = [time.perf_counter()]
 
@@ -761,6 +782,7 @@ def elic_phase(dev, x, record, originals):
 
     want = {"rans_encode": 1, "rans_encode_gmm": 10, "rans_decode": 1,
             "rans_decode_gmm": 10, "gmm_bounds": 0, "gmm_rows": 0,
+            "gmm_softmax": 20, "gmm_boundary_rows": 0,
             "conv2d_nhwc": 2 * ELIC_ROWS_CONVS, "conv2d_nhwc_bf16": 0}
     runs = {}
     for kt in (False, True):
@@ -802,7 +824,7 @@ def elic_phase(dev, x, record, originals):
     names = {"encode_scan": "rans_encode",
              "encode_scan_gmm": "rans_encode_gmm",
              "decode_scan": "rans_decode", "decode_scan_gmm": "rans_decode_gmm",
-             "conv2d_nhwc": "conv2d_nhwc",
+             "gmm_softmax": "gmm_softmax", "conv2d_nhwc": "conv2d_nhwc",
              "conv2d_nhwc_bf16": "conv2d_nhwc_bf16"}
     lat_data = None
     for kt in (False, True):
@@ -835,9 +857,11 @@ def elic_phase(dev, x, record, originals):
                       for d, g in graphs.items()}
         bf16 = ELIC_BF16 if kt else dict.fromkeys(ELIC_BF16, 0)
         want_g = {"encode": {"rans_encode": 1, "rans_encode_gmm": 10,
+                             "gmm_softmax": 10,
                              "conv2d_nhwc": ELIC_ROWS_CONVS,
                              "conv2d_nhwc_bf16": bf16["g_a"] + bf16["h_a"]},
                   "decode_y": {"rans_decode": 1, "rans_decode_gmm": 10,
+                               "gmm_softmax": 10,
                                "conv2d_nhwc": ELIC_ROWS_CONVS},
                   "g_s": {"conv2d_nhwc_bf16": bf16["g_s"]}}
         want_g = {d: {k: v for k, v in c.items() if v}
@@ -991,7 +1015,8 @@ def gsm_phase(dev, x, record, originals):
           f"parameters {4 * GSM_N} -> {' -> '.join(map(str, ep))}", flush=True)
 
     want = {"rans_encode": 1, "rans_encode_gmm": 2, "rans_decode": 1,
-            "rans_decode_gmm": 2, "gmm_bounds": 0, "gmm_rows": 0}
+            "rans_decode_gmm": 2, "gmm_bounds": 0, "gmm_rows": 0,
+            "gmm_softmax": 0, "gmm_boundary_rows": 0}
     runs = {}
     for kt in (False, True):
         tag = f"GSM batch {BATCH}, {'kernel' if kt else 'default'} route"
@@ -1119,6 +1144,211 @@ def gsm_phase(dev, x, record, originals):
     return launches, calls, words
 
 
+def device_busy_ms(fn):
+    """fn() under torch.profiler: (fn's result, ms the card was busy, the
+    union of its kernels' and copies' intervals, the device events, and
+    the three names that took the most device time, with their ms and
+    counts). A trace that holds no device event lost them (seen after
+    several profiler sessions in one process) and is taken again, up to
+    three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        if events:
+            busy, end = 0.0, float("-inf")
+            by_name = {}
+            for e in sorted(events, key=lambda e: e.time_range.start):
+                a, b = e.time_range.start, e.time_range.end
+                if b > end:
+                    busy += b - max(a, end)
+                    end = b
+                ms, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (ms + (b - a) / 1e3, n + 1)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:3]
+            return out, busy / 1e3, len(events), top
+    raise RuntimeError("device_busy_ms: three traces without device events")
+
+
+def reference_phase(dev, x1, model, record, originals, smi_line):
+    """Reference-format coding (``model.compress``/``decompress``, the host
+    coder csrc/rans.cpp built by ``ans/cext.py``) at full width on the first
+    768x512 image: the flagship (N=192, K=4, the phase-4 model) in both of
+    its modes (device rows; host math, FLASHGMM_HOST_MATH=1), ELIC
+    (Elic2022GMM N=192, M=320, K=4, the synthetic weights) in device-rows
+    mode, the single-Gaussian checkerboard (N=128, the synthetic weights)
+    on its scale table. For each: the launches of one compress + decompress
+    counted from 0 (the f32 conv for every entropy-parameter conv, the
+    softmax kernel a GMM pass, the boundary-rows kernel a GMM pass in
+    device-rows mode, no rANS kernel: the chain is the host's), every
+    softmax and boundary-rows call equal to its plain version bit for bit,
+    decompress's y_hat equal to compress's, x_hat finite; bytes and PSNR
+    beside the batched codec's on the same image; compress and decompress
+    ms (host clock, medians of REF_REPS), the host coder's share of each
+    and the card's busy ms (profiler), beside the reference's GPU + AVX2
+    yardstick; and the port on the CPU, given the same weights, decoding
+    the card's strings of a 64x64 image to the card's y_hat (the CPU's
+    rows chain is the conv kernel's plain version, slow at 768x512).
+    Returns (launches, recorded calls) of the flagship's device-rows run."""
+    import copy
+    import os
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.ans import cext
+    from flashgmm_tpu_torch.ans.gaussian_cdf import (gmm_boundary_rows_plain,
+                                                     gmm_softmax_plain)
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.models import (Cheng2020AnchorCheckerboard,
+                                           Elic2022GMM)
+    from flashgmm_tpu_torch.runtime import (FastCheckerboardGmmCodec,
+                                            FastCheckerboardGsmCodec,
+                                            FastElicGmmCodec)
+    from flashgmm_tpu_torch.zoo import load_npz
+
+    host_s = [0.0]  # seconds inside the host coder
+    coder = ("encode_with_indexes", "decode_with_indexes", "encode_rows",
+             "decode_rows", "encode_gmm_host", "decode_gmm_host")
+    saved = {name: getattr(cext, name) for name in coder}
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                host_s[0] += time.perf_counter() - t0
+        return run
+
+    small = torch.from_numpy(textured_leaves(64, 64, seed=SEED0 + 1)[None])
+    elic = Elic2022GMM(N=N, M=ELIC_M, K=K, seed=0, device=dev)
+    load_npz(elic, ELIC_WEIGHTS)
+    elic.update(update_quantiles=True)
+    gsm = Cheng2020AnchorCheckerboard(N=GSM_N, seed=0, device=dev)
+    load_npz(gsm, GSM_WEIGHTS)
+    gsm.update(update_quantiles=True)
+    cases = [  # (name, model, modes, f32 convs and GMM passes a direction,
+               #  the batched codec)
+        ("flagship", model, ("device rows", "host math"), 12, 2,
+         FastCheckerboardGmmCodec(model, lanes=LANES,
+                                  cap_divisor=CAP_DIVISOR)),
+        ("ELIC", elic, ("device rows",), ELIC_ROWS_CONVS, 10,
+         FastElicGmmCodec(elic, lanes=ELIC_LANES, cap_divisor=ELIC_CAP)),
+        ("GSM", gsm, ("scale table",), GSM_ROWS_CONVS, 0,
+         FastCheckerboardGsmCodec(gsm, lanes=LANES,
+                                  cap_divisor=CAP_DIVISOR))]
+    host_math = os.environ.get("FLASHGMM_HOST_MATH")
+    for name in coder:
+        setattr(cext, name, timed(saved[name]))
+    try:
+        result = None
+        for tag0, m, modes, convs, passes, batched in cases:
+            cpu_model = copy.deepcopy(m).cpu()
+            b_data, _ = batched.encode_to_bytes(x1)
+            del batched
+            for mode in modes:
+                tag = f"reference {tag0} ({mode})"
+                os.environ["FLASHGMM_HOST_MATH"] = \
+                    "1" if mode == "host math" else "0"
+
+                def run(m=m):
+                    torch.cuda.synchronize()
+                    host_s[0] = 0.0
+                    t0 = time.perf_counter()
+                    out = m.compress(x1)
+                    torch.cuda.synchronize()
+                    t1, h1 = time.perf_counter(), host_s[0]
+                    dec = m.decompress(out["strings"], out["shape"])
+                    torch.cuda.synchronize()
+                    return (out, dec["x_hat"], t1 - t0,
+                            time.perf_counter() - t1, h1, host_s[0] - h1)
+
+                run()  # warm-up
+                (out, x_hat, *_), launches, calls = record(run)
+                want = dict.fromkeys(launches, 0)
+                want.update(conv2d_nhwc=2 * convs, gmm_softmax=2 * passes,
+                            gmm_boundary_rows=2 * passes
+                            if mode == "device rows" else 0)
+                require(launches == want, f"{tag}: launches {launches}, not "
+                        f"{want}")
+                strings, shape = out["strings"], out["shape"]
+                y_dec = m.latent_codec.decompress(strings, shape)["y_hat"]
+                require(torch.equal(y_dec, out["y_hat"]),
+                        f"{tag}: decompress's y_hat differs from compress's")
+                require(tuple(x_hat.shape) == tuple(x1.shape)
+                        and bool(torch.isfinite(x_hat).all()), f"{tag}: x_hat")
+                for kname, plain in (("gmm_boundary_rows",
+                                      gmm_boundary_rows_plain),
+                                     ("gmm_softmax", gmm_softmax_plain)):
+                    for args, kwargs in calls[kname]:  # bit for bit
+                        got = originals[kname](*args, **kwargs).cpu().numpy()
+                        ref = plain(*args, **kwargs).cpu().numpy()
+                        require(np.array_equal(got.view(np.uint8),
+                                               ref.view(np.uint8)),
+                                f"{tag}: {kname} {tuple(args[0].shape)} "
+                                "differs from its plain version")
+                n_bytes = sum(len(s[0]) if isinstance(s, tuple) else
+                              sum(map(len, s)) for s in strings)
+                reps = [run()[2:] for _ in range(REF_REPS)]
+                t_c, t_d, h_c, h_d = (statistics.median(r[i] for r in reps)
+                                      for i in range(4))
+                _, busy_c, n_c, top_c = device_busy_ms(
+                    lambda m=m: m.compress(x1))
+                _, busy_d, n_d, top_d = device_busy_ms(
+                    lambda m=m: m.decompress(strings, shape))
+                # the card's strings of a small image decoded on the CPU
+                s_out = m.compress(small.to(dev))
+                t0 = time.perf_counter()
+                y_cpu = cpu_model.latent_codec.decompress(
+                    s_out["strings"], s_out["shape"])["y_hat"]
+                t_cpu = time.perf_counter() - t0
+                require(torch.equal(y_cpu, s_out["y_hat"].cpu()),
+                        f"{tag}: the port on the CPU decodes the card's "
+                        "strings of a 64x64 image to another y_hat")
+                print(f"  {tag}: y_hat {list(out['y_hat'].shape)} exact "
+                      f"through {n_bytes} bytes (the batched codec: "
+                      f"{len(b_data)}), PSNR {psnr_of(x_hat, x1):.4f} dB; "
+                      f"compress {1e3 * t_c:.2f} ms (host coder "
+                      f"{1e3 * h_c:.2f} ms, card busy {busy_c:.2f} ms), "
+                      f"decompress {1e3 * t_d:.2f} ms (host coder "
+                      f"{1e3 * h_d:.2f} ms, card busy {busy_d:.2f} ms); "
+                      f"host clock, medians of {REF_REPS}, {smi_line}; the "
+                      "reference's GPU + AVX2 yardstick ~55 + ~42 ms a Kodak "
+                      f"image (BASELINE.md); launches {launches}; "
+                      f"{len(calls['gmm_boundary_rows'])} boundary-rows and "
+                      f"{len(calls['gmm_softmax'])} softmax calls equal to "
+                      "plain bit for bit; the card's strings of a 64x64 "
+                      f"image decoded on the CPU exactly ({t_cpu:.1f} s)",
+                      flush=True)
+                for what, n_ev, top in (("compress", n_c, top_c),
+                                        ("decompress", n_d, top_d)):
+                    print(f"  {tag} {what}: {n_ev} device events; most "
+                          "device time: " + "; ".join(
+                              f"{k[:90]} {ms:.2f} ms x{n}"
+                              for k, (ms, n) in top), flush=True)
+                if (tag0, mode) == ("flagship", "device rows"):
+                    result = (launches, calls)
+    finally:
+        for name in coder:
+            setattr(cext, name, saved[name])
+        if host_math is None:
+            os.environ.pop("FLASHGMM_HOST_MATH", None)
+        else:
+            os.environ["FLASHGMM_HOST_MATH"] = host_math
+    phase("reference", "compress/decompress of the flagship (both modes), "
+          "ELIC and the GSM model on the card; their strings decoded on the "
+          "CPU")
+    return result
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1000, exit=True)
     import torch
@@ -1147,8 +1377,9 @@ def smoke():
     from flashgmm_tpu_torch.ans import interleaved as il
     from flashgmm_tpu_torch.ans import rans_kernels, rows_kernel
     from flashgmm_tpu_torch.ans.gaussian_cdf import (
-        get_approx_mode, gmm_guarded_bounds, gmm_guarded_bounds_plain,
-        gmm_guarded_rows, gmm_guarded_rows_plain)
+        get_approx_mode, gmm_boundary_rows_plain, gmm_guarded_bounds,
+        gmm_guarded_bounds_plain, gmm_guarded_rows, gmm_guarded_rows_plain,
+        gmm_softmax_plain)
     from flashgmm_tpu_torch.ops import conv_kernel
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1442,6 +1673,8 @@ def smoke():
              "rans_decode_gmm": (rans_kernels, "decode_scan_gmm"),
              "gmm_bounds": (rows_kernel, "gmm_bounds"),
              "gmm_rows": (rows_kernel, "gmm_rows"),
+             "gmm_softmax": (rows_kernel, "gmm_softmax"),
+             "gmm_boundary_rows": (rows_kernel, "gmm_boundary_rows"),
              "conv2d_nhwc": (conv_kernel, "conv2d_nhwc"),
              "conv2d_nhwc_bf16": (conv_kernel, "conv2d_nhwc_bf16")}
     originals = {name: getattr(*where) for name, where in bound.items()}
@@ -1520,12 +1753,15 @@ def smoke():
     data, out, x_hat, launches, calls, t_enc, t_dec = drive(codec)
     y_shape = tuple(out["y_hat"].shape)
     for name, count in launches.items():
-        if name not in ("gmm_rows", "gmm_bounds", "conv2d_nhwc_bf16"):
+        if name not in ("gmm_rows", "gmm_bounds", "gmm_boundary_rows",
+                        "conv2d_nhwc_bf16"):
             require(count > 0, f"{name} was not launched on the main path")
     # per encode: the z pass over its tables, 2 y passes over their GMM
     # parameters (bounds evaluated in the encoder); per decode: the z pass
     # over its tables, 2 y passes over the GMM rows
     require(launches["gmm_rows"] == 0, "the main path built full GMM rows")
+    require((launches["gmm_softmax"], launches["gmm_boundary_rows"]) == (4, 0),
+            "not one softmax a y pass of each direction and no boundary rows")
     require(launches["conv2d_nhwc_bf16"] == 0,
             "the default route launched the bf16 conv kernel")
     require((launches["rans_encode"], launches["rans_encode_gmm"],
@@ -1665,9 +1901,10 @@ def smoke():
     wrapper_name = {attr: name for name, (_, attr) in bound.items()}
     # each direction's launches of each kernel: (default route, kernel route)
     expected = {"encode": {"rans_encode": 1, "rans_encode_gmm": 2,
-                           "conv2d_nhwc": 12, "conv2d_nhwc_bf16": (0, 12)},
+                           "gmm_softmax": 2, "conv2d_nhwc": 12,
+                           "conv2d_nhwc_bf16": (0, 12)},
                 "decode_y": {"rans_decode": 1, "rans_decode_gmm": 2,
-                             "conv2d_nhwc": 12},
+                             "gmm_softmax": 2, "conv2d_nhwc": 12},
                 "g_s": {"conv2d_nhwc_bf16": (0, 14)}}
     lanes_codec = FastCheckerboardGmmCodec(model, lanes=LAT_LANES,
                                            cap_divisor=CAP_DIVISOR)
@@ -1892,7 +2129,11 @@ def smoke():
     # 10. the single-Gaussian checkerboard through its codec --------------
     gsm_launches, gsm_calls, gsm_words = gsm_phase(dev, x, record, originals)
 
-    # 11. timing of every recorded call -----------------------------------
+    # 11. reference-format coding (model.compress/decompress) ------------
+    ref_launches, ref_calls = reference_phase(dev, x1, model, record,
+                                              originals, smi_line)
+
+    # 12. timing of every recorded call -----------------------------------
     pass_words = [int(out[k].n_words) for k in ("z", "y0", "y1")]
 
     def probes_by_count(L):
@@ -1948,6 +2189,24 @@ def smoke():
             # each entry's K terms plus its quantization
             return (4 * n * L + 12 * n * k,
                     n * L * (k * ROWS_FLOPS_PER_TERM[md] + 2), err, None)
+        if name == "gmm_boundary_rows":
+            sc, _, _, _, nb, md = args
+            n, k = sc.shape
+            L = nb + 1
+            got = originals[name](*args).cpu().numpy().astype(np.int64)
+            err = int(np.abs(got - gmm_boundary_rows_plain(*args).cpu()
+                             .numpy().astype(np.int64)).max())
+            # uint16 rows out; scales, means, weights in; each entry's K
+            # terms and its quantization
+            return (2 * n * L + 12 * n * k,
+                    n * L * (k * ROWS_FLOPS_PER_TERM[md] + 2), err, None)
+        if name == "gmm_softmax":
+            (logits,) = args
+            err = float((originals[name](logits) - gmm_softmax_plain(logits))
+                        .abs().max())
+            # the logits read and the weights written, float32
+            return (8 * logits.numel(),
+                    SOFTMAX_FLOPS_PER_ENTRY * logits.numel(), err, None)
         if name == "gmm_bounds":
             vals, sc, _, _, _, _, md = args
             n, k = sc.shape
@@ -2082,6 +2341,8 @@ def smoke():
               "rans_decode_gmm": rans_kernels.decode_scan_gmm_plain,
               "gmm_bounds": gmm_guarded_bounds_plain,
               "gmm_rows": gmm_guarded_rows_plain,
+              "gmm_boundary_rows": gmm_boundary_rows_plain,
+              "gmm_softmax": gmm_softmax_plain,
               "conv2d_nhwc": conv_kernel.conv2d_nhwc_plain,
               "conv2d_nhwc_bf16": conv_kernel.conv2d_nhwc_bf16_plain}
     sources = {
@@ -2101,6 +2362,13 @@ def smoke():
                        "flashgmm_tpu/ans/gaussian_cdf.py:150"),
         "gmm_rows": ("flashgmm_tpu_torch/csrc/gmm_rows.cu",
                      "flashgmm_tpu/ans/gaussian_cdf.py:114"),
+        # not Pallas either: the plain-XLA gmm_boundary_rows (the reference
+        # format's device rows) and jax.nn.softmax in the GMM codec
+        "gmm_boundary_rows": ("flashgmm_tpu_torch/csrc/gmm_rows.cu",
+                              "flashgmm_tpu/ans/gaussian_cdf.py:71"),
+        "gmm_softmax": ("flashgmm_tpu_torch/csrc/gmm_rows.cu",
+                        "flashgmm_tpu/latent_codecs/"
+                        "gaussian_mixture_conditional.py:55"),
         "conv2d_nhwc": ("flashgmm_tpu_torch/csrc/conv_kernel.cu",
                         "flashgmm_tpu/ops/pallas_conv.py:108"),
         # the same TPU kernel's bf16 route (compute_dtype=jnp.bfloat16)
@@ -2111,6 +2379,10 @@ def smoke():
     # parameters and symbols
     calls["gmm_bounds"] = [(a[:7], {}) for a, _ in calls["rans_encode_gmm"]]
     calls["gmm_rows"] = [(a[1:7], {}) for a, _ in calls["rans_encode_gmm"]]
+    # the boundary rows run on the reference format's path alone: its
+    # launches and calls there are their main path's
+    calls["gmm_boundary_rows"] = ref_calls["gmm_boundary_rows"]
+    launches["gmm_boundary_rows"] = ref_launches["gmm_boundary_rows"]
     # the latency path's calls (batch 1, lanes=LAT_LANES): its eager run of
     # the functions its graphs capture; the bf16 conv's on the kernel route
     lat_words = {route: [int(run[0][k].n_words) for k in ("z", "y0", "y1")]
@@ -2149,7 +2421,7 @@ def smoke():
         return t, err, inserted
 
     results = []
-    t_lat = t_elic = t_gsm = 0.0  # seconds spent on those paths' calls
+    t_lat = t_elic = t_gsm = t_ref = 0.0  # seconds on those paths' calls
     for name in [*originals, *(f"{n}_k1" for n in K1_INSTANCES)]:
         base = name.removesuffix("_k1")
         kern = originals[base]
@@ -2208,6 +2480,11 @@ def smoke():
             gsm_t = {"ms": ms, "device_ms": device_ms,
                      "bound_ms": by["bytes"] + by["operations"]}
             gsm_inserted = 0
+        t0 = time.perf_counter()
+        ref_t, e, _ = path_times(base, kern, peak, ref_calls.get(name, [])
+                                 if name == base else [], pass_words)
+        err = max(err, e)
+        t_ref += time.perf_counter() - t0
         if name == "conv2d_nhwc":  # h_s's deconvs in the encode and decode
             require(inserted == 2 * ELIC_INSERTED, f"ELIC: {inserted} "
                     "zero-inserted conv inputs, not h_s's deconvs'")
@@ -2238,12 +2515,17 @@ def smoke():
                             "elic_bound_ms": elic_t["bound_ms"],
                             "gsm_launches": gsm_launches[name],
                             "gsm_ms": gsm_t["ms"],
-                            "gsm_bound_ms": gsm_t["bound_ms"]})
+                            "gsm_bound_ms": gsm_t["bound_ms"],
+                            "reference_launches": ref_launches.get(name, 0)
+                            if name == base else 0,
+                            "reference_ms": ref_t["ms"],
+                            "reference_bound_ms": ref_t["bound_ms"]})
         if base in DEVICE_TIMED:
             results[-1]["device_ms"] = device_ms
             results[-1]["latency_device_ms"] = lat_t["device_ms"]
             results[-1]["elic_device_ms"] = elic_t["device_ms"]
             results[-1]["gsm_device_ms"] = gsm_t["device_ms"]
+            results[-1]["reference_device_ms"] = ref_t["device_ms"]
         if name in ("rans_decode_gmm", "rans_encode_gmm"):
             results[-1]["serial_floor_ms"] = floor_ms
         if name == "conv2d_nhwc_bf16":
@@ -2253,7 +2535,9 @@ def smoke():
           "latency_*: of one encode + decode at batch 1, eager, "
           f"{t_lat:.2f} s of the phase; elic_*: of ELIC's batched encode + "
           f"decode at batch {BATCH}, {t_elic:.2f} s; gsm_*: of the GSM "
-          f"codec's at batch {BATCH}, {t_gsm:.2f} s)")
+          f"codec's at batch {BATCH}, {t_gsm:.2f} s; reference_*: of the "
+          f"flagship's reference-format compress + decompress of one image "
+          f"in device-rows mode, {t_ref:.2f} s)")
 
     print(json.dumps({"kernels": results, "card": kind,
                       "power_limit": smi_line.split(",")[-1].strip()}),

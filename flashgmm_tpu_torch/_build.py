@@ -59,6 +59,10 @@ _SIGNATURES = {
     "fg_gmm_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     # values, scales, means, weights, N, K, lo, L, mode, start, freq, stream
     "fg_gmm_bounds": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # scales, means, weights, N, K, lo, L, mode, uint16 rows, stream
+    "fg_gmm_boundary_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    # logits, weights, outer, K, M, stream
+    "fg_gmm_softmax": (_P, _P, ctypes.c_longlong, _I, _I, _P),
 }
 
 

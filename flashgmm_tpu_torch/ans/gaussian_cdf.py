@@ -3,7 +3,9 @@ rows kernel, bit for bit XLA's CPU arithmetic.
 
 Port of flashgmm_tpu/ans/gaussian_cdf.py. :func:`gmm_guarded_rows` gives
 the full rows, :func:`gmm_guarded_bounds` only the two entries that bound
-each symbol's bin (the fast codec evaluates those inside its encoder,
+each symbol's bin, :func:`gmm_boundary_rows` the reference format's uint16
+rows (its device-rows mode) and :func:`gmm_softmax` the mixture weights
+that every coding path computes its rows from (the fast codec evaluates those inside its encoder,
 ``rans_kernels.encode_scan_gmm``, and the entries its decoder's search
 probes, ``rans_kernels.decode_scan_gmm``).
 On CPU tensors they run the plain torch versions below, on CUDA tensors
@@ -22,13 +24,21 @@ HLO and LLVM IR, jaxlib 0.9) op by op:
   into ``(1 + c) * (w * 0.5)``;
 - contraction: the x86 back end fuses each ``fmul`` whose only use is an
   ``fadd`` or ``fsub`` into an FMA, the left operand first when both are
-  products. So the mixture is ``acc = fma(a0, b0, a1 * b1)``, then
-  ``acc = fma(ak, bk, acc)`` for k >= 2, and in A&S mode
+  products. So the guarded rows' mixture is ``acc = fma(a0, b0, a1 * b1)``,
+  then ``acc = fma(ak, bk, acc)`` for k >= 2; the boundary rows' (a
+  ``jnp.sum`` over K, XLA's reduce) is ``acc = a0 * b0``, then
+  ``acc = fma(ak, bk, acc)`` for k >= 1; and in A&S mode
   ``1 + p|z|``, the Horner steps and ``1 - z * poly`` are FMAs too
   (``xla_math._fma``, a true FMA emulated in float64);
 - flush to zero: XLA's CPU code runs with subnormal inputs read as zero
   and subnormal results flushed (``xla_math._ftz``), so the parameters are
-  flushed on entry and every result that can be subnormal on its way out.
+  flushed on entry and every result that can be subnormal on its way out;
+- XLA's float -> uint16 convert saturates: NaN -> 0, below 0 -> 0, above
+  65535 -> 65535, else truncated.
+
+Each was pinned by comparing against the JAX functions on the CPU, entry by
+entry (``tests/test_torch_port_rows.py``,
+``tests/test_torch_port_reference_codec.py``).
 
 ``APPROX_MODE`` selects the CDF approximation as in the reference:
 0 = Pólya (default), 1 = Abramowitz & Stegun, 2 = logistic.
@@ -173,6 +183,66 @@ def gmm_guarded_bounds_plain(values, scales, means, weights, lo: int,
 
     start = entry(j)
     return start, entry(j + 1) - start
+
+
+def gmm_boundary_rows_plain(scales, means, weights, lo: int, num_bins: int,
+                            mode: int = 0):
+    """The plain version of the boundary-rows kernel, on any device (see
+    :func:`gmm_boundary_rows`)."""
+    L = num_bins + 1
+    scales, means, weights = (_ftz(t.float()) for t in (scales, means, weights))
+    j = torch.arange(L, dtype=torch.float32, device=scales.device)
+    x = ((float(lo) - 0.5) + j)[None, :]  # [1, L] against [N, 1] parameters
+    acc = None
+    for k in range(scales.shape[-1]):
+        z = _ftz((x - means[:, k:k + 1]) / scales[:, k:k + 1])
+        a, b = _TERM_A[mode](z), _TERM_B[mode](weights[:, k:k + 1])
+        acc = _ftz(a * b) if acc is None else _ftz(_fma(a, b, acc))
+    v = acc * 65535.0
+    v = torch.where(torch.isnan(v), 0.0, torch.clamp(v, 0.0, 65535.0))
+    return v.to(torch.int32).to(torch.uint16)
+
+
+def gmm_boundary_rows(scales, means, weights, lo: int, num_bins: int,
+                      mode: int = 0):
+    """Quantized boundary CDFs of every symbol under a K-mixture, the
+    reference format's device rows (JAX ``gmm_boundary_rows``).
+
+    Args: scales/means/weights float32 [N, K]; lo the first bin's value;
+    returns uint16 [N, num_bins + 1], ``rows[i, j] = u16(cdf_i(lo + j - 0.5)
+    * 65535)``. CPU tensors take the plain version; CUDA tensors launch the
+    boundary-rows kernel (``rows_kernel.gmm_boundary_rows``), which raises
+    on what it cannot take.
+    """
+    if scales.device.type == "cpu":
+        return gmm_boundary_rows_plain(scales, means, weights, lo, num_bins,
+                                       mode)
+    return rows_kernel.gmm_boundary_rows(scales, means, weights, lo,
+                                         num_bins, mode)
+
+
+def gmm_softmax_plain(logits):
+    """The plain version of the softmax kernel, on any device (see
+    :func:`gmm_softmax`)."""
+    x = _ftz(logits.float())
+    e = _exp(_ftz(x - x.amax(dim=-2, keepdim=True)))
+    total = e[..., 0:1, :]
+    for k in range(1, e.shape[-2]):
+        total = _ftz(total + e[..., k:k + 1, :])
+    return _ftz(e / total)
+
+
+def gmm_softmax(logits):
+    """Softmax over dim -2 (the K mixture components) of float32 logits
+    [..., K, M], in jax.nn.softmax's op order on XLA's CPU: the max over K,
+    subtracted; XLA's exp; the sum over k = 0, 1, ... in order; a divide.
+    torch.softmax rounds differently on the CPU and on the card (ROADMAP
+    C11); this equals JAX's on the CPU bit for bit, on either. CPU tensors
+    take the plain version; CUDA tensors launch the softmax kernel
+    (``rows_kernel.gmm_softmax``)."""
+    if logits.device.type == "cpu":
+        return gmm_softmax_plain(logits)
+    return rows_kernel.gmm_softmax(logits)
 
 
 def gmm_guarded_rows(scales, means, weights, lo: int, num_bins: int,

@@ -39,17 +39,14 @@ def pmf_to_quantized_cdf(pmf, precision: int = 16) -> np.ndarray:
 
     cdf = cdf.astype(np.int64)
     n = cdf.shape[0]
+    big = np.iinfo(np.int64).max
     for i in range(n - 1):
         if cdf[i] == cdf[i + 1]:
-            # steal from the smallest bin with freq > 1
-            best_freq = np.iinfo(np.int64).max
-            best_steal = -1
-            for j in range(n - 1):
-                freq = cdf[j + 1] - cdf[j]
-                if 1 < freq < best_freq:
-                    best_freq = freq
-                    best_steal = j
-            assert best_steal != -1
+            # steal from the smallest bin with freq > 1, the first of equals
+            # (the C++ loop's strict "<"): one vectorised argmin
+            freq = np.diff(cdf)
+            best_steal = int(np.argmin(np.where(freq > 1, freq, big)))
+            assert freq[best_steal] > 1
             if best_steal < i:
                 cdf[best_steal + 1 : i + 1] -= 1
             else:

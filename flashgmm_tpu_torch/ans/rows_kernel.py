@@ -1,4 +1,4 @@
-"""The GMM CDF rows and bounds kernels (source:
+"""The GMM CDF rows, bounds, boundary-rows and softmax kernels (source:
 ``flashgmm_tpu_torch/csrc/gmm_rows.cu``; each entry is ``csrc/gmm_entry.cuh``).
 
 ``gmm_rows`` replaces the plain-XLA fusion of
@@ -15,7 +15,15 @@ rest of the row. The batched codec no longer takes it: its encoder
 evaluates the same two entries inside the rANS kernel
 (``rans_kernels.encode_scan_gmm``).
 
-Both take CUDA tensors only and raise on anything else; CPU tensors never
+``gmm_boundary_rows`` replaces the plain-XLA ``gmm_boundary_rows``
+(flashgmm_tpu/ans/gaussian_cdf.py:71): the reference format's uint16 rows
+[N, L], XLA's CPU roundings entry by entry (its mixture sum and its
+saturating convert included), the device half of device-rows coding.
+``gmm_softmax`` gives every coding path its mixture weights: the softmax
+over K of [.., K, M] in jax.nn.softmax's op order on XLA's CPU, so the
+card's weights equal the CPU's (ROADMAP C11).
+
+All take CUDA tensors only and raise on anything else; CPU tensors never
 reach them (``gaussian_cdf`` runs the plain versions for them).
 ``<wrapper>.launches`` counts each one's launches.
 
@@ -24,7 +32,9 @@ entries evaluates K CDF terms (an IEEE divide, XLA's exp, a square root or
 a reciprocal each); the output is 4 bytes an entry, and the parameters
 (12K bytes a symbol) are read once from device memory and from L1 by the
 symbol's other L-1 threads. The bounds: also the arithmetic, two entries
-a symbol (12K + 4 bytes read and 8 written a symbol).
+a symbol (12K + 4 bytes read and 8 written a symbol). The boundary rows:
+the arithmetic, as the rows (2 bytes an entry out). The softmax: the bytes
+(8K a column, ~30K flops).
 """
 
 import ctypes
@@ -113,3 +123,57 @@ def gmm_bounds(values, scales, means, weights, lo: int, num_bins: int,
 
 
 gmm_bounds.launches = 0
+
+
+def gmm_boundary_rows(scales, means, weights, lo: int, num_bins: int,
+                      mode: int = 0):
+    """uint16 [N, num_bins+1] reference-format boundary rows from float32
+    [N, K] scales, means and weights on one CUDA device (see
+    gaussian_cdf.gmm_boundary_rows)."""
+    scales, means, weights = _check_params("gmm_boundary_rows", scales,
+                                           means, weights, lo, num_bins, mode)
+    n, k = scales.shape
+    L = num_bins + 1
+    rows = torch.empty((n, L), dtype=torch.uint16, device=scales.device)
+    if n == 0:
+        return rows
+    lib = _build.load().lib
+    with torch.cuda.device(scales.device):
+        rc = lib.fg_gmm_boundary_rows(
+            ctypes.c_void_p(scales.data_ptr()), ctypes.c_void_p(means.data_ptr()),
+            ctypes.c_void_p(weights.data_ptr()), n, k, int(lo), L, int(mode),
+            ctypes.c_void_p(rows.data_ptr()), _build.stream_ptr(scales))
+    _build.check(rc, "gmm_boundary_rows")
+    gmm_boundary_rows.launches += 1
+    return rows
+
+
+gmm_boundary_rows.launches = 0
+
+
+def gmm_softmax(logits):
+    """Softmax over dim -2 (K) of float32 logits [..., K, M] on a CUDA
+    device (see gaussian_cdf.gmm_softmax)."""
+    _build.require_cuda("gmm_softmax", logits)
+    if logits.dtype != torch.float32 or logits.dim() < 2:
+        raise TypeError("gmm_softmax: float32 logits [..., K, M] needed, got "
+                        f"{logits.dtype} {tuple(logits.shape)}")
+    k, m = logits.shape[-2:]
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"gmm_softmax: K={k}, the kernel takes 1..{MAX_K}")
+    logits = logits.contiguous()
+    out = torch.empty_like(logits)
+    outer = logits.numel() // max(k * m, 1)
+    if logits.numel() == 0:
+        return out
+    lib = _build.load().lib
+    with torch.cuda.device(logits.device):
+        rc = lib.fg_gmm_softmax(
+            ctypes.c_void_p(logits.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            outer, k, m, _build.stream_ptr(logits))
+    _build.check(rc, "gmm_softmax")
+    gmm_softmax.launches += 1
+    return out
+
+
+gmm_softmax.launches = 0

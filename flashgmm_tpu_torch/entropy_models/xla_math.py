@@ -1,5 +1,6 @@
-"""float32 exp, log1p, tanh, logistic and softplus as XLA's CPU backend
-computes them, from single IEEE-rounded torch ops.
+"""float32 exp, log1p, tanh, logistic, softplus, erfc and ndtri as XLA's
+CPU backend (and JAX's ndtri on top of it) computes them, from single
+IEEE-rounded torch ops.
 
 The EntropyBottleneck's integer CDF tables round a float PMF to 1/65536;
 an ulp of difference in the density MLP moves entries across rounding
@@ -18,6 +19,7 @@ is that of a true FMA, ties included.
 
 import struct
 
+import numpy as np
 import torch
 
 
@@ -69,13 +71,37 @@ def _fma(a, b, c):
     """round_f32(a * b + c) with one rounding, as a hardware FMA computes it.
 
     ``a`` is a float32 tensor, ``b`` and ``c`` float32 values (tensors, or
-    Python floats that are float32 constants). a * b is exact in float64;
-    the float64 sum s is rounded to odd: if it was inexact and its last
-    bit is even, it moves one ulp toward the exact sum. Rounding a
-    round-to-odd value with 29 spare bits to float32 rounds the exact sum.
+    Python floats that are float32 constants). a * b is exact in float64, so
+    the float64 sum s differs from the exact sum by less than half an ulp of
+    float64, and rounding s to float32 rounds the exact sum unless s sits
+    exactly on a float32 rounding tie (its low 29 bits 1 followed by zeros)
+    or outside float32's normal range. On the CPU those rare elements alone
+    take the exact path (:func:`_fma_round_to_odd`); on a GPU every element
+    does, with no host synchronisation.
     """
     p = a.double() * b
     s = p + c
+    if s.device.type != "cpu":
+        return _fma_round_to_odd(p, c, s)
+    bits = s.view(torch.int64)
+    mag = torch.abs(s)
+    risky = ((bits & 0x1FFFFFFF) == 0x10000000) | (mag >= 2.0 ** 127) \
+        | ((mag < _MIN_NORMAL) & (s != 0))
+    out = s.float()
+    if bool(risky.any()):
+        if isinstance(c, torch.Tensor):
+            c = torch.broadcast_to(c, s.shape)[risky]
+        out[risky] = _fma_round_to_odd(torch.broadcast_to(p, s.shape)[risky],
+                                       c, s[risky])
+    return out
+
+
+def _fma_round_to_odd(p, c, s):
+    """The FMA of the exact product p (float64) and c from their float64
+    sum s: s rounded to odd (if it was inexact and its last bit is even, it
+    moves one ulp toward the exact sum), then to float32. Rounding a
+    round-to-odd value with 29 spare bits to float32 rounds the exact sum.
+    """
     t = s - p
     err = (p - (s - t)) + (c - t)  # TwoSum: s + err == p + c exactly
     bits = s.view(torch.int64)
@@ -160,3 +186,111 @@ def tanh(x):
         den = _fma(c2, den, k)
     out = torch.where(ax < _TANH_SMALL, x, num / den)
     return torch.where(ax >= 20.0, torch.copysign(torch.ones_like(x), x), out)
+
+
+def _f32(text: str) -> float:
+    """A float32 constant as XLA's HLO text prints it (9 digits)."""
+    return struct.unpack("f", struct.pack("f", float(text)))[0]
+
+
+_ERFC_SMALL = [_f32(t) for t in (
+    "7.85386146e-05", "-0.000801019371", "0.00518832775", "-0.0268538129",
+    "0.112835854", "-0.37612626", "1.12837911")]
+_ERFC_MID = [_f32(t) for t in (
+    "0.0232682", "-0.138703942", "0.368742466", "-0.582473278",
+    "0.621000469", "-0.494451523", "0.340488", "-0.274112701",
+    "0.563825965")]
+_ERFC_BIG = [_f32(t) for t in (
+    "-10.477664", "12.9772", "-7.49551868", "2.92101908", "-1.01526523",
+    "0.42184633", "-0.282076746", "0.564189494")]
+_ERFC_UNDERFLOW = _f32("-88.7228394")
+
+
+def erfc(x):
+    """XLA's float32 erfc (its CHLO expansion): 1 - x * P(x^2) for |x| < 1,
+    else exp(-x^2) / |x| * Q(1/x^2) (one of two polynomials, split at
+    |x| = 2), reflected to 2 - erfc(-x) for x < 0; each multiply that
+    feeds an add fused into an FMA."""
+    x = _ftz(x.float())
+    ax = torch.abs(x)
+    x2 = _ftz(x * x)
+    p = _fma(x2, _ERFC_SMALL[0], _ERFC_SMALL[1])
+    for c in _ERFC_SMALL[2:]:
+        p = _fma(p, x2, c)
+    small = _fma(-x, p, 1.0)
+    q = 1.0 / x2
+    mid = _fma(q, _ERFC_MID[0], _ERFC_MID[1])
+    for c in _ERFC_MID[2:]:
+        mid = _fma(mid, q, c)
+    big = _fma(q, _ERFC_BIG[0], _ERFC_BIG[1])
+    for c in _ERFC_BIG[2:]:
+        big = _fma(big, q, c)
+    y = _ftz(exp(-x2) * (1.0 / ax))
+    y = _ftz(y * torch.where(ax < 2.0, mid, big))
+    y = torch.where(-x2 < _ERFC_UNDERFLOW, torch.zeros_like(y), y)
+    y = torch.where(x < 0, 2.0 - y, y)
+    return torch.where(ax < 1.0, small, y)
+
+
+# Cephes' ndtri coefficients as jax.scipy.special.ndtri holds them (float32)
+_NDTRI_P0 = (-5.99633501014107895267E1, 9.80010754185999661536E1,
+             -5.66762857469070293439E1, 1.39312609387279679503E1,
+             -1.23916583867381258016E0)
+_NDTRI_Q0 = (1.0, 1.95448858338141759834E0, 4.67627912898881538453E0,
+             8.63602421390890590575E1, -2.25462687854119370527E2,
+             2.00260212380060660359E2, -8.20372256168333339912E1,
+             1.59056225126211695515E1, -1.18331621121330003142E0)
+_NDTRI_P1 = (4.05544892305962419923E0, 3.15251094599893866154E1,
+             5.71628192246421288162E1, 4.40805073893200834700E1,
+             1.46849561928858024014E1, 2.18663306850790267539E0,
+             -1.40256079171354495875E-1, -3.50424626827848203418E-2,
+             -8.57456785154685413611E-4)
+_NDTRI_Q1 = (1.0, 1.57799883256466749731E1, 4.53907635128879210584E1,
+             4.13172038254672030440E1, 1.50425385692907503408E1,
+             2.50464946208309415979E0, -1.42182922854787788574E-1,
+             -3.80806407691578277194E-2, -9.33259480895457427372E-4)
+_NDTRI_P2 = (3.23774891776946035970E0, 6.91522889068984211695E0,
+             3.93881025292474443415E0, 1.33303460815807542389E0,
+             2.01485389549179081538E-1, 1.23716634817820021358E-2,
+             3.01581553508235416007E-4, 2.65806974686737550832E-6,
+             6.23974539184983293730E-9)
+_NDTRI_Q2 = (1.0, 6.02427039364742014255E0, 3.67983563856160859403E0,
+             1.37702099489081330271E0, 2.16236993594496635890E-1,
+             1.34204006088543189037E-2, 3.28014464682127739104E-4,
+             2.89247864745380683936E-6, 6.79019408009981274425E-9)
+
+
+def _polyval(coeffs, x):
+    """jnp.polyval: y = 0, then y = y * x + c for each coefficient, each
+    step one FMA (its jitted scan contracts them)."""
+    y = torch.zeros_like(x)
+    for c in coeffs:
+        y = _fma(y, x, _f32(repr(c)))
+    return y
+
+
+def ndtri(p):
+    """jax.scipy.special.ndtri in float32, called eagerly as the JAX
+    package calls it: op by op (separate XLA computations, so nothing is
+    contracted across ops), with ``jnp.polyval``'s FMAs and XLA's log."""
+    p = p.float()
+    big_p = _f32(repr(float(-np.expm1(-2.0))))
+    mcp = torch.where(p > big_p, 1.0 - p, p)
+    mcp = torch.where(mcp == 0.0, torch.full_like(mcp, 0.5), mcp)
+    w = mcp - 0.5
+    ww = w * w
+    sqrt_2pi = _f32(repr(float(np.sqrt(2.0 * np.pi))))
+    x_big = w + (w * ww) * (_polyval(_NDTRI_P0, ww) / _polyval(_NDTRI_Q0, ww))
+    x_big = x_big * -sqrt_2pi
+    z = torch.sqrt((-2.0 * _log(mcp)).double()).float()
+    first = z - _log(z) / z
+    inv_z = 1.0 / z
+    x_small = first - (_polyval(_NDTRI_P2, inv_z) / _polyval(_NDTRI_Q2, inv_z)
+                       ) / z
+    x_other = first - (_polyval(_NDTRI_P1, inv_z) / _polyval(_NDTRI_Q1, inv_z)
+                       ) / z
+    x = torch.where(mcp > _f32(repr(float(np.exp(-2.0)))), x_big,
+                    torch.where(z >= 8.0, x_small, x_other))
+    x = torch.where(p > _f32(repr(float(1.0 - np.exp(-2.0)))), x, -x)
+    x = torch.where(p == 0.0, torch.full_like(x, -float("inf")), x)
+    return torch.where(p == 1.0, torch.full_like(x, float("inf")), x)

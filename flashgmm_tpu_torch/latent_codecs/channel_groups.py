@@ -2,13 +2,16 @@
 flashgmm_tpu/latent_codecs/channel_groups.py): the latent is split into
 uneven channel groups, coded in order, each group's parameters conditioned
 on the groups before it through a channel-context network. All tensors
-NHWC.
+NHWC. In the reference format (:80-108) the channel contexts run on the
+rows chain (``layers.run_canonical``).
 """
 
 from itertools import accumulate
 
 import torch
 from torch import nn
+
+from flashgmm_tpu_torch.layers import run_canonical
 
 
 class ChannelGroupsLatentCodec(nn.Module):
@@ -64,3 +67,29 @@ class ChannelGroupsLatentCodec(nn.Module):
             y_lk_.append(y_out["likelihoods"]["y"])
         return {"likelihoods": {"y": torch.cat(y_lk_, dim=-1)},
                 "y_hat": torch.cat(y_hat_, dim=-1)}
+
+    def compress(self, y, side_params):
+        """Each group's container strings in coding order, their shapes and
+        the y_hat of all groups."""
+        y_ = self._split(y)
+        y_hat_, strings, shapes = [], [], []
+        for k in range(len(self.groups)):
+            params = self._get_ctx_params(k, side_params, y_hat_,
+                                          run=run_canonical)
+            y_out = self.latent_codec[f"y{k}"].compress(y_[k], params)
+            y_hat_.append(y_out["y_hat"])
+            strings.extend(y_out["strings"])
+            shapes.append(y_out["shape"])
+        return {"strings": strings, "shape": shapes,
+                "y_hat": torch.cat(y_hat_, dim=-1)}
+
+    def decompress(self, strings, shape, side_params):
+        per_group = len(strings) // len(self.groups)
+        y_hat_ = []
+        for k in range(len(self.groups)):
+            params = self._get_ctx_params(k, side_params, y_hat_,
+                                          run=run_canonical)
+            y_out = self.latent_codec[f"y{k}"].decompress(
+                strings[per_group * k:per_group * (k + 1)], shape[k], params)
+            y_hat_.append(y_out["y_hat"])
+        return {"y_hat": torch.cat(y_hat_, dim=-1)}

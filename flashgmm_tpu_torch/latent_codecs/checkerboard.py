@@ -1,13 +1,20 @@
 """Two-pass checkerboard context codec (port of
 flashgmm_tpu/latent_codecs/checkerboard.py: the container, the
-checkerboard packing helpers and the training forwards "onepass",
-"twopass" and "twopass_faster", :22-189). All tensors NHWC.
+checkerboard packing helpers, the training forwards "onepass", "twopass"
+and "twopass_faster", :22-189, and the reference format's two dense
+passes, :191-232). All tensors NHWC.
+
+In ``compress`` and ``decompress`` the context and the entropy network run
+on the rows chain (``layers.run_canonical``: the f32 conv kernel's fixed
+reduction order, its plain version on the CPU), so the encoder and the
+decoder get the same parameters bit for bit, on the card and on the CPU.
 """
 
 import torch
 from torch import nn
 
 from flashgmm_tpu_torch.entropy_models.entropy_models import uniform_noise
+from flashgmm_tpu_torch.layers import run_canonical
 from flashgmm_tpu_torch.ops import quantize_ste
 
 _FORWARDS = ("onepass", "twopass", "twopass_faster")
@@ -174,3 +181,50 @@ class CheckerboardLatentCodec(nn.Module):
 
     def merge(self, *args):
         return torch.cat(args, dim=-1)
+
+    # -- reference-format coding: two dense passes ---------------------------
+
+    def _pass_params(self, i, y_hat_, side_i):
+        """Pass i's entropy parameters: the context of the anchors in
+        ``y_hat_`` [2, B, H, W/2, C] (zero for the anchor pass), beside the
+        side parameters, through the entropy network; all on the rows
+        chain."""
+        if i == 0:
+            y_ctx = side_i.new_zeros(tuple(side_i.shape[:-1])
+                                     + (self.context_prediction.out_ch,))
+        else:
+            y_ctx = self.unembed(run_canonical(self.context_prediction,
+                                               self.embed(y_hat_)))[i]
+        return run_canonical(self.entropy_parameters,
+                             self.merge(y_ctx, side_i))
+
+    def compress(self, y, side_params):
+        """y [B, H, W, C] -> {"strings": the two passes' containers,
+        "shape": (H, W, C), "y_hat"}: the anchors coded first, then the
+        non-anchors conditioned on them."""
+        b, h, w, c = y.shape
+        y_hat_ = y.new_zeros((2, b, h, w // 2, c))
+        side_params_ = self.unembed(side_params)
+        y_ = self.unembed(y)
+        y_strings_ = [None, None]
+        for i in range(2):
+            params_i = self._pass_params(i, y_hat_, side_params_[i])
+            y_out = self.latent_codec["y"].compress(y_[i], params_i)
+            y_hat_[i] = y_out["y_hat"]
+            [y_strings_[i]] = y_out["strings"]
+        y_hat = self.embed(y_hat_)
+        return {"strings": y_strings_, "shape": tuple(y_hat.shape[1:]),
+                "y_hat": y_hat}
+
+    def decompress(self, strings, shape, side_params):
+        """{"y_hat" [B, H, W, C]} of the two passes' containers."""
+        h, w, c = shape
+        b = side_params.shape[0]
+        y_hat_ = side_params.new_zeros((2, b, h, w // 2, c))
+        side_params_ = self.unembed(side_params)
+        for i in range(2):
+            params_i = self._pass_params(i, y_hat_, side_params_[i])
+            y_out = self.latent_codec["y"].decompress([strings[i]],
+                                                      (h, w // 2), params_i)
+            y_hat_[i] = y_out["y_hat"]
+        return {"y_hat": self.embed(y_hat_)}

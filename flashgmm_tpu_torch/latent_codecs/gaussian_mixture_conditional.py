@@ -1,15 +1,23 @@
 """GMM conditional codec (port of
-flashgmm_tpu/latent_codecs/gaussian_mixture_conditional.py:22-87): chunks
-the entropy parameters into (scales, means, weights) thirds,
-softmax-normalizes the K mixture weights, and gives the training forward's
-y likelihoods through ``GaussianMixtureConditional``. The fast codecs code
-``y`` from the same parameters.
+flashgmm_tpu/latent_codecs/gaussian_mixture_conditional.py): chunks the
+entropy parameters into (scales, means, weights) thirds, softmax-normalizes
+the K mixture weights, gives the training forward's y likelihoods through
+``GaussianMixtureConditional`` and codes y in the reference format
+(``compress``/``decompress``, :84-116). The fast codecs code ``y`` from the
+same parameters.
+
+Every coding path takes its weights from ``gmm_softmax``
+(``ans/gaussian_cdf.py``; a kernel on the card), whose fixed roundings give
+the card's weights the CPU's bits, so a stream written on either decodes on
+the other; the training forward keeps ``torch.softmax`` for its gradient.
 """
 
 import torch
 from torch import nn
 
+from flashgmm_tpu_torch.ans.gaussian_cdf import gmm_softmax
 from flashgmm_tpu_torch.entropy_models import GaussianMixtureConditional
+from flashgmm_tpu_torch.layers import run_canonical
 from flashgmm_tpu_torch.ops import quantize_ste
 
 
@@ -29,20 +37,28 @@ class GaussianMixtureConditionalLatentCodec(nn.Module):
         self.gaussian_mixture_conditional = GaussianMixtureConditional(K=self.K)
         self.entropy_parameters = entropy_parameters
 
-    def _apply_ep(self, ctx_params):
+    def _apply_ep(self, ctx_params, run=None):
+        """The entropy network on ``ctx_params`` (none: the parameters
+        themselves); ``run(module, x)`` runs it (coding passes
+        ``layers.run_canonical``), default ``module(x)``."""
         if self.entropy_parameters is None:
             return ctx_params
-        return self.entropy_parameters(ctx_params)
+        if run is None:
+            return self.entropy_parameters(ctx_params)
+        return run(self.entropy_parameters, ctx_params)
 
     def _chunk(self, params):
         """(scales, means, weights) thirds of the channel-last parameters."""
         return torch.chunk(params, 3, dim=-1)
 
-    def _reshape_gmm_weight(self, weight):
-        """Softmax over the K mixture components (channel-last [.., K*M])."""
+    def _reshape_gmm_weight(self, weight, exact: bool = False):
+        """Softmax over the K mixture components (channel-last [.., K*M]):
+        ``torch.softmax`` (differentiable), or with ``exact`` the coding
+        paths' ``gmm_softmax``, the same bits on the CPU and the card."""
         b, h, w, km = weight.shape
         weight = weight.reshape(b, h, w, self.K, km // self.K)
-        weight = torch.softmax(weight, dim=-2)
+        weight = gmm_softmax(weight) if exact else torch.softmax(weight,
+                                                                 dim=-2)
         return weight.reshape(b, h, w, km)
 
     def _weighted_mean_recenter(self, means_hat, weights):
@@ -67,3 +83,42 @@ class GaussianMixtureConditionalLatentCodec(nn.Module):
         y_hat, y_likelihoods = gmm(y, scales_hat, means_hat, weights,
                                    training=training, generator=generator)
         return {"likelihoods": {"y": y_likelihoods}, "y_hat": y_hat}
+
+    def _coding_params(self, ctx_params):
+        """(scales, means, weights) of a coding pass: the entropy network on
+        the rows chain, the weights from ``gmm_softmax``."""
+        scales, means, weights = self._chunk(self._apply_ep(ctx_params,
+                                                            run_canonical))
+        return scales, means, self._reshape_gmm_weight(weights, exact=True)
+
+    def compress(self, y, ctx_params):
+        """One image's y [1, H, W, M] -> {"strings": [(string, abs_max,
+        zero_bitmap)], "shape": (H, W), "y_hat"}. With "weighted_mean_ste"
+        the symbols are round(y - weighted mean) and y_hat is those
+        integers, as in the JAX package (its decompress adds the weighted
+        mean back)."""
+        scales, means, weights = self._coding_params(ctx_params)
+        gmm = self.gaussian_mixture_conditional
+        if self.quantizer == "weighted_mean_ste":
+            weighted_sum, means = self._weighted_mean_recenter(means, weights)
+            y = quantize_ste(y - weighted_sum)
+        y_strings, y_hat = gmm.compress(y, scales, means, weights)
+        return {"strings": [y_strings], "shape": tuple(y.shape[1:3]),
+                "y_hat": y_hat}
+
+    def decompress(self, strings, shape, ctx_params):
+        """{"y_hat" [1, H, W, M]} of the container ``strings`` =
+        [(string, abs_max, zero_bitmap)]."""
+        (y_strings,) = strings
+        scales, means, weights = self._coding_params(ctx_params)
+        gmm = self.gaussian_mixture_conditional
+        weighted_sum = None
+        if self.quantizer == "weighted_mean_ste":
+            weighted_sum, means = self._weighted_mean_recenter(means, weights)
+        y_hat = gmm.decompress(*y_strings, scales, means, weights)
+        if weighted_sum is not None:
+            y_hat = y_hat + weighted_sum
+        if tuple(y_hat.shape[1:3]) != tuple(shape):
+            raise ValueError(f"decoded {tuple(y_hat.shape[1:3])}, expected "
+                             f"{tuple(shape)}")
+        return {"y_hat": y_hat}

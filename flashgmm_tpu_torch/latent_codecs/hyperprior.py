@@ -1,5 +1,7 @@
 """Hyperprior composition: the hyper branch produces the parameters of the
-y codec (port of flashgmm_tpu/latent_codecs/hyperprior.py:14-34)."""
+y codec (port of flashgmm_tpu/latent_codecs/hyperprior.py), in the training
+forward and in the reference format (:36-52: the y codec's strings, then
+the z strings)."""
 
 from torch import nn
 
@@ -21,3 +23,19 @@ class HyperpriorLatentCodec(nn.Module):
         return {"likelihoods": {"y": y_out["likelihoods"]["y"],
                                 "z": hyper_out["likelihoods"]["z"]},
                 "y_hat": y_out["y_hat"]}
+
+    def compress(self, y):
+        hyper_out = self.latent_codec["hyper"].compress(y)
+        y_out = self.latent_codec["y"].compress(y, hyper_out["params"])
+        [z_strings] = hyper_out["strings"]
+        return {"strings": [*y_out["strings"], z_strings],
+                "shape": {"y": y_out["shape"], "hyper": hyper_out["shape"]},
+                "y_hat": y_out["y_hat"]}
+
+    def decompress(self, strings, shape):
+        *y_strings_, z_strings = strings
+        hyper_out = self.latent_codec["hyper"].decompress([z_strings],
+                                                          shape["hyper"])
+        y_out = self.latent_codec["y"].decompress(y_strings_, shape["y"],
+                                                  hyper_out["params"])
+        return {"y_hat": y_out["y_hat"]}

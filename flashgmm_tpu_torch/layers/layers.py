@@ -19,6 +19,7 @@ kernel's epilogue.
 """
 
 import math
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -534,3 +535,35 @@ def run_canonical(module, x):
         return module(x)
     return _run_fused(list(module.layers), x, _canonical_fused,
                       run_canonical)
+
+
+@contextmanager
+def pinned_library_settings():
+    """The library settings the transforms run under, whatever the caller
+    set: cuDNN on, no autotuning by timing, deterministic algorithms only,
+    no TF32 in convs or matmuls (GDN's), so that no global setting of the
+    caller changes the quantized latents, and so the bytes."""
+    cudnn = torch.backends.cudnn
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                         allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = prev
+
+
+def run_transform(module, x, dtype=torch.float32):
+    """A transform (g_a, h_a, g_s) on x in ``dtype``: x copied into a tensor
+    of canonical strides first, the module run under
+    :func:`pinned_library_settings`; float32 out. PyTorch picks cuDNN's
+    memory format, and with it the algorithm and its roundings, from the
+    strides, and a caller's batch-1 tensor may carry any stride on its
+    size-1 batch dimension (0 from numpy's ``img[None]``, H*W*3 from a
+    slice of a batch): the bytes differed between two such callers (ROADMAP
+    C9)."""
+    canonical = torch.empty(x.shape, dtype=dtype, device=x.device)
+    with pinned_library_settings():
+        return module(canonical.copy_(x)).float()

@@ -38,7 +38,6 @@ coder calls and the bytes of any list of passes with their packed layout.
 """
 
 import copy
-from contextlib import contextmanager
 from typing import NamedTuple
 
 import numpy as np
@@ -47,7 +46,8 @@ import torch
 from flashgmm_tpu_torch.ans import interleaved as il
 from flashgmm_tpu_torch.ans import rans_kernels
 from flashgmm_tpu_torch.ans.gaussian_cdf import get_approx_mode
-from flashgmm_tpu_torch.layers import route_bf16_kernel, run_canonical
+from flashgmm_tpu_torch.layers import (route_bf16_kernel, run_canonical,
+                                      run_transform)
 
 
 _PASSES = ("z", "y0", "y1")
@@ -56,24 +56,6 @@ _PASSES = ("z", "y0", "y1")
 def _u32_bits(v):
     """int64 values in [0, 2^32) as int32 of the same 32 bits."""
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
-
-
-@contextmanager
-def pinned_library_settings():
-    """The library settings the transforms run under, whatever the caller
-    set: cuDNN on, no autotuning by timing, deterministic algorithms only,
-    no TF32 in convs or matmuls (GDN's), so that no global setting of the
-    caller changes the quantized latents, and so the bytes."""
-    cudnn = torch.backends.cudnn
-    matmul = torch.backends.cuda.matmul
-    prev = matmul.allow_tf32
-    matmul.allow_tf32 = False
-    try:
-        with cudnn.flags(enabled=True, benchmark=False, deterministic=True,
-                         allow_tf32=False):
-            yield
-    finally:
-        matmul.allow_tf32 = prev
 
 
 class StreamOverflow(RuntimeError):
@@ -129,10 +111,11 @@ def _gmm_pass_params(ckbd, gmm, y_ctx, side):
     """A checkerboard pass's entropy parameters -> per-symbol [n, K]
     (scales, means, weights), NHWC-ravel symbol order (reference
     :333-353): the aggregation network on the rows chain, then the GMM
-    codec's chunking and softmax."""
+    codec's chunking and its coding softmax (``gmm_softmax``: the card's
+    weights equal the CPU's)."""
     p = run_canonical(ckbd.entropy_parameters, ckbd.merge(y_ctx, side))
     scales, means, weights = gmm._chunk(p)
-    weights = gmm._reshape_gmm_weight(weights)
+    weights = gmm._reshape_gmm_weight(weights, exact=True)
     K = gmm.K
 
     def flat(v):
@@ -187,16 +170,10 @@ class _FastCodec:
     # -- shared pieces -------------------------------------------------------
 
     def _transform(self, mod, x):
-        """mod on x in the transforms' type. x is copied into a tensor of
-        canonical strides first: PyTorch picks cuDNN's memory format, and
-        with it the algorithm and its roundings, from the strides, and a
-        caller's batch-1 tensor may carry any stride on its size-1 batch
-        dimension (0 from numpy's ``img[None]``, H*W*3 from a slice of a
-        batch): the bytes differed between two such callers (ROADMAP
-        C9)."""
-        canonical = torch.empty(x.shape, dtype=self._dtype, device=x.device)
-        with pinned_library_settings():
-            return mod(canonical.copy_(x)).float()
+        """mod on x in the transforms' type, at canonical strides under
+        pinned library settings (``layers.run_transform``): the bytes of
+        two callers differed by their batch-1 strides (ROADMAP C9)."""
+        return run_transform(mod, x, self._dtype)
 
     def _z_tables(self):
         """(rows [C, L] int32, offsets [C], max_bin [C]) from EB buffers."""

@@ -62,7 +62,7 @@ import warnings
 
 import torch
 
-from flashgmm_tpu_torch.ans import rans_kernels
+from flashgmm_tpu_torch.ans import rans_kernels, rows_kernel
 from flashgmm_tpu_torch.ops import conv_kernel
 
 from .fast_codec import FastCheckerboardGmmCodec, StreamOverflow
@@ -71,7 +71,8 @@ from .fast_codec import FastCheckerboardGmmCodec, StreamOverflow
 # their modules so that a wrapper rebound there is the one counted
 _WRAPPERS = ((rans_kernels, "encode_scan"), (rans_kernels, "encode_scan_gmm"),
              (rans_kernels, "decode_scan"), (rans_kernels, "decode_scan_gmm"),
-             (conv_kernel, "conv2d_nhwc"), (conv_kernel, "conv2d_nhwc_bf16"))
+             (rows_kernel, "gmm_softmax"), (conv_kernel, "conv2d_nhwc"),
+             (conv_kernel, "conv2d_nhwc_bf16"))
 
 
 def _launch_counts():

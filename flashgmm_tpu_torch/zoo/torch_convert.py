@@ -10,8 +10,10 @@ the port keeps the JAX package's paths, whose ``Sequential`` adds a
 absent from the checkpoint's keys; ChannelGroupsLatentCodec's is an
 ``nn.ModuleDict`` there (channel_groups.py:84) and stays. Transposed-conv
 weights are [in, out, kh, kw] in both. Also reproduced: the reference's legacy
-key renames (zoo/pretrained.py:39-62), and the EntropyBottleneck's integer
-tables, resized to the checkpoint's shapes (models/utils.py:66-131).
+key renames (zoo/pretrained.py:39-62), and the entropy models' integer
+tables (the EntropyBottleneck's, and a GaussianConditional's scale table
+and tables where the checkpoint holds them), resized to the checkpoint's
+shapes (models/utils.py:66-131).
 """
 
 import re
@@ -58,8 +60,7 @@ def _as_tensor(v):
 def load_torch_state_dict(model, state_dict, strict: bool = True):
     """Load a torch state dict (tensors or numpy arrays) into the port's
     ``model``. ``strict``: a parameter missing from it raises KeyError.
-    Returns the checkpoint's keys that no parameter took (the reference's
-    scale tables among them, which the port does not hold yet)."""
+    Returns the checkpoint's keys that no parameter or table took."""
     sd = rename_legacy_keys(dict(state_dict))
     used = set()
 
@@ -102,13 +103,22 @@ def load_torch_state_dict(model, state_dict, strict: bool = True):
                 if i < len(node.filters):
                     fill(getattr(node, f"factor{i}"), key(f"_factor{i}"))
             fill(node.quantiles, key("quantiles"))
-            dev = node.quantiles.device
-            for name in ("_offset", "_quantized_cdf", "_cdf_length"):
-                if key(name) in sd:
-                    v = take(key(name))
-                    if v.numel():  # resized to the checkpoint's shape
-                        setattr(node, name, v.to(torch.int32).to(dev))
+            _load_tables(node, key, sd, take, node.quantiles.device)
             used.add(key("target"))
         elif isinstance(node, GaussianConditional):
+            dev = node.scale_table.device
+            if key("scale_table") in sd:
+                node.scale_table = take(key("scale_table")).float().to(dev)
+            _load_tables(node, key, sd, take, dev)
             used.add(key("scale_bound"))
     return [k for k in sd if k not in used]
+
+
+def _load_tables(node, key, sd, take, dev):
+    """An entropy model's integer tables where the checkpoint holds them,
+    resized to its shapes (an empty one is left alone)."""
+    for name in ("_offset", "_quantized_cdf", "_cdf_length"):
+        if key(name) in sd:
+            v = take(key(name))
+            if v.numel():
+                setattr(node, name, v.to(torch.int32).to(dev))

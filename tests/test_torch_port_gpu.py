@@ -28,7 +28,11 @@ codecs round-trip exactly, and its three graphs launch as the eager run.
 The coders' K=1 instances (the single-Gaussian passes) equal their plain
 versions; the GSM codec's rows chain on the card gives the CPU plain
 version's scales and means bit for bit, its round trips are exact on both
-routes, and its bytes cross between the card and the CPU.
+routes, and its bytes cross between the card and the CPU. The reference
+format's boundary-rows kernel and the coding softmax kernel equal their
+plain versions; the card's mixture weights, and so the batched codecs'
+bytes of one image, equal the CPU's; reference-format round trips are
+exact on the card in both modes, and the card's strings decode on the CPU.
 """
 
 import importlib.util
@@ -500,10 +504,12 @@ def test_latency_graphs_equal_the_eager_run(cuda, n, kernel_transforms):
     routed = 12 if kernel_transforms and n >= 64 else 0  # g_a 9, h_a 3
     assert graphs["encode"].launches == {
         "encode_scan": 1, "encode_scan_gmm": 2, "decode_scan": 0,
-        "decode_scan_gmm": 0, "conv2d_nhwc": 12, "conv2d_nhwc_bf16": routed}
+        "decode_scan_gmm": 0, "gmm_softmax": 2, "conv2d_nhwc": 12,
+        "conv2d_nhwc_bf16": routed}
     assert graphs["decode_y"].launches == {
         "encode_scan": 0, "encode_scan_gmm": 0, "decode_scan": 1,
-        "decode_scan_gmm": 2, "conv2d_nhwc": 12, "conv2d_nhwc_bf16": 0}
+        "decode_scan_gmm": 2, "gmm_softmax": 2, "conv2d_nhwc": 12,
+        "conv2d_nhwc_bf16": 0}
     assert graphs["g_s"].launches["conv2d_nhwc_bf16"] == (14 if routed else 0)
 
 
@@ -853,9 +859,10 @@ def test_elic_rows_chain_on_card_equals_the_cpu_plain_version(cuda):
     conv kernel's plain version) for the same z bins and symbols: h_s (its
     transposed convs as zero-inserted convs), each group's context
     parameters, spatial contexts and aggregation networks through
-    ``conv2d_nhwc`` bit for bit, and so each pass's scales and means; the
-    mixture weights are ``torch.softmax`` of those bits, whose CUDA and CPU
-    versions round differently: within one float32 ulp (2^-23 below 1)."""
+    ``conv2d_nhwc`` bit for bit, and so each pass's scales and means; and
+    the mixture weights, the coding softmax of those bits (its kernel on
+    the card, its plain version on the CPU: ROADMAP C11's repair), bit for
+    bit too."""
     import copy
 
     from flashgmm_tpu_torch.runtime import FastElicGmmCodec
@@ -897,11 +904,7 @@ def test_elic_rows_chain_on_card_equals_the_cpu_plain_version(cuda):
                         out[f"pass {k}.{i} {n}"] = t
             stages[dev] = out
     for name, ref in stages["cpu"].items():
-        got = stages["cuda"][name].cpu()
-        if name.endswith("weights"):
-            assert float((got - ref).abs().max()) <= 2.0 ** -23, name
-        else:
-            assert torch.equal(got, ref), name
+        assert torch.equal(stages["cuda"][name].cpu(), ref), name
 
 
 @pytest.mark.parametrize("kernel_transforms", [False, True])
@@ -1100,3 +1103,160 @@ def test_gsm_card_bytes_decode_on_the_cpu(cuda):
     assert torch.equal(codecs["cuda"].decode_y_hat(
         codecs["cuda"].from_bytes(c_data, y_shape), y_shape).cpu(),
         c_out["y_hat"])
+
+
+# -- reference-format coding and the coding softmax -------------------------
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_boundary_rows_and_softmax_kernels_equal_plain(cuda, mode, k):
+    """The reference format's boundary rows (uint16, XLA's saturating
+    convert) and the coding softmax against their plain versions, on the
+    card and on the CPU, edge parameters included."""
+    from flashgmm_tpu_torch.ans.gaussian_cdf import (gmm_boundary_rows,
+                                                     gmm_boundary_rows_plain,
+                                                     gmm_softmax,
+                                                     gmm_softmax_plain)
+
+    for edge in (False, True):
+        s, m, w = _rows_params(20000, k, mode, edge)
+        w[:8] = torch.tensor([2.0, -0.5, float("nan"), 0.7] * 2)[:, None]
+        params = [t.to(cuda) for t in (s, m, w)]
+        before = rows_kernel.gmm_boundary_rows.launches
+        got = gmm_boundary_rows(*params, -48, 97, mode)
+        assert rows_kernel.gmm_boundary_rows.launches == before + 1
+        assert got.dtype == torch.uint16 and got.shape == (20000, 98)
+        ref = gmm_boundary_rows_plain(*params, -48, 97, mode).cpu()
+        cpu = gmm_boundary_rows_plain(s, m, w, -48, 97, mode)
+        assert np.array_equal(got.cpu().numpy(), ref.numpy())
+        assert np.array_equal(ref.numpy(), cpu.numpy())
+    rs = np.random.RandomState(mode + 10 * k)
+    logits = torch.from_numpy(rs.normal(0, 4, (3, 7, 5, k, 37)).astype(
+        np.float32))
+    logits[0, 0, 0, 0, :3] = torch.tensor([80.0, -80.0, 1e-40])
+    before = rows_kernel.gmm_softmax.launches
+    got = gmm_softmax(logits.to(cuda))
+    assert rows_kernel.gmm_softmax.launches == before + 1
+    for ref in (gmm_softmax_plain(logits.to(cuda)).cpu(),
+                gmm_softmax_plain(logits)):
+        assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+def test_boundary_rows_and_softmax_refuse_what_they_do_not_take(cuda):
+    s = torch.ones(8, 4, device=cuda)
+    with pytest.raises(TypeError):
+        rows_kernel.gmm_boundary_rows(s.double(), s.double(), s.double(),
+                                      -48, 97)
+    with pytest.raises(ValueError):
+        rows_kernel.gmm_boundary_rows(s.cpu(), s.cpu(), s.cpu(), -48, 97)
+    with pytest.raises(ValueError):
+        rows_kernel.gmm_softmax(torch.ones(2, 4, 3))  # not CUDA
+    with pytest.raises(TypeError):
+        rows_kernel.gmm_softmax(torch.ones(2, 4, 3, device=cuda).double())
+    with pytest.raises(ValueError):
+        rows_kernel.gmm_softmax(torch.ones(2, 9, 3, device=cuda))  # K > 8
+
+
+def _feed_transforms(codec, ys):
+    """Make ``codec``'s g_a and h_a return the tensors ``ys`` holds (moved
+    to its device), so two codecs code the same latents."""
+    real = codec._transform
+
+    def transform(mod, x):
+        if mod is codec._g_a:
+            return ys["y"].to(codec.device)
+        if mod is codec._h_a:
+            return ys["z"].to(codec.device)
+        return real(mod, x)
+    codec._transform = transform
+
+
+@pytest.mark.parametrize("which", ["flagship", "elic"])
+def test_batched_bytes_of_one_image_equal_on_card_and_cpu(cuda, which):
+    """ROADMAP C11 closed: given the same latents y and z, the batched
+    codec writes the same bytes on the card and on the CPU (the rows chain
+    is the conv kernel's fmaf chain on both, and the weights the coding
+    softmax's), and each decodes the other's."""
+    import copy
+
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+    from flashgmm_tpu_torch.runtime import (FastCheckerboardGmmCodec,
+                                            FastElicGmmCodec)
+
+    if which == "flagship":
+        cpu_model = Cheng2020AnchorCheckerboardGMMv2(N=64, K=4, seed=0,
+                                                     device="cpu")
+        cpu_model.update(update_quantiles=True)
+        make = lambda m: FastCheckerboardGmmCodec(m, lanes=256)  # noqa: E731
+    else:
+        cpu_model = _elic("cpu", 64, 160, 4)
+        make = lambda m: FastElicGmmCodec(m, lanes=128)  # noqa: E731
+    codecs = {"cpu": make(cpu_model),
+              "cuda": make(copy.deepcopy(cpu_model).to(cuda))}
+    x = torch.from_numpy(textured_leaves(128, 128, seed=500001)[None])
+    card = codecs["cuda"]
+    with torch.inference_mode():
+        y = card._transform(card._g_a, x.to(cuda))
+        ys = {"y": y, "z": card._transform(card._h_a, y)}
+    for c in codecs.values():
+        _feed_transforms(c, ys)
+    data = {dev: c.encode_to_bytes(x.to(c.device)) for dev, c in codecs.items()}
+    assert data["cuda"][0] == data["cpu"][0]
+    y_shape = tuple(data["cpu"][1]["y_hat"].shape)
+    for dev, c in codecs.items():
+        other = data["cpu" if dev == "cuda" else "cuda"]
+        y_dec = c.decode_y_hat(c.from_bytes(other[0], y_shape), y_shape)
+        assert torch.equal(y_dec.cpu(), other[1]["y_hat"].cpu()), dev
+
+
+def _reference_models(dev):
+    from flashgmm_tpu_torch.models import (Cheng2020AnchorCheckerboard,
+                                           Cheng2020AnchorCheckerboardGMMv2)
+
+    flagship = Cheng2020AnchorCheckerboardGMMv2(N=64, K=4, seed=0,
+                                                device="cpu")
+    gsm = Cheng2020AnchorCheckerboard(N=64, seed=0, device="cpu")
+    models = {"flagship": flagship, "elic": _elic("cpu", 64, 160, 4),
+              "gsm": gsm}
+    for m in (flagship, gsm):
+        m.update(update_quantiles=True)
+    return models
+
+
+@pytest.mark.parametrize("host_math", ["0", "1"])
+def test_reference_format_roundtrips_on_card_and_decodes_on_the_cpu(
+        cuda, host_math, monkeypatch):
+    """model.compress on the card (the flagship and ELIC in the given
+    mode, the GSM model on its scale table): decompress's y_hat equals
+    compress's, x_hat in [0, 1]; the same models on the CPU decode the
+    card's strings to the card's y_hat; the boundary rows and the softmax
+    launched a GMM pass each in device-rows mode."""
+    import copy
+
+    from flashgmm_tpu_torch.datasets import textured_leaves
+
+    monkeypatch.setenv("FLASHGMM_HOST_MATH", host_math)
+    x = torch.from_numpy(textured_leaves(128, 128, seed=500002)[None])
+    for name, cpu_model in _reference_models("cpu").items():
+        if name == "gsm" and host_math == "1":
+            continue  # the table path has one mode
+        card = copy.deepcopy(cpu_model).to(cuda)
+        passes = {"flagship": 2, "elic": 10, "gsm": 0}[name]
+        before = (rows_kernel.gmm_boundary_rows.launches,
+                  rows_kernel.gmm_softmax.launches)
+        out = card.compress(x.to(cuda))
+        after = (rows_kernel.gmm_boundary_rows.launches,
+                 rows_kernel.gmm_softmax.launches)
+        assert (after[0] - before[0], after[1] - before[1]) == (
+            passes if host_math == "0" else 0, passes), name
+        y_hat = card.latent_codec.decompress(out["strings"],
+                                             out["shape"])["y_hat"]
+        assert torch.equal(y_hat, out["y_hat"]), name
+        x_hat = card.decompress(out["strings"], out["shape"])["x_hat"]
+        assert x_hat.shape == x.shape and 0 <= float(x_hat.min()) \
+            and float(x_hat.max()) <= 1, name
+        y_cpu = cpu_model.latent_codec.decompress(out["strings"],
+                                                  out["shape"])["y_hat"]
+        assert torch.equal(y_cpu, out["y_hat"].cpu()), name

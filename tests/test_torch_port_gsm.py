@@ -275,9 +275,10 @@ def test_training_forward_is_seeded_and_differentiable(ckbd, elic, which):
 
 def test_jax_export_loads_through_torch_convert(ckbd):
     """A JAX Cheng2020AnchorCheckerboard exported as a CompressAI state
-    dict (flashgmm_tpu/zoo/torch_export.py) loads into the port; the
-    GaussianConditional's scale table and tables come back unused, and the
-    eval forward equals the npz-loaded port's."""
+    dict (flashgmm_tpu/zoo/torch_export.py) loads into the port with every
+    key taken (the GaussianConditional's scale table and tables too: the
+    JAX model's are empty before its update(), and so are the port's), and
+    the eval forward equals the npz-loaded port's."""
     from flashgmm_tpu.zoo.torch_export import export_torch_state_dict
     from flashgmm_tpu_torch.zoo import load_torch_state_dict
 
@@ -285,7 +286,12 @@ def test_jax_export_loads_through_torch_convert(ckbd):
     sd = export_torch_state_dict(jm)
     fresh = TCkbd(N=N, seed=1, device="cpu")
     unused = load_torch_state_dict(fresh, sd)
-    assert unused and all("gaussian_conditional" in k for k in unused), unused
+    assert unused == [], unused
+    gc = fresh.latent_codec.latent_codec["y"].latent_codec["y"] \
+        .gaussian_conditional
+    np.testing.assert_array_equal(
+        gc.scale_table.numpy(),
+        sd["latent_codec.y.y.gaussian_conditional.scale_table"])
     x = torch.from_numpy(_images(1, 6))
     with torch.no_grad():
         a, b = fresh.eval()(x, training=False), tm(x, training=False)

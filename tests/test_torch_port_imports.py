@@ -57,11 +57,27 @@ def test_smoke_refuses_without_a_card():
     "flashgmm_tpu_torch.models.waseda",
     "flashgmm_tpu_torch.latent_codecs.gaussian_conditional",
     "flashgmm_tpu_torch.runtime.fast_codec",
+    "flashgmm_tpu_torch.ans",
+    "flashgmm_tpu_torch.ans.cext",
+    "flashgmm_tpu_torch.ans.gaussian_cdf",
+    "flashgmm_tpu_torch.ans.rows_kernel",
+    "flashgmm_tpu_torch.ans.pmf_to_cdf",
+    "flashgmm_tpu_torch.entropy_models.xla_math",
+    "flashgmm_tpu_torch.latent_codecs.gaussian_mixture_conditional",
+    "flashgmm_tpu_torch.latent_codecs.checkerboard",
+    "flashgmm_tpu_torch.latent_codecs.hyper",
+    "flashgmm_tpu_torch.latent_codecs.hyperprior",
+    "flashgmm_tpu_torch.latent_codecs.channel_groups",
+    "flashgmm_tpu_torch.layers.layers",
+    "flashgmm_tpu_torch.runtime.latency_codec",
+    "flashgmm_tpu_torch._build",
 ])
 def test_forward_and_converter_modules_import_no_jax(module):
     """The CompressAI state-dict converter, the training forward's modules,
-    the ELIC model and codecs, and the single-Gaussian models and codec,
-    each imported alone in a fresh interpreter."""
+    the ELIC model and codecs, the single-Gaussian models and codec, and
+    the reference format's modules (the host coder's binding, the rows and
+    softmax, the latent codecs' compress and decompress), each imported
+    alone in a fresh interpreter."""
     probe = (f"import importlib, sys; importlib.import_module({module!r}); "
              "print(','.join(sorted(k for k in sys.modules if k.split('.')[0] "
              "in ('jax', 'jaxlib', 'flax', 'flashgmm_tpu'))))")
