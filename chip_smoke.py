@@ -111,7 +111,17 @@ Phases, each ending in one flushed line with its seconds:
    PSNR beside the batched codec's, compress and decompress ms with the
    host coder's share and the card's busy ms, and the port on the CPU
    decoding the card's strings of a 64x64 image to the card's y_hat;
-12. timing: every kernel call of those runs timed again by CUDA events,
+12. train: training at full width under the trainer's library settings
+   (cuDNN TF32 on, autotuning on; ``train_phase``): the flagship on a fixed
+   batch of 8 256x256 crops, 20 ``train_step``s (finite terms, the loss
+   going down, the quantiles and g_a moved, a NaN batch guarded), the step,
+   forward and backward ms, peak memory, the top device kernels of a step,
+   and one step under the coding path's pinned settings (TF32 off, no
+   autotuning) beside it;
+   the trainer CLI on a folder of PPMs (2 epochs across a milestone, a
+   resume, the checkpoints loading bit for bit); one step each of ELIC and
+   GSM. None of the port's hand kernels runs there;
+13. timing: every kernel call of those runs timed again by CUDA events,
    back to back ("ms"), beside its plain version, a library call where one
    computes the same function, and its bound; the encoders and the bounds
    kernel also on the device alone ("device_ms": the stream's queue filled
@@ -131,8 +141,8 @@ Phases, each ending in one flushed line with its seconds:
    compress + decompress ("reference_*"), where the boundary-rows kernel
    has its main path's launches and calls.
 
-It prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its
-last line ``{"ok": true, "device": {...}}``. Any failed check raises, so
+It prints its total seconds, a ``{"kernels": [...]}`` line, the nvidia-smi
+line, and as its last line ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the run exits non-zero without that line; a hang ends after 1000 s with a
 traceback. Needs a CUDA device and this repository; imports no JAX.
 """
@@ -202,8 +212,13 @@ DEVICE_TIMED = ("rans_encode", "rans_encode_gmm", "gmm_bounds",
 # float32 operations of one softmax entry: the max's compare, the subtract,
 # XLA's exp (22), the sum's add, the divide, and the flushes' compares (4)
 SOFTMAX_FLOPS_PER_ENTRY = 30
+# the training phase: the trainer CLI's defaults (examples/train.py) and
+# the steps the flagship takes on one fixed batch
+TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS = 8, 256, 20
+TRAIN_LR, TRAIN_AUX_LR, TRAIN_LMBDA = 1e-4, 1e-3, 0.01
 
-_t_phase = [time.perf_counter()]
+_T_START = time.perf_counter()
+_t_phase = [_T_START]
 
 
 def phase(name, detail=""):
@@ -1144,10 +1159,10 @@ def gsm_phase(dev, x, record, originals):
     return launches, calls, words
 
 
-def device_busy_ms(fn):
+def device_busy_ms(fn, top_n=3):
     """fn() under torch.profiler: (fn's result, ms the card was busy, the
     union of its kernels' and copies' intervals, the device events, and
-    the three names that took the most device time, with their ms and
+    the ``top_n`` names that took the most device time, with their ms and
     counts). A trace that holds no device event lost them (seen after
     several profiler sessions in one process) and is taken again, up to
     three times."""
@@ -1160,7 +1175,10 @@ def device_busy_ms(fn):
                                  ProfilerActivity.CUDA]) as prof:
             out = fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        # a user annotation (``Optimizer.step#Adam.step``) spans kernels
+        # on the device timeline; it is not one
+        events = [e for e in prof.events() if e.device_type.name == "CUDA"
+                  and not getattr(e, "is_user_annotation", False)]
         if events:
             busy, end = 0.0, float("-inf")
             by_name = {}
@@ -1171,7 +1189,7 @@ def device_busy_ms(fn):
                     end = b
                 ms, n = by_name.get(e.name, (0.0, 0))
                 by_name[e.name] = (ms + (b - a) / 1e3, n + 1)
-            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:3]
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
             return out, busy / 1e3, len(events), top
     raise RuntimeError("device_busy_ms: three traces without device events")
 
@@ -1347,6 +1365,274 @@ def reference_phase(dev, x1, model, record, originals, smi_line):
           "ELIC and the GSM model on the card; their strings decoded on the "
           "CPU")
     return result
+
+
+def train_phase(dev):
+    """Training on the card under the trainer's library settings (cuDNN's
+    TF32 on, as PyTorch's default, matmul TF32 off, ``cudnn.benchmark``
+    on), restored to this script's afterwards:
+    1. the flagship (Cheng2020AnchorCheckerboardGMMv2 N=192, K=4, seed 0)
+       on one fixed batch of TRAIN_BATCH random TRAIN_PATCH^2 crops of
+       textured-leaves images (``random.seed(SEED0)``), TRAIN_STEPS
+       ``train_step``s at the trainer's defaults: every returned term
+       finite, the mean of the last 5 losses below the first 5's, the
+       quantiles and a g_a weight moved by the first step; a batch holding
+       a NaN leaves every parameter finite and advances both optimizers'
+       step counts. Prints the median step ms of steps 6-20 (CUDA events),
+       the forward and backward ms apart (medians of 3), the peak memory
+       (steps 1-5, with cuDNN's autotuning, and steps 6-20 apart) and the
+       top 5 device kernels of one step (profiler); and one step
+       of the same weights, batch and noise under the coding path's pinned
+       settings (TF32 off, no autotuning): its ms, and its loss within 1e-2 relative of
+       the trainer settings' loss;
+    2. the trainer CLI (``flashgmm_tpu_torch.examples.train.main``) on the
+       card over a temporary folder of 768x512 textured-leaves binary PPMs
+       (16 train, 4 test): 2 epochs at batch 8, 256^2, milestone 1, then a
+       resume from ``latest`` for a third: three finite records in
+       train_log.jsonl with lr 1e-4, 1e-5, 1e-5; ``latest`` and ``best``
+       load into a fresh model bit for bit;
+    3. ELIC (Elic2022GMM N=192, M=320, K=4) and the GSM checkerboard
+       (Cheng2020AnchorCheckerboard N=128), seed 0: two steps each on the
+       same batch, finite terms, g_a and the quantiles moved; both steps'
+       ms (the first includes cuDNN's autotuning)."""
+    import copy
+    import random
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.datasets import save_image, textured_leaves
+    from flashgmm_tpu_torch.datasets.image import random_crop
+    from flashgmm_tpu_torch.examples import train as trainer
+    from flashgmm_tpu_torch.losses import rate_distortion_loss
+    from flashgmm_tpu_torch.models import (Cheng2020AnchorCheckerboard,
+                                           Cheng2020AnchorCheckerboardGMMv2,
+                                           Elic2022GMM)
+    from flashgmm_tpu_torch.optimizers import net_aux_partition
+    from flashgmm_tpu_torch.parallel import (make_train_state,
+                                             set_guarded_grads, train_step)
+    from flashgmm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, cudnn.benchmark, matmul.allow_tf32)
+
+    def settings(cudnn_tf32, benchmark, matmul_tf32=False):
+        cudnn.allow_tf32, cudnn.benchmark = cudnn_tf32, benchmark
+        matmul.allow_tf32 = matmul_tf32
+
+    def timed_step(model, opts, batch, gen):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = train_step(model, *opts, batch, gen, TRAIN_LMBDA)
+        b.record()
+        torch.cuda.synchronize()
+        return {k: float(v) for k, v in out.items()}, a.elapsed_time(b)
+
+    def step_counts(opt):
+        return {int(st["step"]) for st in opt.state.values()}
+
+    def quantiles(model):
+        _, aux = net_aux_partition(model)
+        return [p.detach().clone() for p in aux.values()]
+
+    def first_weight(model):
+        return next(p for n, p in model.named_parameters()
+                    if n.startswith("g_a.")).detach().clone()
+
+    def moved(model, q0, w0, tag):
+        require(all(not torch.equal(p, q) for p, q in zip(quantiles(model),
+                                                          q0)),
+                f"train: {tag}: a step left the quantiles unchanged")
+        require(not torch.equal(first_weight(model), w0),
+                f"train: {tag}: a step left g_a's first weight unchanged")
+
+    def finite(out, tag):
+        require(all(np.isfinite(v) for v in out.values()),
+                f"train: {tag}: a returned term is not finite: {out}")
+
+    try:
+        settings(True, True)  # the trainer's
+        imgs = [textured_leaves(H, W, seed=SEED0 + 1 + i) for i in range(20)]
+        random.seed(SEED0)
+        batch = torch.from_numpy(np.stack([
+            random_crop(imgs[i], TRAIN_PATCH) for i in range(TRAIN_BATCH)])
+        ).to(dev)
+        with torch.inference_mode(False):
+            # 1. the flagship at full width --------------------------------
+            batch = batch.clone()
+            model = Cheng2020AnchorCheckerboardGMMv2(N=N, K=K, seed=0,
+                                                     device=dev)
+            opts = make_train_state(model, TRAIN_LR, TRAIN_AUX_LR, 1.0)
+            gen = torch.Generator(device=dev).manual_seed(SEED0)
+            torch.cuda.reset_peak_memory_stats()
+            q0, w0 = quantiles(model), first_weight(model)
+            losses, step_ms = [], []
+            for i in range(TRAIN_STEPS):
+                if i == 5:  # steps 1-5 hold cuDNN's autotuning workspaces
+                    peak_first = torch.cuda.max_memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                out, ms = timed_step(model, opts, batch, gen)
+                finite(out, f"flagship step {i + 1}")
+                if i == 0:
+                    moved(model, q0, w0, "flagship")
+                losses.append(out["loss"])
+                step_ms.append(ms)
+            peak = torch.cuda.max_memory_allocated()
+            require(np.mean(losses[-5:]) < np.mean(losses[:5]),
+                    f"train: the flagship's loss did not go down: {losses}")
+
+            fwd, bwd = [], []
+            net = list(net_aux_partition(model)[0].values())
+            for _ in range(3):
+                a, b, c = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(3))
+                torch.cuda.synchronize()
+                a.record()
+                o = model(batch, training=True, generator=gen)
+                loss = rate_distortion_loss(o, batch, TRAIN_LMBDA)["loss"]
+                b.record()
+                set_guarded_grads(loss, net, 1.0)
+                c.record()
+                torch.cuda.synchronize()
+                fwd.append(a.elapsed_time(b))
+                bwd.append(b.elapsed_time(c))
+                model.zero_grad(set_to_none=True)
+                del o, loss
+            _, busy, n_events, top = device_busy_ms(
+                lambda: train_step(model, *opts, batch, gen, TRAIN_LMBDA),
+                top_n=5)
+
+            counts = [step_counts(o) for o in opts]
+            bad = batch.clone()
+            bad[0, 5, 7, 1] = float("nan")
+            out = {k: float(v) for k, v in train_step(
+                model, *opts, bad, gen, TRAIN_LMBDA).items()}
+            require(not np.isfinite(out["loss"]),
+                    "train: a NaN batch gave a finite loss")
+            require(all(bool(torch.isfinite(p).all())
+                        for p in model.parameters()),
+                    "train: a NaN batch left a parameter not finite")
+            require([step_counts(o) for o in opts]
+                    == [{max(c) + 1} for c in counts],
+                    "train: the guarded step did not count in both "
+                    "optimizers")
+
+            state = gen.get_state()
+            runs = {}
+            for tag, cudnn_tf32, benchmark in (("trainer", True, True),
+                                               ("pinned", False, False)):
+                settings(cudnn_tf32, benchmark)
+                m = copy.deepcopy(model)
+                o = make_train_state(m, TRAIN_LR, TRAIN_AUX_LR, 1.0)
+                gen.set_state(state)
+                first, ms1 = timed_step(m, o, batch, gen)
+                _, ms2 = timed_step(m, o, batch, gen)
+                runs[tag] = (first["loss"], ms1, ms2)
+                del m, o
+            settings(True, True)
+            rel = abs(runs["pinned"][0] / runs["trainer"][0] - 1)
+            require(rel <= 1e-2, f"train: the loss under the pinned settings is "
+                    f"{100 * rel:.3f} % from the trainer settings' loss")
+            print(f"  train flagship N={N} K={K}, batch {TRAIN_BATCH} x "
+                  f"{TRAIN_PATCH}^2, lr {TRAIN_LR}, aux lr {TRAIN_AUX_LR}, "
+                  f"lambda {TRAIN_LMBDA}: loss {losses[0]:.3f} -> "
+                  f"{losses[-1]:.3f} over {TRAIN_STEPS} steps; step "
+                  f"{statistics.median(step_ms[5:]):.3f} ms (median of steps "
+                  f"6-{TRAIN_STEPS}, CUDA events; first step "
+                  f"{step_ms[0]:.1f} ms); forward {statistics.median(fwd):.3f} "
+                  f"ms, backward {statistics.median(bwd):.3f} ms (medians of "
+                  f"3); peak memory {peak / 2**30:.3f} GiB over steps 6-"
+                  f"{TRAIN_STEPS} ({peak_first / 2**30:.3f} GiB over steps 1-5, "
+                  f"cuDNN's autotuning); one profiled step "
+                  f"busy {busy:.3f} ms over {n_events} device events",
+                  flush=True)
+            print("  train flagship top 5 device kernels of one step: "
+                  + "; ".join(f"{name[:90]} {ms:.3f} ms x{n}"
+                              for name, (ms, n) in top), flush=True)
+            print(f"  train flagship, one step of the same weights, batch and "
+                  f"noise: trainer settings (cuDNN TF32 on, benchmark on) "
+                  f"loss {runs['trainer'][0]:.4f}, {runs['trainer'][1]:.3f} "
+                  f"then {runs['trainer'][2]:.3f} ms; pinned settings (TF32 "
+                  f"off, benchmark off) loss {runs['pinned'][0]:.4f} "
+                  f"({100 * rel:.4f} % apart), {runs['pinned'][1]:.3f} then "
+                  f"{runs['pinned'][2]:.3f} ms", flush=True)
+            del model, opts
+
+            # 2. the trainer CLI over a folder of PPMs ----------------------
+            with tempfile.TemporaryDirectory() as tmp:
+                root = Path(tmp)
+                for split, idx in (("train", range(16)),
+                                   ("test", range(16, 20))):
+                    (root / "data" / split).mkdir(parents=True)
+                    for i in idx:
+                        save_image(root / "data" / split / f"{i}.ppm", imgs[i])
+                ck = root / "ck"
+                args = ["-d", str(root / "data"), "-n", str(N), "-K", str(K),
+                        "--batch-size", str(TRAIN_BATCH), "--patch-size",
+                        str(TRAIN_PATCH), "--lr-milestones", "1", "--device",
+                        str(dev), "--checkpoint-dir", str(ck)]
+                t0 = time.perf_counter()
+                require(trainer.main(args + ["--epochs", "2"]) == 0,
+                        "train: the trainer's run failed")
+                t1 = time.perf_counter()
+                require(trainer.main(args + ["--epochs", "3", "--checkpoint",
+                                             str(ck / "latest")]) == 0,
+                        "train: the trainer's resume failed")
+                t2 = time.perf_counter()
+                settings(True, True)  # main() set the same
+                records = [json.loads(line) for line in
+                           (ck / "train_log.jsonl").read_text().splitlines()]
+                require([r["epoch"] for r in records] == [0, 1, 2]
+                        and all(np.isfinite(r[k]) for r in records
+                                for k in ("loss", "bpp_loss", "mse_loss",
+                                          "aux_loss", "test_loss")),
+                        f"train: the trainer's log is not three finite "
+                        f"epochs: {records}")
+                lrs = [r["lr"] for r in records]
+                require(np.allclose(lrs, [1e-4, 1e-5, 1e-5], rtol=1e-9,
+                                    atol=0), f"train: the trainer's lr {lrs}")
+                for name in ("latest", "best"):
+                    saved_sd = torch.load(ck / name, map_location=dev,
+                                          weights_only=True)["model"]
+                    fresh = Cheng2020AnchorCheckerboardGMMv2(
+                        N=N, K=K, seed=1, device=dev)
+                    load_checkpoint(ck / name, fresh)
+                    require(all(torch.equal(p, saved_sd[k])
+                                for k, p in fresh.named_parameters()),
+                            f"train: the {name} checkpoint does not load "
+                            "bit for bit")
+                    del fresh, saved_sd
+            print(f"  train CLI: 2 epochs of 16 PPMs ({16 // TRAIN_BATCH} "
+                  f"steps each, eval on 4) in {t1 - t0:.2f} s, the resumed third in "
+                  f"{t2 - t1:.2f} s; lr {lrs}; loss "
+                  f"{[round(r['loss'], 3) for r in records]}, test loss "
+                  f"{[round(r['test_loss'], 3) for r in records]}", flush=True)
+
+            # 3. ELIC and GSM ----------------------------------------------
+            for tag, build in (
+                    (f"ELIC N={N} M={ELIC_M} K={K}", lambda: Elic2022GMM(
+                        N=N, M=ELIC_M, K=K, seed=0, device=dev)),
+                    (f"GSM N={GSM_N}", lambda: Cheng2020AnchorCheckerboard(
+                        N=GSM_N, seed=0, device=dev))):
+                m = build()
+                o = make_train_state(m, TRAIN_LR, TRAIN_AUX_LR, 1.0)
+                q0, w0 = quantiles(m), first_weight(m)
+                first, ms1 = timed_step(m, o, batch, gen)
+                finite(first, tag)
+                moved(m, q0, w0, tag)
+                second, ms2 = timed_step(m, o, batch, gen)
+                finite(second, tag)
+                print(f"  train {tag}: batch {TRAIN_BATCH} x {TRAIN_PATCH}^2, "
+                      f"loss {first['loss']:.3f} then {second['loss']:.3f}; "
+                      f"step {ms1:.1f} ms (autotuning) then {ms2:.3f} ms",
+                      flush=True)
+                del m, o
+    finally:
+        settings(*saved)
+    phase("train", "the flagship, the trainer CLI, ELIC and GSM at full "
+          "width under the trainer's settings")
 
 
 def main() -> int:
@@ -2133,7 +2419,10 @@ def smoke():
     ref_launches, ref_calls = reference_phase(dev, x1, model, record,
                                               originals, smi_line)
 
-    # 12. timing of every recorded call -----------------------------------
+    # 12. training at full width under the trainer's settings ------------
+    train_phase(dev)
+
+    # 13. timing of every recorded call -----------------------------------
     pass_words = [int(out[k].n_words) for k in ("z", "y0", "y1")]
 
     def probes_by_count(L):
@@ -2539,6 +2828,7 @@ def smoke():
           f"flagship's reference-format compress + decompress of one image "
           f"in device-rows mode, {t_ref:.2f} s)")
 
+    print(f"smoke total {time.perf_counter() - _T_START:.2f} s", flush=True)
     print(json.dumps({"kernels": results, "card": kind,
                       "power_limit": smi_line.split(",")[-1].strip()}),
           flush=True)

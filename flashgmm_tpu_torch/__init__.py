@@ -20,6 +20,11 @@ each wrapper runs its plain PyTorch version instead.
 The reference format (``model.compress`` / ``decompress``, CompressAI's
 container) runs the host rANS coder ``csrc/rans.cpp``, which the port
 builds itself at first use (``ans/cext.py``).
+
+Training (``parallel.train_step``, the trainer
+``python -m flashgmm_tpu_torch.examples.train``) runs the models' forward
+and autograd in plain PyTorch: no hand kernel is on its path, as no Pallas
+kernel is on the JAX package's.
 """
 
 __version__ = "0.1.0"

@@ -27,11 +27,13 @@ from flashgmm_tpu_torch.layers import (
     LeakyReLU,
     Sequential,
 )
+from flashgmm_tpu_torch.registry import register_model
 
 from .base import SimpleVAECompressionModel
 from .waseda import _cheng_g_a, _cheng_g_s, _cheng_h_a, _cheng_h_s
 
 
+@register_model("cheng2020-anchor-checkerboard-gmm")
 class Cheng2020AnchorCheckerboardGMMv2(SimpleVAECompressionModel):
     def __init__(self, N=192, K=4, quantizer: str = "noise", *,
                  seed: int = 0, device="cuda"):

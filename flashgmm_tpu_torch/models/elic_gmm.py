@@ -33,6 +33,7 @@ from flashgmm_tpu_torch.layers import (
     deconv,
     sequential_channel_ramp,
 )
+from flashgmm_tpu_torch.registry import register_model
 
 from .base import SimpleVAECompressionModel
 
@@ -143,6 +144,7 @@ def _elic_groups(M, groups):
     return groups
 
 
+@register_model("elic2022-official")
 class Elic2022GMM(SimpleVAECompressionModel):
     def __init__(self, N=192, M=320, K=4, quantizer: str = "noise",
                  groups=None, *, seed: int = 0, device="cuda"):

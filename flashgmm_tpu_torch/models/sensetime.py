@@ -33,12 +33,14 @@ from flashgmm_tpu_torch.layers import (
     LeakyReLU,
     Sequential,
 )
+from flashgmm_tpu_torch.registry import register_model
 
 from .base import SimpleVAECompressionModel
 from .elic_gmm import _elic_groups, _elic_modules
 from .waseda import _cheng_g_a, _cheng_g_s, _cheng_h_a, _cheng_h_s
 
 
+@register_model("cheng2020-anchor-checkerboard")
 class Cheng2020AnchorCheckerboard(SimpleVAECompressionModel):
     def __init__(self, N=192, *, seed: int = 0, device="cuda"):
         super().__init__()
@@ -74,6 +76,7 @@ class Cheng2020AnchorCheckerboard(SimpleVAECompressionModel):
         self.to(device)
 
 
+@register_model("elic2022-gaussian")
 class Elic2022Official(SimpleVAECompressionModel):
     def __init__(self, N=192, M=320, groups=None, *, seed: int = 0,
                  device="cuda"):

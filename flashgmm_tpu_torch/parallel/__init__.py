@@ -1,0 +1,3 @@
+from .train import make_train_state, set_guarded_grads, train_step
+
+__all__ = ["make_train_state", "set_guarded_grads", "train_step"]

@@ -1,0 +1,112 @@
+"""The image training step on one device (port of make_train_state and
+data_parallel_train_step, flashgmm_tpu/parallel/train.py:15-86).
+
+The JAX step shards its batch over a mesh; the port trains on one card, so
+it has neither a mesh nor DDP. The order of the JAX step is kept:
+1. the rate-distortion loss of the training forward (uniform noise from
+   ``generator``) and its gradients for the "net" parameters;
+2. the non-finite guard: if the loss or any gradient is not finite, every
+   gradient becomes zero. The step is not skipped: like optax's Adam,
+   ``torch.optim.Adam`` then moves the parameters by their decayed
+   momentum and counts the step, because each gradient is a zero tensor,
+   never ``None`` (Adam skips a parameter whose gradient is ``None``);
+3. optax's ``clip_by_global_norm``: ``g`` if ``||g|| < max``, else
+   ``g / ||g|| * max`` (``torch.nn.utils.clip_grad_norm_`` divides by
+   ``||g|| + 1e-6`` instead);
+4. the net Adam step;
+5. the aux loss of the updated model, its gradients for the quantiles
+   alone, the same guard, the aux Adam step.
+
+No library settings are pinned on the card: a training step's result
+depends on no coded bytes, so it runs under the caller's (the trainer
+leaves TF32 at PyTorch's defaults and lets cuDNN time its algorithms). On
+CPU tensors the step runs with oneDNN off: PyTorch 2.13's oneDNN backward
+of a 1x1 stride-2 conv over a channels-last input of 3 channels (g_a's
+first skip conv) corrupts the heap.
+"""
+
+from contextlib import contextmanager, nullcontext
+
+import torch
+
+from flashgmm_tpu_torch.losses import rate_distortion_loss
+from flashgmm_tpu_torch.optimizers.net_aux import make_adam, net_aux_partition
+
+
+def make_train_state(model, learning_rate=1e-4, aux_learning_rate=1e-3,
+                     clip_max_norm=1.0):
+    """(net optimizer, aux optimizer), each ``torch.optim.Adam`` over one
+    side of ``net_aux_partition(model)``. The net optimizer's parameter
+    group carries ``clip_max_norm`` (0 or None: no clip), which
+    :func:`train_step` applies before the net Adam step, as
+    ``optax.chain(clip_by_global_norm, adam)`` does."""
+    net, aux = net_aux_partition(model)
+    opt_net = make_adam(net.values(), {"lr": learning_rate},
+                        clip_max_norm=clip_max_norm)
+    opt_aux = make_adam(aux.values(), {"lr": aux_learning_rate})
+    return opt_net, opt_aux
+
+
+@contextmanager
+def _onednn_off():
+    prev = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = prev
+
+
+def _params(opt):
+    return [p for group in opt.param_groups for p in group["params"]]
+
+
+def set_guarded_grads(loss, params, clip_max_norm=None):
+    """Each parameter's ``.grad``: d loss / d p (zero where p does not
+    reach the loss), all zero if the loss or any gradient is not finite,
+    then clipped to the global norm ``clip_max_norm`` as optax does. The
+    gradients are slices of one flat tensor, so the guard and the clip are
+    a few kernels and never wait for the device."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
+                      for p, g in zip(params, grads)])
+    zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
+    ok = torch.isfinite(loss) & torch.isfinite(flat).all()
+    flat = torch.where(ok, flat, zero)
+    if clip_max_norm:
+        norm = torch.linalg.vector_norm(flat)
+        flat = torch.where(norm < clip_max_norm, flat,
+                           flat / norm * clip_max_norm)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad = g.view_as(p)
+
+
+def train_step(model, opt_net, opt_aux, batch, generator,
+               lmbda: float = 1e-2, metric: str = "mse"):
+    """One RD step and one aux step on ``batch`` [B, H, W, 3] (on the
+    model's device; float in [0, 1]); ``generator`` (a ``torch.Generator``
+    on that device) draws the training noise; ``metric`` is "mse" or
+    "ms-ssim", the reference's two recipes. Returns {"loss", "bpp_loss",
+    "mse_loss" (the metric's distortion), "aux_loss"} as detached 0-d
+    tensors on the device: reading them is the caller's synchronisation."""
+    model.train()
+    with _onednn_off() if batch.device.type == "cpu" else nullcontext():
+        out = model(batch, training=True, generator=generator)
+        details = rate_distortion_loss(out, batch, lmbda=lmbda, metric=metric)
+        loss = details["loss"]
+        set_guarded_grads(loss, _params(opt_net),
+                          opt_net.param_groups[0].get("clip_max_norm"))
+    opt_net.step()
+    opt_net.zero_grad(set_to_none=True)
+
+    aux_loss = model.aux_loss()
+    set_guarded_grads(aux_loss, _params(opt_aux))
+    opt_aux.step()
+    opt_aux.zero_grad(set_to_none=True)
+
+    return {
+        "loss": loss.detach(),
+        "bpp_loss": details["bpp_loss"].detach(),
+        "mse_loss": details.get("mse_loss", details[f"{metric}_loss"]).detach(),
+        "aux_loss": aux_loss.detach(),
+    }

@@ -33,6 +33,9 @@ format's boundary-rows kernel and the coding softmax kernel equal their
 plain versions; the card's mixture weights, and so the batched codecs'
 bytes of one image, equal the CPU's; reference-format round trips are
 exact on the card in both modes, and the card's strings decode on the CPU.
+One training step of the narrow flagship on the card agrees with the
+CPU's (loss and gradients within 1e-4, TF32 off, zero noise), and its
+non-finite guard keeps the parameters finite.
 """
 
 import importlib.util
@@ -1260,3 +1263,88 @@ def test_reference_format_roundtrips_on_card_and_decodes_on_the_cpu(
         y_cpu = cpu_model.latent_codec.decompress(out["strings"],
                                                   out["shape"])["y_hat"]
         assert torch.equal(y_cpu, out["y_hat"].cpu()), name
+
+
+def _zero_noise(monkeypatch):
+    """The training noise as zeros in both the card's and the CPU's run."""
+    from flashgmm_tpu_torch.entropy_models import entropy_models
+    from flashgmm_tpu_torch.latent_codecs import checkerboard
+
+    def zeros(shape, generator, like):
+        return torch.zeros(shape, dtype=like.dtype, device=like.device)
+
+    monkeypatch.setattr(entropy_models, "uniform_noise", zeros)
+    monkeypatch.setattr(checkerboard, "uniform_noise", zeros)
+
+
+def _train_pair(cuda):
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+
+    cpu = Cheng2020AnchorCheckerboardGMMv2(N=32, K=2, seed=0, device="cpu")
+    card = Cheng2020AnchorCheckerboardGMMv2(N=32, K=2, seed=0, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.RandomState(4).rand(2, 64, 64, 3).astype(
+        np.float32))
+    return cpu, card, x
+
+
+def test_train_step_on_card_matches_the_cpu(cuda, monkeypatch):
+    """The narrow flagship (N=32, K=2) on a 2 x 64x64 batch, TF32 off, the
+    noise zero: the RD loss within rtol 1e-4 of the CPU's and each net
+    gradient (after the guard and the clip, as the step applies it) within
+    1e-4 of its largest CPU entry; then one whole ``train_step`` on each,
+    its four returned terms within rtol 1e-4. Parameters after the step
+    are not compared: Adam's first update is about lr * sign(g), and a
+    gradient entry near zero may take either sign on card and CPU."""
+    from flashgmm_tpu_torch.losses import rate_distortion_loss
+    from flashgmm_tpu_torch.optimizers import net_aux_partition
+    from flashgmm_tpu_torch.parallel import (make_train_state,
+                                             set_guarded_grads, train_step)
+    from flashgmm_tpu_torch.parallel.train import _onednn_off
+
+    _zero_noise(monkeypatch)
+    cpu, card, x = _train_pair(cuda)
+    grads, losses = [], []
+    for model, xd in ((cpu, x), (card, x.to(cuda))):
+        net, _ = net_aux_partition(model)
+        with _onednn_off():  # as train_step on the CPU
+            out = model(xd, training=True, generator=None)
+            loss = rate_distortion_loss(out, xd)["loss"]
+            set_guarded_grads(loss, list(net.values()), 1.0)
+        losses.append(float(loss.detach()))
+        grads.append({k: p.grad.cpu() for k, p in net.items()})
+        model.zero_grad(set_to_none=True)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    for name, ref in grads[0].items():
+        got = grads[1][name]
+        assert bool(torch.isfinite(got).all()), name
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * max(
+            float(ref.abs().max()), 1e-12), msg=name)
+    outs = []
+    for model, xd in ((cpu, x), (card, x.to(cuda))):
+        opt_net, opt_aux = make_train_state(model)
+        outs.append(train_step(model, opt_net, opt_aux, xd, None))
+    for key in outs[0]:
+        np.testing.assert_allclose(float(outs[1][key]), float(outs[0][key]),
+                                   rtol=1e-4, err_msg=key)
+
+
+def test_train_step_guard_on_card(cuda):
+    """A batch holding a NaN on the card: every parameter stays finite, and
+    both optimizers count the step."""
+    from flashgmm_tpu_torch.parallel import make_train_state, train_step
+
+    _, card, x = _train_pair(cuda)
+    opt_net, opt_aux = make_train_state(card)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = x.to(cuda)
+    out = train_step(card, opt_net, opt_aux, x, gen)
+    assert all(np.isfinite(float(v)) for v in out.values())
+    bad = x.clone()
+    bad[1, 3, 9, 0] = float("nan")
+    out = train_step(card, opt_net, opt_aux, bad, gen)
+    assert not np.isfinite(float(out["loss"]))
+    for name, p in card.named_parameters():
+        assert bool(torch.isfinite(p).all()), name
+    for opt in (opt_net, opt_aux):
+        assert {int(s["step"]) for s in opt.state.values()} == {2}

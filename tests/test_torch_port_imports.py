@@ -20,7 +20,7 @@ for m in pkgutil.walk_packages(flashgmm_tpu_torch.__path__, "flashgmm_tpu_torch.
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "flashgmm_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "flashgmm_tpu"))
 print("MODULES:%d" % len([k for k in sys.modules if k.startswith("flashgmm_tpu_torch")]))
 print("BAD:" + ",".join(bad))
 """
@@ -71,16 +71,30 @@ def test_smoke_refuses_without_a_card():
     "flashgmm_tpu_torch.layers.layers",
     "flashgmm_tpu_torch.runtime.latency_codec",
     "flashgmm_tpu_torch._build",
+    "flashgmm_tpu_torch.registry",
+    "flashgmm_tpu_torch.losses.rate_distortion",
+    "flashgmm_tpu_torch.losses.utils",
+    "flashgmm_tpu_torch.utils.metrics",
+    "flashgmm_tpu_torch.utils.checkpoint",
+    "flashgmm_tpu_torch.utils.logging",
+    "flashgmm_tpu_torch.optimizers",
+    "flashgmm_tpu_torch.parallel.train",
+    "flashgmm_tpu_torch.datasets.image",
+    "flashgmm_tpu_torch.datasets.loader",
+    "flashgmm_tpu_torch.datasets.utils",
+    "flashgmm_tpu_torch.examples.train",
 ])
 def test_forward_and_converter_modules_import_no_jax(module):
     """The CompressAI state-dict converter, the training forward's modules,
     the ELIC model and codecs, the single-Gaussian models and codec, and
     the reference format's modules (the host coder's binding, the rows and
-    softmax, the latent codecs' compress and decompress), each imported
-    alone in a fresh interpreter."""
+    softmax, the latent codecs' compress and decompress), and the training
+    path's (losses, metrics, optimizers, the train step, datasets,
+    checkpoints, logging and the trainer CLI), each imported alone in a
+    fresh interpreter."""
     probe = (f"import importlib, sys; importlib.import_module({module!r}); "
              "print(','.join(sorted(k for k in sys.modules if k.split('.')[0] "
-             "in ('jax', 'jaxlib', 'flax', 'flashgmm_tpu'))))")
+             "in ('jax', 'jaxlib', 'flax', 'optax', 'flashgmm_tpu'))))")
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
