@@ -111,7 +111,25 @@ Phases, each ending in one flushed line with its seconds:
    PSNR beside the batched codec's, compress and decompress ms with the
    host coder's share and the card's busy ms, and the port on the CPU
    decoding the card's strings of a 64x64 image to the card's y_hat;
-12. train: training at full width under the trainer's library settings
+12. zoo: the CompressAI image-model line (ROADMAP item 12) at its zoo
+   widths on the first image (``zoo_phase``): bmshj2018-factorized,
+   bmshj2018-hyperprior and mbt2018-mean (both coders) at q4 (N=128,
+   M=192) on the repository's weights, mbt2018 (N=192, M=320), Cheng2020
+   anchor and attention (N=192) and the Chandelier ELIC (N=192, M=320)
+   seed-initialised: the launches of one compress + decompress (the f32
+   conv for each rows-chain conv, the Gaussian rows kernel once a
+   direction on the search coder), y_hat exact, bytes, bpp, PSNR,
+   compress and decompress ms with the raster scan's host loop apart, the
+   search coder's rows kernel against its plain version at the path's
+   shape, the port on the CPU decoding the card's strings of a 64x64
+   image to the card's y_hat; sigmoid-cdf's eval forward; the evaluation
+   CLI with ``--real`` in subprocesses on two 768x512 PPMs, mbt2018-mean
+   and bmshj2018-hyperprior at q4 from port checkpoints on the card and on
+   the CPU (bpp within 0.5 %, PSNR within 0.05 dB), the flagship on the
+   card, and ``update_model``'s file reloading and coding the same bytes
+   (the CPU runs start after the build, at the lowest priority, beside the
+   earlier phases). ``python3 chip_smoke.py --zoo`` runs this phase alone;
+13. train: training at full width under the trainer's library settings
    (cuDNN TF32 on, autotuning on; ``train_phase``): the flagship on a fixed
    batch of 8 256x256 crops, 20 ``train_step``s (finite terms, the loss
    going down, the quantiles and g_a moved, a NaN batch guarded), the step,
@@ -121,7 +139,7 @@ Phases, each ending in one flushed line with its seconds:
    the trainer CLI on a folder of PPMs (2 epochs across a milestone, a
    resume, the checkpoints loading bit for bit); one step each of ELIC and
    GSM. None of the port's hand kernels runs there;
-13. timing: every kernel call of those runs timed again by CUDA events,
+14. timing: every kernel call of those runs timed again by CUDA events,
    back to back ("ms"), beside its plain version, a library call where one
    computes the same function, and its bound; the encoders and the bounds
    kernel also on the device alone ("device_ms": the stream's queue filled
@@ -139,12 +157,16 @@ Phases, each ending in one flushed line with its seconds:
    ("rans_encode_gmm_k1", "rans_decode_gmm_k1", their launches and times
    the GSM path's); each kernel's calls of the flagship's reference-format
    compress + decompress ("reference_*"), where the boundary-rows kernel
-   has its main path's launches and calls.
+   has its main path's launches and calls; and each kernel's calls of the
+   zoo phase's compress + decompress ("zoo_*"), where the single-Gaussian
+   rows kernel (the boundary-rows kernel at K=1) has its main path's
+   launches and calls.
 
 It prints its total seconds, a ``{"kernels": [...]}`` line, the nvidia-smi
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed check raises, so
-the run exits non-zero without that line; a hang ends after 1000 s with a
-traceback. Needs a CUDA device and this repository; imports no JAX.
+the run exits non-zero without that line; a hang ends after 1150 s with a
+traceback (within a run's limit of 1200 s); every process it started is
+stopped on the way out. Needs a CUDA device and this repository; imports no JAX.
 """
 
 import faulthandler
@@ -208,10 +230,35 @@ ROWS_FLOPS_PER_TERM = {0: 31, 1: 44, 2: 29}
 # wrappers never wait for the device, and their calls are short enough for
 # the host's enqueue to bound back-to-back calls
 DEVICE_TIMED = ("rans_encode", "rans_encode_gmm", "gmm_bounds",
-                "gmm_boundary_rows", "gmm_softmax")
+                "gmm_boundary_rows", "gmm_softmax", "gaussian_boundary_rows")
 # float32 operations of one softmax entry: the max's compare, the subtract,
 # XLA's exp (22), the sum's add, the divide, and the flushes' compares (4)
 SOFTMAX_FLOPS_PER_ENTRY = 30
+# the zoo phase: the CompressAI image-model line at its zoo widths, (tag,
+# architecture, quality, coder); the q4 slots load the repository's trained
+# weights (zoo.image.local_weights), the others are seed-initialised
+ZOO_CASES = (
+    ("bmshj2018-factorized q4", "bmshj2018-factorized", 4, None),
+    ("bmshj2018-hyperprior q4", "bmshj2018-hyperprior", 4, None),
+    ("mbt2018-mean q4 table", "mbt2018-mean", 4, "table"),
+    ("mbt2018-mean q4 search", "mbt2018-mean", 4, "search"),
+    ("mbt2018 q5", "mbt2018", 5, None),
+    ("cheng2020-anchor q4", "cheng2020-anchor", 4, None),
+    ("cheng2020-attn q4", "cheng2020-attn", 4, None),
+    ("elic2022-chandelier", "elic2022-chandelier", None, None))
+ZOO_TRAINED = ("bmshj2018-factorized", "bmshj2018-hyperprior", "mbt2018-mean")
+# a direction's rows-chain convs: h_s's (3, or Cheng2020's 5), and the
+# Chandelier's h_s 3, channel contexts 4 x 3, spatial contexts 5,
+# aggregation networks 10 x 3
+ZOO_ROWS_CONVS = {"bmshj2018-factorized": 0, "bmshj2018-hyperprior": 3,
+                  "mbt2018-mean": 3, "mbt2018": 3, "cheng2020-anchor": 5,
+                  "cheng2020-attn": 5, "elic2022-chandelier": 50}
+ZOO_SMALL = 64  # the side of the image whose card strings the CPU decodes
+# the eval CLI's runs held against the CPU: (architecture, quality, widths)
+ZOO_CLI = (("mbt2018-mean", 4, ("-N", "128", "-M", "192")),
+           ("bmshj2018-hyperprior", 4, ("-N", "128", "-M", "192")))
+ZOO_CLI_BPP, ZOO_CLI_PSNR = 5e-3, 0.05  # card against CPU: relative, dB
+ZOO_CLI_THREADS = (4, 3)  # CPU threads of the two CPU runs, side by side
 # the training phase: the trainer CLI's defaults (examples/train.py) and
 # the steps the flagship takes on one fixed batch
 TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS = 8, 256, 20
@@ -798,6 +845,7 @@ def elic_phase(dev, x, record, originals):
     want = {"rans_encode": 1, "rans_encode_gmm": 10, "rans_decode": 1,
             "rans_decode_gmm": 10, "gmm_bounds": 0, "gmm_rows": 0,
             "gmm_softmax": 20, "gmm_boundary_rows": 0,
+            "gaussian_boundary_rows": 0,
             "conv2d_nhwc": 2 * ELIC_ROWS_CONVS, "conv2d_nhwc_bf16": 0}
     runs = {}
     for kt in (False, True):
@@ -1031,7 +1079,8 @@ def gsm_phase(dev, x, record, originals):
 
     want = {"rans_encode": 1, "rans_encode_gmm": 2, "rans_decode": 1,
             "rans_decode_gmm": 2, "gmm_bounds": 0, "gmm_rows": 0,
-            "gmm_softmax": 0, "gmm_boundary_rows": 0}
+            "gmm_softmax": 0, "gmm_boundary_rows": 0,
+            "gaussian_boundary_rows": 0}
     runs = {}
     for kt in (False, True):
         tag = f"GSM batch {BATCH}, {'kernel' if kt else 'default'} route"
@@ -1367,6 +1416,321 @@ def reference_phase(dev, x1, model, record, originals, smi_line):
     return result
 
 
+def _cli_report(proc, tag, timeout):
+    """The JSON report a finished eval CLI process printed."""
+    out, err = proc.communicate(timeout=timeout)
+    require(proc.returncode == 0,
+            f"zoo: the eval CLI ({tag}) exited {proc.returncode}: "
+            f"{err[-1500:]}")
+    return json.loads(out[out.index("{"):])
+
+
+class ZooCli:
+    """The eval CLI (``python -m flashgmm_tpu_torch.utils.eval_model``) with
+    ``--real`` in subprocesses over two 768x512 textured-leaves PPMs (seeds
+    SEED0 + 2, SEED0 + 3): mbt2018-mean and bmshj2018-hyperprior at q4
+    (N=128, M=192) from port checkpoints of their trained weights, on the
+    CPU (``--device cpu``) and on the card, the reports within ZOO_CLI_BPP
+    and ZOO_CLI_PSNR of each other; the flagship at its synthetic weights
+    on the card. Then ``update_model`` on the mbt2018-mean checkpoint: the
+    file it writes reloads and codes the card's bytes of the first image as
+    the model it was made from.
+
+    The CPU runs take minutes (the CPU's rows chain is the conv kernel's
+    plain version), so the smoke starts them (``start``) right after the
+    build, at the lowest priority with ZOO_CLI_THREADS threads, while the
+    card works through the earlier phases; ``finish`` (in the zoo phase)
+    runs the rest and reads them. ``close`` stops every process still
+    running and removes the files."""
+
+    def __init__(self, dev):
+        import tempfile
+
+        from flashgmm_tpu_torch.datasets import save_image, textured_leaves
+        from flashgmm_tpu_torch.utils.checkpoint import save_checkpoint
+        from flashgmm_tpu_torch.zoo import image_models
+
+        self.dev = dev
+        self._tmp = tempfile.TemporaryDirectory()
+        self.root = Path(self._tmp.name)
+        (self.root / "images").mkdir()
+        for seed in (SEED0 + 2, SEED0 + 3):
+            save_image(self.root / "images" / f"leaves_{seed}.ppm",
+                       textured_leaves(H, W, seed=seed))
+        self.runs = [(arch, q, widths) for arch, q, widths in ZOO_CLI]
+        self.runs.append(("cheng2020-anchor-checkerboard-gmm", 5,
+                          ("-N", str(N), "-K", str(K))))
+        for arch, q, _ in self.runs:
+            m = image_models(arch, q, pretrained=True, device=dev)
+            save_checkpoint(self.root / f"{arch}-q{q}", m)
+            del m
+        self.cpu_runs = {}
+
+    def _start(self, arch, q, widths, device, threads=None):
+        import os
+
+        env = dict(os.environ)
+        cmd = [sys.executable, "-m", "flashgmm_tpu_torch.utils.eval_model",
+               "checkpoint", str(self.root / "images"), "-a", arch, *widths,
+               "-p", str(self.root / f"{arch}-q{q}"), "--real", "--device",
+               device]
+        if threads:
+            env["OMP_NUM_THREADS"] = str(threads)
+            cmd = ["nice", "-n", "19"] + cmd
+        return subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+
+    def start(self):
+        self.t0 = time.perf_counter()
+        self.cpu_runs = {arch: self._start(arch, q, widths, "cpu", threads=n)
+                         for (arch, q, widths), n in zip(ZOO_CLI,
+                                                         ZOO_CLI_THREADS)}
+        return self
+
+    def finish(self, smi_line, meanwhile):
+        """The card's runs, update_model, ``meanwhile()``, then the CPU
+        runs' reports held against the card's. Returns the seconds from the
+        CPU runs' start to the end of the last one's wait."""
+        import numpy as np
+        import torch
+
+        from flashgmm_tpu_torch.datasets import textured_leaves
+        from flashgmm_tpu_torch.models import MeanScaleHyperprior
+        from flashgmm_tpu_torch.utils.checkpoint import load_checkpoint
+        from flashgmm_tpu_torch.zoo import image_models
+
+        dev = self.dev
+        card = {}
+        for arch, q, widths in self.runs:
+            card[arch] = _cli_report(self._start(arch, q, widths, "cuda"),
+                                     f"{arch}, card", 600)
+            print(f"  zoo eval CLI {arch} q{q} on the card ({smi_line}): "
+                  + json.dumps(card[arch]), flush=True)
+
+        # update_model once; the file reloads and codes the same bytes
+        src = self.root / "mbt2018-mean-q4"
+        up = subprocess.run(
+            [sys.executable, "-m", "flashgmm_tpu_torch.utils.update_model",
+             str(src), "-a", "mbt2018-mean", "-N", "128", "-M", "192"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        require(up.returncode == 0, f"zoo: update_model exited "
+                f"{up.returncode}: {up.stderr[-1500:]}")
+        written = Path(up.stdout.strip().rsplit(" ", 1)[-1])
+        require(written.exists() and written.name.startswith(
+            "mbt2018-mean-q4-"), f"zoo: update_model wrote {written}")
+        fresh = MeanScaleHyperprior(128, 192, seed=1, device=dev).eval()
+        load_checkpoint(written, fresh)
+        made = image_models("mbt2018-mean", 4, pretrained=True,
+                            device=dev).eval()
+        made.update(force=True, update_quantiles=True)
+        x = torch.from_numpy(textured_leaves(H, W, seed=SEED0 + 2)[None])
+        a, b = made.compress(x.to(dev)), fresh.compress(x.to(dev))
+        require(a["strings"] == b["strings"], "zoo: the updated checkpoint "
+                "codes other bytes than its model")
+        n_bytes = sum(len(s) for group in a["strings"] for s in group)
+        print(f"  zoo update_model: {written.name} reloads and codes the "
+              f"first image's {n_bytes} bytes as its model", flush=True)
+        del fresh, made
+        meanwhile()
+
+        for arch, q, _ in ZOO_CLI:
+            cpu = _cli_report(self.cpu_runs[arch], f"{arch}, CPU", 1000)
+            c, g = cpu["results"], card[arch]["results"]
+            rel = abs(g["bpp"] / c["bpp"] - 1)
+            dpsnr = abs(g["psnr-rgb"] - c["psnr-rgb"])
+            print(f"  zoo eval CLI {arch} q{q} on the CPU: " + json.dumps(cpu),
+                  flush=True)
+            print(f"  zoo eval CLI {arch}: card against CPU bpp "
+                  f"{100 * rel:.4f} % apart, PSNR {dpsnr:.5f} dB apart",
+                  flush=True)
+            require(rel <= ZOO_CLI_BPP and dpsnr <= ZOO_CLI_PSNR,
+                    f"zoo: the eval CLI's {arch} report on the card is not "
+                    "the CPU's")
+            require(np.isfinite(g["ms-ssim-rgb"]), f"zoo: {arch} MS-SSIM")
+        return time.perf_counter() - self.t0
+
+    def close(self):
+        for proc in self.cpu_runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        self._tmp.cleanup()
+
+
+def zoo_phase(dev, record, originals, smi_line, cli):
+    """The CompressAI image-model line (ROADMAP item 12) at its zoo widths
+    on the first 768x512 image, and the evaluation CLIs (15a): for each
+    coding model of ZOO_CASES, reference-format ``compress`` +
+    ``decompress`` with every launch counted from 0 (the f32 conv for each
+    rows-chain conv, the Gaussian rows kernel once a direction on the
+    search coder, nothing else), decompress's y_hat equal to compress's,
+    bytes, bpp and PSNR, compress and decompress ms (host clock, medians of
+    REF_REPS after the counted run; the raster scan's host loop apart); the
+    search coder's rows kernel at the path's shape against its plain
+    version, with its ms, device ms and bound. Then ``cli.finish`` (a
+    started ``ZooCli``), and while its CPU runs go on: the port on the CPU
+    decoding each model's card strings of a ZOO_SMALL image to the card's
+    y_hat, and sigmoid-cdf's eval forward. Returns (launches, recorded
+    calls) summed over the models."""
+    import copy
+    import statistics
+
+    import torch
+
+    from flashgmm_tpu_torch.ans.gaussian_cdf import gaussian_boundary_rows_plain
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.models import (Elic2022Chandelier,
+                                           SigmoidCDFCompressor)
+    from flashgmm_tpu_torch.runtime import rasterscan
+    from flashgmm_tpu_torch.utils.eval_model.__main__ import _count_bytes
+    from flashgmm_tpu_torch.zoo import create_model, image_models
+
+    x1 = torch.from_numpy(textured_leaves(H, W, seed=SEED0 + 1)[None]).to(dev)
+    small = torch.from_numpy(textured_leaves(ZOO_SMALL, ZOO_SMALL,
+                                             seed=SEED0 + 1)[None])
+    loop_s = [0.0]  # seconds in the raster scan's host loop
+    loops = ("raster_scan_encode", "raster_scan_decompress_single_stream")
+    saved = {name: getattr(rasterscan, name) for name in loops}
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                loop_s[0] += time.perf_counter() - t0
+        return run
+
+    def dec_kw(out):
+        return {"abs_max": out["abs_max"]} if "abs_max" in out else {}
+
+    zoo_launches, zoo_calls = {}, {}
+    on_cpu = []  # (tag, CPU copy, the card's output of the small image)
+    for name in loops:
+        setattr(rasterscan, name, timed(saved[name]))
+    try:
+        for tag, arch, q, coder in ZOO_CASES:
+            kw = {} if coder is None else {"coder": coder}
+            if arch == "elic2022-chandelier":
+                m = Elic2022Chandelier(N=N, M=ELIC_M, device=dev)
+            elif arch in ZOO_TRAINED:
+                m = image_models(arch, q, pretrained=True, device=dev, **kw)
+            else:
+                m = create_model(arch, q, device=dev, **kw)
+            m.eval().update(force=True,
+                            update_quantiles=arch not in ZOO_TRAINED)
+
+            def run(m=m):
+                torch.cuda.synchronize()
+                loop_s[0] = 0.0
+                t0 = time.perf_counter()
+                out = m.compress(x1)
+                torch.cuda.synchronize()
+                t1, l1 = time.perf_counter(), loop_s[0]
+                dec = m.decompress(out["strings"], out["shape"],
+                                   **dec_kw(out))
+                torch.cuda.synchronize()
+                return (out, dec["x_hat"], t1 - t0, time.perf_counter() - t1,
+                        l1, loop_s[0] - l1)
+
+            (out, x_hat, *_), launches, calls = record(run)
+            want = dict.fromkeys(launches, 0)
+            want.update(conv2d_nhwc=2 * ZOO_ROWS_CONVS[arch],
+                        gaussian_boundary_rows=2 if coder == "search" else 0)
+            require(launches == want, f"zoo {tag}: launches {launches}, not "
+                    f"{want}")
+            for name, n in launches.items():
+                zoo_launches[name] = zoo_launches.get(name, 0) + n
+                zoo_calls.setdefault(name, []).extend(calls[name])
+            strings, shape = out["strings"], out["shape"]
+            y_dec = m.decompress_y(strings, shape, **dec_kw(out))
+            require(torch.equal(y_dec, out["y_hat"]),
+                    f"zoo {tag}: decompress's y_hat differs from compress's")
+            require(tuple(x_hat.shape) == tuple(x1.shape)
+                    and bool(torch.isfinite(x_hat).all()), f"zoo {tag}: x_hat")
+            for args, kwargs in calls["gaussian_boundary_rows"]:
+                got = originals["gaussian_boundary_rows"](*args, **kwargs)
+                ref = gaussian_boundary_rows_plain(*args, **kwargs)
+                n_diff = int((got != ref).sum())
+                ms = cuda_ms(lambda: originals["gaussian_boundary_rows"](
+                    *args, **kwargs), 20)
+                dev_ms = cuda_ms(lambda: originals["gaussian_boundary_rows"](
+                    *args, **kwargs), 20, True)
+                bound = 1e3 * (2 * got.numel() + 4 * got.shape[0]) \
+                    / HBM_BYTES_PER_S
+                print(f"  zoo {tag}: Gaussian rows [{got.shape[0]}, "
+                      f"{got.shape[1]}] mode {args[3]}: {n_diff} of "
+                      f"{got.numel()} entries differ from plain; kernel "
+                      f"{ms:.4f} ms, device {dev_ms:.4f} ms, bound "
+                      f"{bound:.4f} ms (bytes)", flush=True)
+                require(n_diff == 0, f"zoo {tag}: the Gaussian rows kernel "
+                        "differs from its plain version")
+            n_bytes = _count_bytes(strings)
+            reps = [run()[2:] for _ in range(REF_REPS)]
+            t_c, t_d, l_c, l_d = (statistics.median(r[i] for r in reps)
+                                  for i in range(4))
+            on_cpu.append((tag, copy.deepcopy(m).cpu(),
+                           m.compress(small.to(dev))))
+            loop = (f" (host loop {1e3 * l_c:.2f} ms)" if l_c else "",
+                    f" (host loop {1e3 * l_d:.2f} ms)" if l_d else "")
+            print(f"  zoo {tag}: y_hat {list(out['y_hat'].shape)} exact "
+                  f"through {n_bytes} bytes, {8 * n_bytes / (H * W):.4f} bpp, "
+                  f"PSNR {psnr_of(x_hat, x1):.4f} dB; compress "
+                  f"{1e3 * t_c:.2f} ms{loop[0]}, decompress {1e3 * t_d:.2f} "
+                  f"ms{loop[1]} (host clock, medians of {REF_REPS}, "
+                  f"{smi_line}); launches: conv2d_nhwc "
+                  f"{launches['conv2d_nhwc']}, gaussian_boundary_rows "
+                  f"{launches['gaussian_boundary_rows']}", flush=True)
+            del m
+    finally:
+        for name in loops:
+            setattr(rasterscan, name, saved[name])
+
+    def meanwhile():
+        # the card's strings of a small image decoded on the CPU
+        for tag, cpu_model, s_out in on_cpu:
+            t0 = time.perf_counter()
+            y_cpu = cpu_model.decompress_y(s_out["strings"], s_out["shape"],
+                                           **dec_kw(s_out))
+            require(torch.equal(y_cpu, s_out["y_hat"].cpu()),
+                    f"zoo {tag}: the port on the CPU decodes the card's "
+                    f"strings of a {ZOO_SMALL}x{ZOO_SMALL} image to another "
+                    "y_hat")
+            print(f"  zoo {tag}: the card's strings of a {ZOO_SMALL}x"
+                  f"{ZOO_SMALL} image decoded on the CPU to the card's y_hat "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        on_cpu.clear()
+
+        sig = SigmoidCDFCompressor(N=N, K=K, device=dev).eval()
+        out = sig(x1, training=False)
+        require(all(bool(torch.isfinite(v).all()) for v in
+                    [out["x_hat"], *out["likelihoods"].values()]),
+                "zoo sigmoid-cdf: the eval forward is not finite")
+        bpp = sum(float(torch.sum(-torch.log2(v)))
+                  for v in out["likelihoods"].values()) / (H * W)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        fwd = []
+        for _ in range(REF_REPS):
+            a.record()
+            sig(x1, training=False)
+            b.record()
+            torch.cuda.synchronize()
+            fwd.append(a.elapsed_time(b))
+        print(f"  zoo sigmoid-cdf N={N} K={K} (seed-initialised): eval "
+              f"forward {statistics.median(fwd):.2f} ms (CUDA events, median "
+              f"of {REF_REPS}, beside the CPU runs), estimated {bpp:.4f} bpp, "
+              f"PSNR {psnr_of(out['x_hat'].clamp(0, 1), x1):.4f} dB",
+              flush=True)
+
+    t_cli = cli.finish(smi_line, meanwhile)
+    phase("zoo", f"the image-model line at its zoo widths; the eval CLI on "
+          f"the card and the CPU (the CPU runs {t_cli:.2f} s from their "
+          "start after the build)")
+    return zoo_launches, zoo_calls
+
+
 def train_phase(dev):
     """Training on the card under the trainer's library settings (cuDNN's
     TF32 on, as PyTorch's default, matmul TF32 off, ``cudnn.benchmark``
@@ -1635,8 +1999,69 @@ def train_phase(dev):
           "width under the trainer's settings")
 
 
+def kernel_wrappers():
+    """{name: (module, attribute)} of every kernel wrapper: the main path's
+    codecs call each through its module's name, so a replaced attribute
+    sees every call."""
+    from flashgmm_tpu_torch.ans import rans_kernels, rows_kernel
+    from flashgmm_tpu_torch.ops import conv_kernel
+
+    return {"rans_encode": (rans_kernels, "encode_scan"),
+            "rans_encode_gmm": (rans_kernels, "encode_scan_gmm"),
+            "rans_decode": (rans_kernels, "decode_scan"),
+            "rans_decode_gmm": (rans_kernels, "decode_scan_gmm"),
+            "gmm_bounds": (rows_kernel, "gmm_bounds"),
+            "gmm_rows": (rows_kernel, "gmm_rows"),
+            "gmm_softmax": (rows_kernel, "gmm_softmax"),
+            "gmm_boundary_rows": (rows_kernel, "gmm_boundary_rows"),
+            "gaussian_boundary_rows": (rows_kernel, "gaussian_boundary_rows"),
+            "conv2d_nhwc": (conv_kernel, "conv2d_nhwc"),
+            "conv2d_nhwc_bf16": (conv_kernel, "conv2d_nhwc_bf16")}
+
+
+def make_record(bound, originals):
+    """record(run): run() with every kernel wrapper wrapped in a recorder
+    that keeps its inputs, every launch counted from 0: (run's result,
+    launches, recorded calls). The wrappers' bodies count on the name their
+    module binds, so during the run the counts land on the recorders, which
+    start at 0."""
+    def record(run):
+        calls = {name: [] for name in bound}
+
+        def recorder(name):
+            fn = originals[name]
+
+            def wrapped(*args, **kwargs):
+                # err=None is the decoders' default, which the plain
+                # versions do not take
+                kept = {k: v for k, v in kwargs.items()
+                        if not (k == "err" and v is None)}
+                calls[name].append((args, kept))
+                return fn(*args, **kwargs)
+            wrapped.launches = 0
+            wrapped.launches_k1 = 0
+            return wrapped
+
+        for name, (module, attr) in bound.items():
+            setattr(module, attr, recorder(name))
+        try:
+            result = run()
+            launches = {name: getattr(*where).launches
+                        for name, where in bound.items()}
+            record.k1 = {name: getattr(*bound[name]).launches_k1
+                         for name in K1_INSTANCES}
+        finally:
+            for name, (module, attr) in bound.items():
+                setattr(module, attr, originals[name])
+        return result, launches, calls
+    return record
+
+
+_CLEANUP = []  # what stops the processes a run started, and removes files
+
+
 def main() -> int:
-    faulthandler.dump_traceback_later(1000, exit=True)
+    faulthandler.dump_traceback_later(1150, exit=True)
     import torch
 
     if len(sys.argv) > 1 and sys.argv[1] == "--bytes-worker":
@@ -1644,15 +2069,58 @@ def main() -> int:
             return 1
         bytes_worker(*sys.argv[2:5])
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--zoo":
+        if not torch.cuda.is_available():
+            return 1
+        sys.path.insert(0, str(ROOT))
+        try:
+            with torch.inference_mode():
+                zoo_only()
+        finally:
+            for stop in _CLEANUP:
+                stop()
+        faulthandler.cancel_dump_traceback_later()
+        return 0
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr, flush=True)
         return 1
     sys.path.insert(0, str(ROOT))
-    with torch.inference_mode():
-        smoke()
+    try:
+        with torch.inference_mode():
+            smoke()
+    finally:
+        for stop in _CLEANUP:
+            stop()
     faulthandler.cancel_dump_traceback_later()
     return 0
+
+
+def zoo_only():
+    """``python3 chip_smoke.py --zoo``: the device line, the build and the
+    zoo phase alone, then each kernel's launches on its path."""
+    import torch
+
+    from flashgmm_tpu_torch import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    phase("device", f"{torch.cuda.get_device_name(0)} | {smi_line}")
+    kernels = _build.load()
+    phase("build", f"nvcc {kernels.seconds:.2f} s -> {kernels.path.name}")
+    cli = ZooCli(dev)
+    _CLEANUP.append(cli.close)
+    cli.start()
+    bound = kernel_wrappers()
+    originals = {name: getattr(*where) for name, where in bound.items()}
+    launches, _ = zoo_phase(dev, make_record(bound, originals), originals,
+                            smi_line, cli)
+    print(json.dumps({"zoo_launches": launches}), flush=True)
 
 
 def smoke():
@@ -1663,9 +2131,9 @@ def smoke():
     from flashgmm_tpu_torch.ans import interleaved as il
     from flashgmm_tpu_torch.ans import rans_kernels, rows_kernel
     from flashgmm_tpu_torch.ans.gaussian_cdf import (
-        get_approx_mode, gmm_boundary_rows_plain, gmm_guarded_bounds,
-        gmm_guarded_bounds_plain, gmm_guarded_rows, gmm_guarded_rows_plain,
-        gmm_softmax_plain)
+        gaussian_boundary_rows_plain, get_approx_mode, gmm_boundary_rows_plain,
+        gmm_guarded_bounds, gmm_guarded_bounds_plain, gmm_guarded_rows,
+        gmm_guarded_rows_plain, gmm_softmax_plain)
     from flashgmm_tpu_torch.ops import conv_kernel
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1713,6 +2181,10 @@ def smoke():
     require(all(c == (0, 0) for c in enc_spills.values()),
             f"rans encoder spills: {enc_spills}")
     phase("build", f"nvcc {kernels.seconds:.2f} s -> {kernels.path.name}")
+    # the zoo phase's CPU runs of the eval CLI, in the background from here
+    zoo_cli = ZooCli(dev)
+    _CLEANUP.append(zoo_cli.close)
+    zoo_cli.start()
 
     # 3. each kernel against its plain version at the main path's shapes --
     rng = np.random.RandomState(0)
@@ -1950,53 +2422,10 @@ def smoke():
           f"{BATCH} images {H}x{W}")
 
     # Drive the main path once with every kernel wrapper wrapped in a
-    # recorder that keeps its inputs for the timing phase. The wrappers'
-    # bodies count on the name their module binds, so during this run the
-    # counts land on the recorders, which start at 0.
-    bound = {"rans_encode": (rans_kernels, "encode_scan"),
-             "rans_encode_gmm": (rans_kernels, "encode_scan_gmm"),
-             "rans_decode": (rans_kernels, "decode_scan"),
-             "rans_decode_gmm": (rans_kernels, "decode_scan_gmm"),
-             "gmm_bounds": (rows_kernel, "gmm_bounds"),
-             "gmm_rows": (rows_kernel, "gmm_rows"),
-             "gmm_softmax": (rows_kernel, "gmm_softmax"),
-             "gmm_boundary_rows": (rows_kernel, "gmm_boundary_rows"),
-             "conv2d_nhwc": (conv_kernel, "conv2d_nhwc"),
-             "conv2d_nhwc_bf16": (conv_kernel, "conv2d_nhwc_bf16")}
+    # recorder that keeps its inputs for the timing phase.
+    bound = kernel_wrappers()
     originals = {name: getattr(*where) for name, where in bound.items()}
-
-    def record(run):
-        """run() with every kernel wrapper wrapped in a recorder that keeps
-        its inputs, every launch counted from 0: (run's result, launches,
-        recorded calls)."""
-        calls = {name: [] for name in bound}
-
-        def recorder(name):
-            fn = originals[name]
-
-            def wrapped(*args, **kwargs):
-                # err=None is the decoders' default, which the plain
-                # versions do not take
-                kept = {k: v for k, v in kwargs.items()
-                        if not (k == "err" and v is None)}
-                calls[name].append((args, kept))
-                return fn(*args, **kwargs)
-            wrapped.launches = 0
-            wrapped.launches_k1 = 0
-            return wrapped
-
-        for name, (module, attr) in bound.items():
-            setattr(module, attr, recorder(name))
-        try:
-            result = run()
-            launches = {name: getattr(*where).launches
-                        for name, where in bound.items()}
-            record.k1 = {name: getattr(*bound[name]).launches_k1
-                         for name in K1_INSTANCES}
-        finally:
-            for name, (module, attr) in bound.items():
-                setattr(module, attr, originals[name])
-        return result, launches, calls
+    record = make_record(bound, originals)
 
     def drive(c):
         """One encode_to_bytes + decode_bytes of the batch through codec c
@@ -2040,7 +2469,7 @@ def smoke():
     y_shape = tuple(out["y_hat"].shape)
     for name, count in launches.items():
         if name not in ("gmm_rows", "gmm_bounds", "gmm_boundary_rows",
-                        "conv2d_nhwc_bf16"):
+                        "gaussian_boundary_rows", "conv2d_nhwc_bf16"):
             require(count > 0, f"{name} was not launched on the main path")
     # per encode: the z pass over its tables, 2 y passes over their GMM
     # parameters (bounds evaluated in the encoder); per decode: the z pass
@@ -2419,10 +2848,14 @@ def smoke():
     ref_launches, ref_calls = reference_phase(dev, x1, model, record,
                                               originals, smi_line)
 
-    # 12. training at full width under the trainer's settings ------------
+    # 12. the image-model line and the evaluation CLIs --------------------
+    zoo_launches, zoo_calls = zoo_phase(dev, record, originals, smi_line,
+                                        zoo_cli)
+
+    # 13. training at full width under the trainer's settings ------------
     train_phase(dev)
 
-    # 13. timing of every recorded call -----------------------------------
+    # 14. timing of every recorded call -----------------------------------
     pass_words = [int(out[k].n_words) for k in ("z", "y0", "y1")]
 
     def probes_by_count(L):
@@ -2489,6 +2922,16 @@ def smoke():
             # terms and its quantization
             return (2 * n * L + 12 * n * k,
                     n * L * (k * ROWS_FLOPS_PER_TERM[md] + 2), err, None)
+        if name == "gaussian_boundary_rows":
+            sc, _, nb, md = args
+            n, L = sc.shape[0], nb + 1
+            got = originals[name](*args).cpu().numpy().astype(np.int64)
+            err = int(np.abs(got - gaussian_boundary_rows_plain(*args).cpu()
+                             .numpy().astype(np.int64)).max())
+            # uint16 rows out, the scales in; each entry's one term and its
+            # quantization
+            return (2 * n * L + 4 * n,
+                    n * L * (ROWS_FLOPS_PER_TERM[md] + 2), err, None)
         if name == "gmm_softmax":
             (logits,) = args
             err = float((originals[name](logits) - gmm_softmax_plain(logits))
@@ -2631,6 +3074,7 @@ def smoke():
               "gmm_bounds": gmm_guarded_bounds_plain,
               "gmm_rows": gmm_guarded_rows_plain,
               "gmm_boundary_rows": gmm_boundary_rows_plain,
+              "gaussian_boundary_rows": gaussian_boundary_rows_plain,
               "gmm_softmax": gmm_softmax_plain,
               "conv2d_nhwc": conv_kernel.conv2d_nhwc_plain,
               "conv2d_nhwc_bf16": conv_kernel.conv2d_nhwc_bf16_plain}
@@ -2655,6 +3099,10 @@ def smoke():
         # format's device rows) and jax.nn.softmax in the GMM codec
         "gmm_boundary_rows": ("flashgmm_tpu_torch/csrc/gmm_rows.cu",
                               "flashgmm_tpu/ans/gaussian_cdf.py:71"),
+        # the same kernel at K=1 for the plain-XLA gaussian_boundary_rows
+        # (the search coder's single-Gaussian rows)
+        "gaussian_boundary_rows": ("flashgmm_tpu_torch/csrc/gmm_rows.cu",
+                                   "flashgmm_tpu/ans/gaussian_cdf.py:170"),
         "gmm_softmax": ("flashgmm_tpu_torch/csrc/gmm_rows.cu",
                         "flashgmm_tpu/latent_codecs/"
                         "gaussian_mixture_conditional.py:55"),
@@ -2672,6 +3120,10 @@ def smoke():
     # launches and calls there are their main path's
     calls["gmm_boundary_rows"] = ref_calls["gmm_boundary_rows"]
     launches["gmm_boundary_rows"] = ref_launches["gmm_boundary_rows"]
+    # the single-Gaussian rows run on the zoo path alone (mbt2018-mean's
+    # search coder)
+    calls["gaussian_boundary_rows"] = zoo_calls["gaussian_boundary_rows"]
+    launches["gaussian_boundary_rows"] = zoo_launches["gaussian_boundary_rows"]
     # the latency path's calls (batch 1, lanes=LAT_LANES): its eager run of
     # the functions its graphs capture; the bf16 conv's on the kernel route
     lat_words = {route: [int(run[0][k].n_words) for k in ("z", "y0", "y1")]
@@ -2710,7 +3162,7 @@ def smoke():
         return t, err, inserted
 
     results = []
-    t_lat = t_elic = t_gsm = t_ref = 0.0  # seconds on those paths' calls
+    t_lat = t_elic = t_gsm = t_ref = t_zoo = 0.0  # seconds on those paths' calls
     for name in [*originals, *(f"{n}_k1" for n in K1_INSTANCES)]:
         base = name.removesuffix("_k1")
         kern = originals[base]
@@ -2774,6 +3226,11 @@ def smoke():
                                  if name == base else [], pass_words)
         err = max(err, e)
         t_ref += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zoo_t, e, _ = path_times(base, kern, peak, zoo_calls.get(name, [])
+                                 if name == base else [], pass_words)
+        err = max(err, e)
+        t_zoo += time.perf_counter() - t0
         if name == "conv2d_nhwc":  # h_s's deconvs in the encode and decode
             require(inserted == 2 * ELIC_INSERTED, f"ELIC: {inserted} "
                     "zero-inserted conv inputs, not h_s's deconvs'")
@@ -2794,7 +3251,7 @@ def smoke():
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": by["bytes"] + by["operations"],
             "bound_by": max(by, key=by.get), "library_ms": lib_ms})
-        if name != base:
+        if name != base or name == "gaussian_boundary_rows":
             results[-1]["instance"] = "K=1 (zero means, unit weights)"
         results[-1].update({"latency_launches": lat_launches,
                             "latency_ms": lat_t["ms"],
@@ -2808,13 +3265,18 @@ def smoke():
                             "reference_launches": ref_launches.get(name, 0)
                             if name == base else 0,
                             "reference_ms": ref_t["ms"],
-                            "reference_bound_ms": ref_t["bound_ms"]})
+                            "reference_bound_ms": ref_t["bound_ms"],
+                            "zoo_launches": zoo_launches.get(name, 0)
+                            if name == base else 0,
+                            "zoo_ms": zoo_t["ms"],
+                            "zoo_bound_ms": zoo_t["bound_ms"]})
         if base in DEVICE_TIMED:
             results[-1]["device_ms"] = device_ms
             results[-1]["latency_device_ms"] = lat_t["device_ms"]
             results[-1]["elic_device_ms"] = elic_t["device_ms"]
             results[-1]["gsm_device_ms"] = gsm_t["device_ms"]
             results[-1]["reference_device_ms"] = ref_t["device_ms"]
+            results[-1]["zoo_device_ms"] = zoo_t["device_ms"]
         if name in ("rans_decode_gmm", "rans_encode_gmm"):
             results[-1]["serial_floor_ms"] = floor_ms
         if name == "conv2d_nhwc_bf16":
@@ -2826,7 +3288,8 @@ def smoke():
           f"decode at batch {BATCH}, {t_elic:.2f} s; gsm_*: of the GSM "
           f"codec's at batch {BATCH}, {t_gsm:.2f} s; reference_*: of the "
           f"flagship's reference-format compress + decompress of one image "
-          f"in device-rows mode, {t_ref:.2f} s)")
+          f"in device-rows mode, {t_ref:.2f} s; zoo_*: of the image-model "
+          f"line's compress + decompress of one image, {t_zoo:.2f} s)")
 
     print(f"smoke total {time.perf_counter() - _T_START:.2f} s", flush=True)
     print(json.dumps({"kernels": results, "card": kind,

@@ -221,6 +221,35 @@ def gmm_boundary_rows(scales, means, weights, lo: int, num_bins: int,
                                          num_bins, mode)
 
 
+def gaussian_boundary_rows_plain(scales, lo: int, num_bins: int,
+                                 mode: int = 0):
+    """The plain version of the single-Gaussian boundary-rows kernel, on any
+    device (see :func:`gaussian_boundary_rows`): the mixture's boundary
+    rows at K = 1 with mean 0 and weight 1. JAX computes
+    ``u16(cdf(x / s) * 65535)``; the mixture's ``(x - 0) / s`` is ``x / s``
+    and its multiply by the weight 1 (0.5 in Pólya mode, where XLA moves
+    the 0.5 onto the weight) is exact, so the rows are JAX's bit for bit."""
+    s = scales.float().reshape(-1, 1)
+    return gmm_boundary_rows_plain(s, torch.zeros_like(s), torch.ones_like(s),
+                                   lo, num_bins, mode)
+
+
+def gaussian_boundary_rows(scales, lo: int, num_bins: int, mode: int = 0):
+    """Quantized boundary CDFs of zero-mean Gaussians, the search coder's
+    rows (JAX ``gaussian_boundary_rows``, flashgmm_tpu/ans/gaussian_cdf.py:
+    170; the reference's rans_interface.cpp:401-456).
+
+    Args: scales float32 [N]; lo the first bin's value; returns uint16
+    [N, num_bins + 1], ``rows[i, j] = u16(cdf((lo + j - 0.5) / s_i) *
+    65535)``. CPU tensors take the plain version; CUDA tensors launch the
+    boundary-rows kernel at K = 1 (``rows_kernel.gaussian_boundary_rows``),
+    which raises on what it cannot take.
+    """
+    if scales.device.type == "cpu":
+        return gaussian_boundary_rows_plain(scales, lo, num_bins, mode)
+    return rows_kernel.gaussian_boundary_rows(scales, lo, num_bins, mode)
+
+
 def gmm_softmax_plain(logits):
     """The plain version of the softmax kernel, on any device (see
     :func:`gmm_softmax`)."""

@@ -19,7 +19,12 @@ evaluates the same two entries inside the rANS kernel
 (flashgmm_tpu/ans/gaussian_cdf.py:71): the reference format's uint16 rows
 [N, L], XLA's CPU roundings entry by entry (its mixture sum and its
 saturating convert included), the device half of device-rows coding.
-``gmm_softmax`` gives every coding path its mixture weights: the softmax
+``gaussian_boundary_rows`` replaces the plain-XLA ``gaussian_boundary_rows``
+(flashgmm_tpu/ans/gaussian_cdf.py:170, the single-Gaussian search coder's
+rows): the same kernel at K = 1, each mean 0 and each weight 1, whose rows
+equal JAX's single-Gaussian rows bit for bit (the weight's multiply is
+exact, and x - 0 is x). ``gmm_softmax`` gives every coding path its
+mixture weights: the softmax
 over K of [.., K, M] in jax.nn.softmax's op order on XLA's CPU, so the
 card's weights equal the CPU's (ROADMAP C11).
 
@@ -149,6 +154,35 @@ def gmm_boundary_rows(scales, means, weights, lo: int, num_bins: int,
 
 
 gmm_boundary_rows.launches = 0
+
+
+def gaussian_boundary_rows(scales, lo: int, num_bins: int, mode: int = 0):
+    """uint16 [N, num_bins+1] single-Gaussian boundary rows from float32
+    [N] scales on one CUDA device (see gaussian_cdf.gaussian_boundary_rows):
+    the boundary-rows kernel at K = 1, means 0 and weights 1."""
+    _build.require_cuda("gaussian_boundary_rows", scales)
+    if scales.dtype != torch.float32 or scales.dim() != 1:
+        raise TypeError("gaussian_boundary_rows: float32 scales [N] needed, "
+                        f"got {scales.dtype} {tuple(scales.shape)}")
+    s = scales.reshape(-1, 1)
+    s, m, w = _check_params("gaussian_boundary_rows", s, torch.zeros_like(s),
+                            torch.ones_like(s), lo, num_bins, mode)
+    n, L = s.shape[0], num_bins + 1
+    rows = torch.empty((n, L), dtype=torch.uint16, device=s.device)
+    if n == 0:
+        return rows
+    lib = _build.load().lib
+    with torch.cuda.device(s.device):
+        rc = lib.fg_gmm_boundary_rows(
+            ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(m.data_ptr()),
+            ctypes.c_void_p(w.data_ptr()), n, 1, int(lo), L, int(mode),
+            ctypes.c_void_p(rows.data_ptr()), _build.stream_ptr(s))
+    _build.check(rc, "gaussian_boundary_rows")
+    gaussian_boundary_rows.launches += 1
+    return rows
+
+
+gaussian_boundary_rows.launches = 0
 
 
 def gmm_softmax(logits):

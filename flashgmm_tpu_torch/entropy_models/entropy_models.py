@@ -2,8 +2,9 @@
 the ``EntropyModel`` base (quantization, the likelihood's lower bound and
 the table path of the reference format), the ``EntropyBottleneck`` (the
 factorized prior of the hyper branch: its forward, aux loss, integer tables
-and coding), ``GaussianConditional`` (its forward, and its scale table and
-table-path coding) and ``GaussianMixtureConditional`` (its forward, and
+and coding), ``GaussianConditional`` (its forward, its scale table and
+table-path coding, and the single-Gaussian search coding of mbt2018-mean's
+``coder="search"``) and ``GaussianMixtureConditional`` (its forward, and
 the reference format's GMM coding).
 
 Reference-format coding runs the host coder ``csrc/rans.cpp`` (the port's
@@ -507,6 +508,57 @@ class GaussianConditional(EntropyModel):
                                 means, generator)
         likelihood = self._likelihood(outputs, scales, means)
         return outputs, self._likelihood_lower_bound(likelihood)
+
+    # -- table-free search coding (reference :544-601) -------------------------
+    # the single-Gaussian rows on the scales' device, the serial chain on
+    # the host; the bins' bucket is part of the format (lo = -max_bs)
+
+    _BINS_BUCKET = 8
+
+    def _max_bs(self, abs_max: int) -> int:
+        return -(-int(abs_max) // self._BINS_BUCKET) * self._BINS_BUCKET
+
+    @staticmethod
+    def _gaussian_rows(scales_flat, max_bs: int) -> np.ndarray:
+        """uint16 rows [n, 2*max_bs + 2] on the host of one image's float32
+        [n] scales, computed on their device (the kernel on the card)."""
+        return gaussian_cdf.gaussian_boundary_rows(
+            scales_flat.contiguous(), -max_bs, 2 * max_bs + 1,
+            gaussian_cdf.get_approx_mode()).cpu().numpy()
+
+    def _scales_nchw(self, scales):
+        """Lower-bounded scales [B, H, W, C] -> float32 [B, C*H*W] in NCHW
+        order, on their device."""
+        s = self.lower_bound_scale(scales).float()
+        return s.permute(0, 3, 1, 2).reshape(s.shape[0], -1)
+
+    def compress_search(self, inputs, scales, means=None):
+        """Table-free encode of [B, H, W, C] inputs: the symbols
+        round(inputs - means) in NCHW order under each scale's Gaussian rows
+        -> (one string an image, abs_max)."""
+        symbols_np = _nchw_flatten(_host(self.quantize(inputs, "symbols",
+                                                       means)))
+        abs_max = max(int(np.abs(symbols_np).max()), 1) + 1
+        max_bs = self._max_bs(abs_max)
+        flat = self._scales_nchw(scales)
+        strings = [self.entropy_coder.encode_rows(
+            symbols_np[i], self._gaussian_rows(flat[i], max_bs), -max_bs)
+            for i in range(symbols_np.shape[0])]
+        return strings, abs_max
+
+    def decompress_search(self, strings, scales, abs_max: int, means=None):
+        """Strings of :meth:`compress_search` -> [B, H, W, C] values
+        dequantized around ``means``, on the scales' device."""
+        b, h, w, c = scales.shape
+        max_bs = self._max_bs(abs_max)
+        flat = self._scales_nchw(scales)
+        outputs = np.empty((b, c * h * w), dtype=np.int32)
+        for i, s in enumerate(strings):
+            outputs[i] = self.entropy_coder.decode_rows(
+                s, self._gaussian_rows(flat[i], max_bs), -max_bs)
+        outputs = _nchw_unflatten(outputs, (b, h, w, c))
+        return self.dequantize(torch.from_numpy(np.ascontiguousarray(outputs))
+                               .to(scales.device), means)
 
 
 class GaussianMixtureConditional(GaussianConditional):

@@ -12,9 +12,13 @@ import torch
 from torch import nn
 
 from flashgmm_tpu_torch.layers import run_canonical
+from flashgmm_tpu_torch.registry import register_module
+
+from .base import LatentCodec
 
 
-class ChannelGroupsLatentCodec(nn.Module):
+@register_module("ChannelGroupsLatentCodec")
+class ChannelGroupsLatentCodec(LatentCodec):
     """``context_mode`` "all" conditions group k on every group before it;
     "first_and_last" on the first and the latest only (the Chandelier ELIC
     variant). ``channel_context`` holds "y1".."y{G-1}", ``latent_codec``

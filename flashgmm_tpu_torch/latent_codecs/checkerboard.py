@@ -16,6 +16,9 @@ from torch import nn
 from flashgmm_tpu_torch.entropy_models.entropy_models import uniform_noise
 from flashgmm_tpu_torch.layers import run_canonical
 from flashgmm_tpu_torch.ops import quantize_ste
+from flashgmm_tpu_torch.registry import register_module
+
+from .base import LatentCodec
 
 _FORWARDS = ("onepass", "twopass", "twopass_faster")
 
@@ -45,7 +48,8 @@ def _interleave_rows(even_rows, odd_rows):
     return out
 
 
-class CheckerboardLatentCodec(nn.Module):
+@register_module("CheckerboardLatentCodec")
+class CheckerboardLatentCodec(LatentCodec):
     def __init__(self, latent_codec=None, entropy_parameters=None,
                  context_prediction=None, anchor_parity: str = "even",
                  forward_method: str = "onepass"):

@@ -9,16 +9,19 @@ same parameters.
 """
 
 import torch
-from torch import nn
 
 from flashgmm_tpu_torch.entropy_models import GaussianConditional
 from flashgmm_tpu_torch.layers import run_canonical
 from flashgmm_tpu_torch.ops import quantize_ste
+from flashgmm_tpu_torch.registry import register_module
+
+from .base import LatentCodec
 
 _CHUNKS = (("scales",), ("means",), ("scales", "means"), ("means", "scales"))
 
 
-class GaussianConditionalLatentCodec(nn.Module):
+@register_module("GaussianConditionalLatentCodec")
+class GaussianConditionalLatentCodec(LatentCodec):
     """``quantizer``: "noise" (y_hat is the GaussianConditional's: y with
     uniform noise when training, rounded around the means when not) or
     "ste" (y rounded around the means with a straight-through gradient; the

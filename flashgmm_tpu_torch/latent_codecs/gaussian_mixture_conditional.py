@@ -13,15 +13,18 @@ the other; the training forward keeps ``torch.softmax`` for its gradient.
 """
 
 import torch
-from torch import nn
 
 from flashgmm_tpu_torch.ans.gaussian_cdf import gmm_softmax
 from flashgmm_tpu_torch.entropy_models import GaussianMixtureConditional
 from flashgmm_tpu_torch.layers import run_canonical
 from flashgmm_tpu_torch.ops import quantize_ste
+from flashgmm_tpu_torch.registry import register_module
+
+from .base import LatentCodec
 
 
-class GaussianMixtureConditionalLatentCodec(nn.Module):
+@register_module("GaussianMixtureConditionalLatentCodec")
+class GaussianMixtureConditionalLatentCodec(LatentCodec):
     """``quantizer``: "noise" (the likelihood of y with uniform noise when
     training, rounded when not) or "weighted_mean_ste" (y rounded around
     the mixture's weighted mean with a straight-through gradient, the means

@@ -4,13 +4,16 @@ flashgmm_tpu/latent_codecs/hyper.py). In the reference format's
 canonical strides, pinned library settings) and h_s on the rows chain
 (``layers.run_canonical``), since the entropy parameters come from it."""
 
-from torch import nn
 
 from flashgmm_tpu_torch.layers import run_canonical, run_transform
 from flashgmm_tpu_torch.ops import quantize_ste
+from flashgmm_tpu_torch.registry import register_module
+
+from .base import LatentCodec
 
 
-class HyperLatentCodec(nn.Module):
+@register_module("HyperLatentCodec")
+class HyperLatentCodec(LatentCodec):
     """``quantizer`` "ste": h_s reads z rounded around the medians with a
     straight-through gradient (the likelihoods stay those of the
     EntropyBottleneck's own quantization); "noise": h_s reads the

@@ -5,8 +5,13 @@ the z strings)."""
 
 from torch import nn
 
+from flashgmm_tpu_torch.registry import register_module
 
-class HyperpriorLatentCodec(nn.Module):
+from .base import LatentCodec
+
+
+@register_module("HyperpriorLatentCodec")
+class HyperpriorLatentCodec(LatentCodec):
     def __init__(self, latent_codec):
         super().__init__()
         if "y" not in latent_codec or "hyper" not in latent_codec:

@@ -39,6 +39,22 @@ def _uniform(shape, bound, generator):
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
 
 
+def _library_input(x, weight):
+    """NHWC x as the NCHW input of a library conv: a channels-last view of
+    x, except where autograd records a conv on the CPU. There it is a
+    contiguous copy: PyTorch 2.13's oneDNN backward over the view corrupts
+    the heap (a strided conv over few channels, such as g_a's first skip
+    conv, 1x1 stride 2 over 3), and the process aborts a few backwards
+    later. The card's convs and every conv without autograd keep the view:
+    the memory format picks the library's algorithm, and with it the
+    coded bytes."""
+    v = x.permute(0, 3, 1, 2)
+    if v.device.type == "cpu" and torch.is_grad_enabled() \
+            and (v.requires_grad or weight.requires_grad):
+        return v.contiguous()
+    return v
+
+
 def _activation(x, negative_slope):
     """LeakyReLU with ``negative_slope``; slope 0 is ``torch.relu``."""
     return torch.relu(x) if negative_slope == 0.0 else leaky_relu(
@@ -138,7 +154,7 @@ class Conv2d(nn.Module):
         if self.kernel_route:
             return self.forward_fused(x)
         w = self._weight()
-        y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype),
+        y = F.conv2d(_library_input(x, w), w.to(x.dtype),
                      None if self.bias is None else self.bias.to(x.dtype),
                      self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
@@ -187,7 +203,7 @@ class ConvTranspose2d(nn.Module):
 
     def forward(self, x):
         y = F.conv_transpose2d(
-            x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+            _library_input(x, self.weight), self.weight.to(x.dtype),
             None if self.bias is None else self.bias.to(x.dtype),
             self.stride, self.padding, self.output_padding)
         return y.permute(0, 2, 3, 1)
@@ -375,7 +391,7 @@ class ResidualBlockUpsample(nn.Module):
             else:
                 w = torch.cat([c1.weight, c2.weight]).to(x.dtype)
                 b = torch.cat([c1.bias, c2.bias]).to(x.dtype)
-                y = F.conv2d(x.permute(0, 3, 1, 2), w, b, c1.stride,
+                y = F.conv2d(_library_input(x, w), w, b, c1.stride,
                              c1.padding).permute(0, 2, 3, 1)
             n_out = c1.weight.shape[0]
             out = pixel_shuffle(y[..., :n_out], r)

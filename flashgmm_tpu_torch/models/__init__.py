@@ -1,8 +1,18 @@
 from .base import CompressionModel, SimpleVAECompressionModel
+from .chandelier import Elic2022Chandelier
 from .ckbd_gmm import Cheng2020AnchorCheckerboardGMMv2
 from .elic_gmm import Elic2022GMM
+from .google import (FactorizedPrior, FactorizedPriorReLU,
+                     JointAutoregressiveHierarchicalPriors,
+                     MeanScaleHyperprior, ScaleHyperprior)
 from .sensetime import Cheng2020AnchorCheckerboard, Elic2022Official
+from .sigmoidkernel import SigmoidCDFCompressor
+from .waseda import Cheng2020Anchor, Cheng2020Attention
 
 __all__ = ["CompressionModel", "SimpleVAECompressionModel",
-           "Cheng2020AnchorCheckerboard", "Cheng2020AnchorCheckerboardGMMv2",
-           "Elic2022GMM", "Elic2022Official"]
+           "Cheng2020Anchor", "Cheng2020AnchorCheckerboard",
+           "Cheng2020AnchorCheckerboardGMMv2", "Cheng2020Attention",
+           "Elic2022Chandelier", "Elic2022GMM", "Elic2022Official",
+           "FactorizedPrior", "FactorizedPriorReLU",
+           "JointAutoregressiveHierarchicalPriors", "MeanScaleHyperprior",
+           "ScaleHyperprior", "SigmoidCDFCompressor"]

@@ -86,9 +86,14 @@ class SimpleVAECompressionModel(CompressionModel):
         return self.latent_codec.compress(run_transform(self.g_a, x))
 
     @torch.inference_mode()
+    def decompress_y(self, strings, shape):
+        """The y_hat that compress's ``strings`` and ``shape`` decode to."""
+        return self.latent_codec.decompress(strings, shape)["y_hat"]
+
+    @torch.inference_mode()
     def decompress(self, strings, shape):
         """{"x_hat" [1, H, W, 3] clamped to [0, 1]} of compress's
         ``strings`` and ``shape``."""
-        y_out = self.latent_codec.decompress(strings, shape)
-        return {"x_hat": torch.clamp(run_transform(self.g_s, y_out["y_hat"]),
-                                     0.0, 1.0)}
+        return {"x_hat": torch.clamp(
+            run_transform(self.g_s, self.decompress_y(strings, shape)),
+            0.0, 1.0)}

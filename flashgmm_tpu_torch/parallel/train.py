@@ -19,13 +19,8 @@ it has neither a mesh nor DDP. The order of the JAX step is kept:
 
 No library settings are pinned on the card: a training step's result
 depends on no coded bytes, so it runs under the caller's (the trainer
-leaves TF32 at PyTorch's defaults and lets cuDNN time its algorithms). On
-CPU tensors the step runs with oneDNN off: PyTorch 2.13's oneDNN backward
-of a 1x1 stride-2 conv over a channels-last input of 3 channels (g_a's
-first skip conv) corrupts the heap.
+leaves TF32 at PyTorch's defaults and lets cuDNN time its algorithms).
 """
-
-from contextlib import contextmanager, nullcontext
 
 import torch
 
@@ -45,16 +40,6 @@ def make_train_state(model, learning_rate=1e-4, aux_learning_rate=1e-3,
                         clip_max_norm=clip_max_norm)
     opt_aux = make_adam(aux.values(), {"lr": aux_learning_rate})
     return opt_net, opt_aux
-
-
-@contextmanager
-def _onednn_off():
-    prev = torch.backends.mkldnn.enabled
-    torch.backends.mkldnn.enabled = False
-    try:
-        yield
-    finally:
-        torch.backends.mkldnn.enabled = prev
 
 
 def _params(opt):
@@ -90,12 +75,11 @@ def train_step(model, opt_net, opt_aux, batch, generator,
     "mse_loss" (the metric's distortion), "aux_loss"} as detached 0-d
     tensors on the device: reading them is the caller's synchronisation."""
     model.train()
-    with _onednn_off() if batch.device.type == "cpu" else nullcontext():
-        out = model(batch, training=True, generator=generator)
-        details = rate_distortion_loss(out, batch, lmbda=lmbda, metric=metric)
-        loss = details["loss"]
-        set_guarded_grads(loss, _params(opt_net),
-                          opt_net.param_groups[0].get("clip_max_norm"))
+    out = model(batch, training=True, generator=generator)
+    details = rate_distortion_loss(out, batch, lmbda=lmbda, metric=metric)
+    loss = details["loss"]
+    set_guarded_grads(loss, _params(opt_net),
+                      opt_net.param_groups[0].get("clip_max_norm"))
     opt_net.step()
     opt_net.zero_grad(set_to_none=True)
 

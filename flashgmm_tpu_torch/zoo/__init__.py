@@ -1,4 +1,19 @@
+from .image import cfgs, create_model, image_models, model_architectures
 from .npz import load_jax_params, load_npz
-from .torch_convert import load_torch_state_dict
+from .torch_convert import (load_checkpoint_file, load_torch_state_dict,
+                            rename_legacy_keys)
 
-__all__ = ["load_jax_params", "load_npz", "load_torch_state_dict"]
+models = image_models
+
+__all__ = [
+    "models",
+    "image_models",
+    "model_architectures",
+    "cfgs",
+    "create_model",
+    "load_checkpoint_file",
+    "load_jax_params",
+    "load_npz",
+    "load_torch_state_dict",
+    "rename_legacy_keys",
+]

@@ -122,3 +122,13 @@ def _load_tables(node, key, sd, take, dev):
             v = take(key(name))
             if v.numel():
                 setattr(node, name, v.to(torch.int32).to(dev))
+
+
+def load_checkpoint_file(model, path, strict: bool = True):
+    """Load a CompressAI-style ``.pth``/``.pt`` file (a state dict, or a
+    dict holding one under ``"state_dict"``) into the port's ``model``;
+    returns the keys no parameter or table took."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    return load_torch_state_dict(model, ckpt, strict=strict)

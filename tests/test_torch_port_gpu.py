@@ -33,6 +33,8 @@ format's boundary-rows kernel and the coding softmax kernel equal their
 plain versions; the card's mixture weights, and so the batched codecs'
 bytes of one image, equal the CPU's; reference-format round trips are
 exact on the card in both modes, and the card's strings decode on the CPU.
+The search coder's single-Gaussian rows kernel equals its plain version,
+and its card strings decode on the CPU.
 One training step of the narrow flagship on the card agrees with the
 CPU's (loss and gradients within 1e-4, TF32 off, zero noise), and its
 non-finite guard keeps the parameters finite.
@@ -1146,6 +1148,47 @@ def test_boundary_rows_and_softmax_kernels_equal_plain(cuda, mode, k):
         assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
 
 
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_gaussian_rows_kernel_equals_plain(cuda, mode):
+    """The search coder's single-Gaussian rows (the boundary-rows kernel at
+    K = 1) against their plain version on the card and on the CPU, over
+    scales from the lower bound 0.11 to 256, and a mbt2018-mean search
+    round trip of the card's strings on the CPU."""
+    from flashgmm_tpu_torch.ans.gaussian_cdf import (
+        gaussian_boundary_rows, gaussian_boundary_rows_plain)
+    from flashgmm_tpu_torch.entropy_models import GaussianConditional
+
+    rs = np.random.RandomState(mode)
+    s = np.exp(rs.uniform(np.log(0.11), np.log(256), 30000))
+    s[:4] = (0.11, 1.0, 256.0, 2.0)
+    s = torch.from_numpy(s.astype(np.float32))
+    for max_bs in (8, 64):
+        before = rows_kernel.gaussian_boundary_rows.launches
+        got = gaussian_boundary_rows(s.to(cuda), -max_bs, 2 * max_bs + 1,
+                                     mode)
+        assert rows_kernel.gaussian_boundary_rows.launches == before + 1
+        assert got.dtype == torch.uint16
+        for ref in (gaussian_boundary_rows_plain(s.to(cuda), -max_bs,
+                                                 2 * max_bs + 1, mode).cpu(),
+                    gaussian_boundary_rows_plain(s, -max_bs, 2 * max_bs + 1,
+                                                 mode)):
+            assert np.array_equal(got.cpu().numpy(), ref.numpy())
+    with pytest.raises(TypeError):
+        rows_kernel.gaussian_boundary_rows(s.to(cuda).double(), -8, 17)
+    with pytest.raises(ValueError):
+        rows_kernel.gaussian_boundary_rows(s, -8, 17)  # not CUDA
+
+    y = torch.from_numpy(rs.normal(0, 6, (1, 8, 8, 32)).astype(np.float32))
+    scales = torch.from_numpy(rs.uniform(0.11, 20, (1, 8, 8, 32))
+                              .astype(np.float32))
+    means = torch.zeros_like(y)
+    gc = GaussianConditional()
+    strings, abs_max = gc.compress_search(y.to(cuda), scales.to(cuda),
+                                          means.to(cuda))
+    back = gc.decompress_search(strings, scales, abs_max, means)
+    assert torch.equal(back, torch.round(y))
+
+
 def test_boundary_rows_and_softmax_refuse_what_they_do_not_take(cuda):
     s = torch.ones(8, 4, device=cuda)
     with pytest.raises(TypeError):
@@ -1300,17 +1343,15 @@ def test_train_step_on_card_matches_the_cpu(cuda, monkeypatch):
     from flashgmm_tpu_torch.optimizers import net_aux_partition
     from flashgmm_tpu_torch.parallel import (make_train_state,
                                              set_guarded_grads, train_step)
-    from flashgmm_tpu_torch.parallel.train import _onednn_off
 
     _zero_noise(monkeypatch)
     cpu, card, x = _train_pair(cuda)
     grads, losses = [], []
     for model, xd in ((cpu, x), (card, x.to(cuda))):
         net, _ = net_aux_partition(model)
-        with _onednn_off():  # as train_step on the CPU
-            out = model(xd, training=True, generator=None)
-            loss = rate_distortion_loss(out, xd)["loss"]
-            set_guarded_grads(loss, list(net.values()), 1.0)
+        out = model(xd, training=True, generator=None)
+        loss = rate_distortion_loss(out, xd)["loss"]
+        set_guarded_grads(loss, list(net.values()), 1.0)
         losses.append(float(loss.detach()))
         grads.append({k: p.grad.cpu() for k, p in net.items()})
         model.zero_grad(set_to_none=True)

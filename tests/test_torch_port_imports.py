@@ -83,6 +83,16 @@ def test_smoke_refuses_without_a_card():
     "flashgmm_tpu_torch.datasets.loader",
     "flashgmm_tpu_torch.datasets.utils",
     "flashgmm_tpu_torch.examples.train",
+    "flashgmm_tpu_torch.models.google",
+    "flashgmm_tpu_torch.models.chandelier",
+    "flashgmm_tpu_torch.models.sigmoidkernel",
+    "flashgmm_tpu_torch.latent_codecs.base",
+    "flashgmm_tpu_torch.latent_codecs.entropy_bottleneck",
+    "flashgmm_tpu_torch.latent_codecs.rasterscan",
+    "flashgmm_tpu_torch.runtime.rasterscan",
+    "flashgmm_tpu_torch.zoo.image",
+    "flashgmm_tpu_torch.utils.eval_model.__main__",
+    "flashgmm_tpu_torch.utils.update_model.__main__",
 ])
 def test_forward_and_converter_modules_import_no_jax(module):
     """The CompressAI state-dict converter, the training forward's modules,
@@ -90,8 +100,9 @@ def test_forward_and_converter_modules_import_no_jax(module):
     the reference format's modules (the host coder's binding, the rows and
     softmax, the latent codecs' compress and decompress), and the training
     path's (losses, metrics, optimizers, the train step, datasets,
-    checkpoints, logging and the trainer CLI), each imported alone in a
-    fresh interpreter."""
+    checkpoints, logging and the trainer CLI), and the image-model line's
+    (the models, the raster scan, the zoo and the evaluation CLIs), each
+    imported alone in a fresh interpreter."""
     probe = (f"import importlib, sys; importlib.import_module({module!r}); "
              "print(','.join(sorted(k for k in sys.modules if k.split('.')[0] "
              "in ('jax', 'jaxlib', 'flax', 'optax', 'flashgmm_tpu'))))")
@@ -99,3 +110,41 @@ def test_forward_and_converter_modules_import_no_jax(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", out.stdout
+
+
+CLI_PROBE = """
+import os, runpy, sys, tempfile
+import numpy as np
+d = tempfile.mkdtemp()
+from flashgmm_tpu_torch.datasets import save_image
+save_image(os.path.join(d, "a.ppm"), np.full((64, 64, 3), 0.5, np.float32))
+sys.argv = ["eval_model", "random", d, "-a", "bmshj2018-hyperprior", "-N", "8",
+            "-M", "8", "--real", "--device", "cpu"]
+try:
+    runpy.run_module("flashgmm_tpu_torch.utils.eval_model", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+from flashgmm_tpu_torch.models import ScaleHyperprior
+from flashgmm_tpu_torch.utils.checkpoint import save_checkpoint
+save_checkpoint(os.path.join(d, "ckpt"), ScaleHyperprior(8, 8, device="cpu"))
+sys.argv = ["update_model", os.path.join(d, "ckpt"), "-a",
+            "bmshj2018-hyperprior", "-N", "8", "-M", "8", "--device", "cpu"]
+try:
+    runpy.run_module("flashgmm_tpu_torch.utils.update_model", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+print("BAD:" + ",".join(sorted(k for k in sys.modules if k.split(".")[0]
+                               in ("jax", "jaxlib", "flax", "optax", "flashgmm_tpu"))))
+"""
+
+
+def test_eval_and_update_clis_run_without_jax():
+    """``python -m flashgmm_tpu_torch.utils.eval_model`` and ``...
+    .update_model`` run to their end on the CPU (as ``-m`` runs them) in a
+    fresh interpreter, importing no JAX-side module."""
+    out = subprocess.run([sys.executable, "-c", CLI_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert '"bpp"' in out.stdout and "Saved updated model" in out.stdout
+    bad = [line for line in out.stdout.splitlines() if line.startswith("BAD:")]
+    assert bad == ["BAD:"], bad

@@ -58,7 +58,6 @@ from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2 as TModel
 from flashgmm_tpu_torch.optimizers import net_aux_partition
 from flashgmm_tpu_torch.parallel import (make_train_state, set_guarded_grads,
                                          train_step)
-from flashgmm_tpu_torch.parallel.train import _onednn_off
 from flashgmm_tpu_torch.utils import metrics as t_metrics
 from flashgmm_tpu_torch.zoo import load_jax_params
 
@@ -291,10 +290,9 @@ def test_one_step_loss_and_net_gradients_match_jax(models, equal_noise):
 
     net, _ = net_aux_partition(tm)
     xt = torch.from_numpy(x)
-    with _onednn_off():  # as train_step on the CPU
-        out = tm(xt, training=True, generator=torch.Generator())
-        loss = rate_distortion_loss(out, xt, lmbda=LMBDA)["loss"]
-        set_guarded_grads(loss, list(net.values()))
+    out = tm(xt, training=True, generator=torch.Generator())
+    loss = rate_distortion_loss(out, xt, lmbda=LMBDA)["loss"]
+    set_guarded_grads(loss, list(net.values()))
     try:
         np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-5)
         assert set(j_grads) == {_jax_path(n) for n in net}

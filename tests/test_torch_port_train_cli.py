@@ -177,7 +177,11 @@ def test_registry_matches_jax_names():
     from flashgmm_tpu_torch.registry import CRITERIONS, MODELS, OPTIMIZERS
 
     names = {"cheng2020-anchor-checkerboard-gmm", "elic2022-official",
-             "cheng2020-anchor-checkerboard", "elic2022-gaussian"}
+             "cheng2020-anchor-checkerboard", "elic2022-gaussian",
+             "bmshj2018-factorized", "bmshj2018-factorized-relu",
+             "bmshj2018-hyperprior", "mbt2018-mean", "mbt2018",
+             "cheng2020-anchor", "cheng2020-attn", "elic2022-chandelier",
+             "sigmoid-cdf"}
     assert set(MODELS) == names
     for name in names:
         assert MODELS[name].__module__.startswith("flashgmm_tpu_torch.")
