@@ -111,7 +111,19 @@ Phases, each ending in one flushed line with its seconds:
    PSNR beside the batched codec's, compress and decompress ms with the
    host coder's share and the card's busy ms, and the port on the CPU
    decoding the card's strings of a 64x64 image to the card's y_hat;
-12. zoo: the CompressAI image-model line (ROADMAP item 12) at its zoo
+12. vbr: the variable-bitrate models (ROADMAP item 13; ``vbr_phase``),
+   while the zoo phase's CPU runs go on, on the two 768x512 images of the
+   JAX package's sweep: the shipped mbt2018-mean-vbr (N=192, M=320, the variable-step bottleneck) at each of
+   its 8 gains and at one continuous scale, bmshj2018-hyperprior-vbr and
+   mbt2018-vbr seed-initialised: the launches of each level's compress +
+   decompress (the f32 conv for h_s's three convs a direction), y_hat
+   exact, bytes, bpp, PSNR, MS-SSIM, compress and decompress ms, the rate
+   monotone over the gains and the sweep beside
+   results/synthetic/vbr_sweep.json; the rows-chain conv at the path's h_s
+   shapes against its plain version; the card's strings of a small image
+   decoded on the CPU at s=7; 10 ``vbr_train_step``s of the shipped model.
+   ``python3 chip_smoke.py --vbr`` runs this phase alone;
+13. zoo: the CompressAI image-model line (ROADMAP item 12) at its zoo
    widths on the first image (``zoo_phase``): bmshj2018-factorized,
    bmshj2018-hyperprior and mbt2018-mean (both coders) at q4 (N=128,
    M=192) on the repository's weights, mbt2018 (N=192, M=320), Cheng2020
@@ -129,7 +141,7 @@ Phases, each ending in one flushed line with its seconds:
    card, and ``update_model``'s file reloading and coding the same bytes
    (the CPU runs start after the build, at the lowest priority, beside the
    earlier phases). ``python3 chip_smoke.py --zoo`` runs this phase alone;
-13. train: training at full width under the trainer's library settings
+14. train: training at full width under the trainer's library settings
    (cuDNN TF32 on, autotuning on; ``train_phase``): the flagship on a fixed
    batch of 8 256x256 crops, 20 ``train_step``s (finite terms, the loss
    going down, the quantiles and g_a moved, a NaN batch guarded), the step,
@@ -139,7 +151,7 @@ Phases, each ending in one flushed line with its seconds:
    the trainer CLI on a folder of PPMs (2 epochs across a milestone, a
    resume, the checkpoints loading bit for bit); one step each of ELIC and
    GSM. None of the port's hand kernels runs there;
-14. timing: every kernel call of those runs timed again by CUDA events,
+15. timing: every kernel call of those runs timed again by CUDA events,
    back to back ("ms"), beside its plain version, a library call where one
    computes the same function, and its bound; the encoders and the bounds
    kernel also on the device alone ("device_ms": the stream's queue filled
@@ -152,7 +164,8 @@ Phases, each ending in one flushed line with its seconds:
    ("latency_launches"); and each kernel's calls of ELIC's batched encode
    + decode of the two images ("elic_launches", "elic_ms",
    "elic_device_ms", "elic_bound_ms"), and of the GSM codec's ("gsm_*"),
-   each distinct conv shape and each coder call held to its plain version;
+   each distinct conv shape and each coder call held to its plain version
+   and timed once, its time counted at every call of that shape;
    the coders' K=1 instances on lines of their own
    ("rans_encode_gmm_k1", "rans_decode_gmm_k1", their launches and times
    the GSM path's); each kernel's calls of the flagship's reference-format
@@ -160,7 +173,7 @@ Phases, each ending in one flushed line with its seconds:
    has its main path's launches and calls; and each kernel's calls of the
    zoo phase's compress + decompress ("zoo_*"), where the single-Gaussian
    rows kernel (the boundary-rows kernel at K=1) has its main path's
-   launches and calls.
+   launches and calls; and of the vbr phase's ("vbr_*").
 
 It prints its total seconds, a ``{"kernels": [...]}`` line, the nvidia-smi
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -176,6 +189,7 @@ import subprocess
 import sys
 import time
 import warnings
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -259,6 +273,18 @@ ZOO_CLI = (("mbt2018-mean", 4, ("-N", "128", "-M", "192")),
            ("bmshj2018-hyperprior", 4, ("-N", "128", "-M", "192")))
 ZOO_CLI_BPP, ZOO_CLI_PSNR = 5e-3, 0.05  # card against CPU: relative, dB
 ZOO_CLI_THREADS = (4, 3)  # CPU threads of the two CPU runs, side by side
+# the vbr phase: the JAX sweep's images (tools/vbr_sweep.py) and its record
+# (read only), the continuous scale run between gains 4 and 5, the
+# seed-initialised models and their gain levels, the side of the image
+# whose card strings the CPU decodes, and the training steps of the
+# shipped model (s cycling 0..7)
+VBR_SEEDS = (600000, 600001)
+VBR_RECORD = ROOT / "results" / "synthetic" / "vbr_sweep.json"
+VBR_INPUTSCALE = 0.45
+VBR_SEEDED = (("bmshj2018-hyperprior-vbr", (0, 3, 7)), ("mbt2018-vbr", (0, 7)))
+VBR_ROWS_CONVS = 3  # h_s's convs a direction
+VBR_SMALL = 256
+VBR_TRAIN_STEPS = 10
 # the training phase: the trainer CLI's defaults (examples/train.py) and
 # the steps the flagship takes on one fixed batch
 TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS = 8, 256, 20
@@ -1558,6 +1584,36 @@ class ZooCli:
         self._tmp.cleanup()
 
 
+@contextmanager
+def raster_loop_seconds():
+    """Yields a one-entry list to which the raster scan's host loops
+    (``rasterscan.raster_scan_encode`` and
+    ``raster_scan_decompress_single_stream``) add their seconds while the
+    block runs; the caller sets it to 0 where it starts counting."""
+    from flashgmm_tpu_torch.runtime import rasterscan
+
+    loop_s = [0.0]
+    loops = ("raster_scan_encode", "raster_scan_decompress_single_stream")
+    saved = {name: getattr(rasterscan, name) for name in loops}
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                loop_s[0] += time.perf_counter() - t0
+        return run
+
+    for name in loops:
+        setattr(rasterscan, name, timed(saved[name]))
+    try:
+        yield loop_s
+    finally:
+        for name in loops:
+            setattr(rasterscan, name, saved[name])
+
+
 def zoo_phase(dev, record, originals, smi_line, cli):
     """The CompressAI image-model line (ROADMAP item 12) at its zoo widths
     on the first 768x512 image, and the evaluation CLIs (15a): for each
@@ -1582,34 +1638,19 @@ def zoo_phase(dev, record, originals, smi_line, cli):
     from flashgmm_tpu_torch.datasets import textured_leaves
     from flashgmm_tpu_torch.models import (Elic2022Chandelier,
                                            SigmoidCDFCompressor)
-    from flashgmm_tpu_torch.runtime import rasterscan
     from flashgmm_tpu_torch.utils.eval_model.__main__ import _count_bytes
     from flashgmm_tpu_torch.zoo import create_model, image_models
 
     x1 = torch.from_numpy(textured_leaves(H, W, seed=SEED0 + 1)[None]).to(dev)
     small = torch.from_numpy(textured_leaves(ZOO_SMALL, ZOO_SMALL,
                                              seed=SEED0 + 1)[None])
-    loop_s = [0.0]  # seconds in the raster scan's host loop
-    loops = ("raster_scan_encode", "raster_scan_decompress_single_stream")
-    saved = {name: getattr(rasterscan, name) for name in loops}
-
-    def timed(fn):
-        def run(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                loop_s[0] += time.perf_counter() - t0
-        return run
 
     def dec_kw(out):
         return {"abs_max": out["abs_max"]} if "abs_max" in out else {}
 
     zoo_launches, zoo_calls = {}, {}
     on_cpu = []  # (tag, CPU copy, the card's output of the small image)
-    for name in loops:
-        setattr(rasterscan, name, timed(saved[name]))
-    try:
+    with raster_loop_seconds() as loop_s:
         for tag, arch, q, coder in ZOO_CASES:
             kw = {} if coder is None else {"coder": coder}
             if arch == "elic2022-chandelier":
@@ -1683,9 +1724,6 @@ def zoo_phase(dev, record, originals, smi_line, cli):
                   f"{launches['conv2d_nhwc']}, gaussian_boundary_rows "
                   f"{launches['gaussian_boundary_rows']}", flush=True)
             del m
-    finally:
-        for name in loops:
-            setattr(rasterscan, name, saved[name])
 
     def meanwhile():
         # the card's strings of a small image decoded on the CPU
@@ -1729,6 +1767,287 @@ def zoo_phase(dev, record, originals, smi_line, cli):
           f"the card and the CPU (the CPU runs {t_cli:.2f} s from their "
           "start after the build)")
     return zoo_launches, zoo_calls
+
+
+def _vbr_symbols(model, out, s, inputscale=0):
+    """The integer y symbols that a hyperprior VBR model's ``out`` decodes
+    to on its device, as a CPU tensor."""
+    scale = model._get_scale(s, inputscale)
+    params = model._vbr_side_params(out["strings"][1], out["shape"],
+                                    model._z_qs(scale))
+    gc = model.gaussian_conditional
+    return gc.decompress(out["strings"][0], gc.build_indexes(
+        model._split(params)[0] * scale)).cpu()
+
+
+def conv_work(x, w, b=None, residual=None):
+    """(bytes, float32 operations) of one rows-chain conv call. Masked taps
+    and a transposed conv's inserted zeros are not work: such a conv reads
+    its input's values alone, each with every tap."""
+    import torch
+
+    s = inserted_stride(x)
+    x_in = x[:, ::s, ::s]
+    n_px = x_in.shape[0] * x_in.shape[1] * x_in.shape[2]
+    n_out = x.shape[0] * x.shape[1] * x.shape[2] * w.shape[3]
+    return (4 * (x_in.numel() + w.numel() + n_out
+                 + (0 if b is None else b.numel())
+                 + (0 if residual is None else residual.numel())),
+            2 * n_px * int(torch.count_nonzero(w)))
+
+
+def conv_check(kernel, args, kwargs, tag):
+    """One rows-chain conv call against its plain version (the number of
+    outputs that differ must be 0), its ms back to back (CUDA events) and
+    its bound; printed."""
+    from flashgmm_tpu_torch.ops import conv_kernel
+
+    x, w, _ = args
+    got = kernel(*args, **kwargs)
+    ref = conv_kernel.conv2d_nhwc_plain(*args, **kwargs)
+    n_diff = int((got != ref).sum())
+    s = inserted_stride(x)
+    nbytes, flops = conv_work(*args, kwargs.get("residual"))
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    ms = cuda_ms(lambda: kernel(*args, **kwargs), 20)
+    print(f"  {tag}: conv {'x'.join(map(str, x.shape[:3]))} "
+          f"{w.shape[2]}->{w.shape[3]} k{w.shape[0]}"
+          f"{' (zero-inserted, stride %d)' % s if s > 1 else ''}: {n_diff} of "
+          f"{got.numel()} outputs differ from plain; kernel {ms:.4f} ms, "
+          f"bound {max(t_b, t_o):.4f} ms "
+          f"({'bytes' if t_b >= t_o else 'operations'})", flush=True)
+    require(n_diff == 0, f"{tag}: the rows-chain conv differs from its plain "
+            "version")
+
+
+def vbr_phase(dev, record, originals, smi_line):
+    """The variable-bitrate models (ROADMAP item 13) on the two 768x512
+    images of the JAX package's sweep (textured leaves, VBR_SEEDS):
+    1. the shipped mbt2018-mean-vbr (``image_models(..., pretrained=True)``,
+       N=192, M=320, the variable-step bottleneck) at each gain s = 0..7:
+       ``update(force=True, scale=...)``, then (after one warm-up round
+       trip) compress + decompress of both images with every launch
+       counted from 0 (the rows-chain conv 3
+       times a direction an image, nothing else): z step, bytes, bpp, PSNR,
+       MS-SSIM, compress and decompress ms (host clock), every decode's
+       y_hat equal to the encoder's; bpp at least 0.98 x the previous
+       level's and PSNR at s=7 above s=0 (tools/vbr_sweep.py's asserts);
+       each level's difference from results/synthetic/vbr_sweep.json (read
+       only; a report); and ``inputscale`` VBR_INPUTSCALE, whose bpp must
+       lie between gains 4's and 5's;
+    2. the rows-chain conv against its plain version at the path's h_s
+       shapes (N->M and M->3M/2 transposed, 3M/2->2M), 0 outputs differing;
+    3. bmshj2018-hyperprior-vbr and mbt2018-vbr (192, 320), seed-initialised
+       (VBR_SEEDED levels), the same line a level, the raster scan's host
+       loop apart;
+    4. at s=7 each model's card strings of a VBR_SMALL^2 image decoded on
+       the CPU by a CPU copy: the same y symbols (mbt2018-vbr: the same
+       y_hat, its offsets run on the host), the hyperprior models' max
+       |y_hat difference| printed (their offsets run on each device);
+    5. VBR_TRAIN_STEPS ``vbr_train_step``s of the shipped model on 8 random
+       256x256 crops of the two images, s cycling 0..7 at ``VBR_LMBDAS[s]``,
+       cuDNN TF32 on and its autotuning off (the first step's autotuning
+       alone took 22-39 s in the train phase): every loss finite, Gain
+       unchanged, g_a's first weight moved; the median step ms and the
+       peak memory.
+    Returns (launches, recorded calls) of the coding runs."""
+    import copy
+    import random
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.datasets.image import random_crop
+    from flashgmm_tpu_torch.models.vbr import VBR_LMBDAS
+    from flashgmm_tpu_torch.parallel import make_train_state, vbr_train_step
+    from flashgmm_tpu_torch.utils.eval_model.__main__ import _count_bytes
+    from flashgmm_tpu_torch.utils.metrics import ms_ssim
+    from flashgmm_tpu_torch.zoo import create_model, image_models
+
+    imgs = [textured_leaves(H, W, seed=seed) for seed in VBR_SEEDS]
+    xs = [torch.from_numpy(img[None]).to(dev) for img in imgs]
+    small = torch.from_numpy(textured_leaves(VBR_SMALL, VBR_SMALL,
+                                             seed=VBR_SEEDS[0])[None])
+    jax_record = json.loads(VBR_RECORD.read_text())["results"]
+    vbr_launches, vbr_calls = {}, {}
+    on_cpu = []  # (tag, CPU copy, s, the card's output of the small image)
+
+    def level(tag, m, s, loop_s, inputscale=0):
+        """One gain level of ``m`` on both images: its printed line's
+        numbers, and the level's recorded calls."""
+        scale = m._get_scale(s, inputscale)
+        m.update(force=True, scale=scale)
+        qs = m._z_qs(scale)
+
+        def run():
+            res = []
+            for x in xs:
+                torch.cuda.synchronize()
+                loop_s[0] = 0.0
+                t0 = time.perf_counter()
+                out = m.compress(x, s=s, inputscale=inputscale)
+                torch.cuda.synchronize()
+                t1, l1 = time.perf_counter(), loop_s[0]
+                x_hat = m.decompress(out["strings"], out["shape"], s=s,
+                                     inputscale=inputscale)["x_hat"]
+                torch.cuda.synchronize()
+                res.append((out, x_hat, t1 - t0, time.perf_counter() - t1,
+                            l1, loop_s[0] - l1))
+            return res
+
+        res, launches, calls = record(run)
+        want = dict.fromkeys(launches, 0)
+        want["conv2d_nhwc"] = 2 * len(xs) * VBR_ROWS_CONVS
+        require(launches == want, f"vbr {tag} s={s}: launches {launches}, "
+                f"not {want}")
+        for name, n in launches.items():
+            vbr_launches[name] = vbr_launches.get(name, 0) + n
+            vbr_calls.setdefault(name, []).extend(calls[name])
+        n_bytes, psnrs, ssims = [], [], []
+        for (out, x_hat, *_), x in zip(res, xs):
+            y_dec = m.decompress_y(out["strings"], out["shape"], s=s,
+                                   inputscale=inputscale)
+            require(torch.equal(y_dec, out["y_hat"]), f"vbr {tag} s={s}: "
+                    "decompress's y_hat differs from compress's")
+            require(tuple(x_hat.shape) == tuple(x.shape)
+                    and bool(torch.isfinite(x_hat).all()),
+                    f"vbr {tag} s={s}: x_hat")
+            n_bytes.append(_count_bytes(out["strings"]))
+            psnrs.append(psnr_of(x_hat, x))
+            ssims.append(float(ms_ssim(x, x_hat)))
+        lv = {"bpp": 8 * float(np.mean(n_bytes)) / (H * W),
+              "psnr": float(np.mean(psnrs)), "ms-ssim": float(np.mean(ssims))}
+        t_c, t_d, l_c, l_d = (1e3 * float(np.mean([r[i] for r in res]))
+                              for i in range(2, 6))
+        loop = (f" (host loop {l_c:.2f} ms)" if l_c else "",
+                f" (host loop {l_d:.2f} ms)" if l_d else "")
+        at = f"inputscale {inputscale}" if inputscale else f"s={s}"
+        print(f"  vbr {tag} {at}: gain {float(scale):.6g}, z step "
+              f"{'1 (fixed)' if qs is None else repr(qs)}; {n_bytes} bytes, "
+              f"{lv['bpp']:.4f} bpp, PSNR {lv['psnr']:.4f} dB, MS-SSIM "
+              f"{lv['ms-ssim']:.5f}; y_hat exact; compress {t_c:.2f} ms"
+              f"{loop[0]}, decompress {t_d:.2f} ms{loop[1]} (host clock, an "
+              f"image, {smi_line}); launches: conv2d_nhwc "
+              f"{launches['conv2d_nhwc']}", flush=True)
+        if s == 7 and not inputscale:
+            out = m.compress(small.to(dev), s=s)
+            ar = hasattr(m, "scale_to_context")  # mbt2018-vbr
+            on_cpu.append((tag, copy.deepcopy(m).cpu(), s, out,
+                           None if ar else _vbr_symbols(m, out, s)))
+        return lv, calls
+
+    with raster_loop_seconds() as loop_s:
+        # 1. the shipped model over its 8 gains
+        tag = "mbt2018-mean-vbr (shipped)"
+        m = image_models("mbt2018-mean-vbr", 1, pretrained=True,
+                         device=dev).eval()
+        require(m.vr_entbttlnck, "vbr: the zoo's VBR model lacks the "
+                "variable-step bottleneck")
+        # a warm-up round trip (cuDNN's first calls), outside the counts
+        m.update(force=True, scale=m._get_scale(0))
+        out = m.compress(xs[0], s=0)
+        m.decompress(out["strings"], out["shape"], s=0)
+        sweep = []
+        for s in range(m.levels):
+            lv, calls = level(tag, m, s, loop_s)
+            sweep.append(lv)
+            d_bpp = 100 * (lv["bpp"] / jax_record["bpp"][s] - 1)
+            d_psnr = lv["psnr"] - jax_record["psnr-rgb"][s]
+            print(f"  vbr {tag} s={s} against results/synthetic/"
+                  f"vbr_sweep.json ({jax_record['bpp'][s]:.4f} bpp, "
+                  f"{jax_record['psnr-rgb'][s]:.4f} dB): bpp {d_bpp:+.3f} %, "
+                  f"PSNR {d_psnr:+.4f} dB", flush=True)
+            if s == 0:  # 2. the rows-chain conv at the path's h_s shapes
+                for args, kwargs in calls["conv2d_nhwc"][:VBR_ROWS_CONVS]:
+                    conv_check(originals["conv2d_nhwc"], args, kwargs,
+                               f"vbr {tag} h_s")
+        bpps = [lv["bpp"] for lv in sweep]
+        require(all(b2 >= 0.98 * b1 for b1, b2 in zip(bpps, bpps[1:])),
+                f"vbr: the rate is not monotone across the gains: {bpps}")
+        require(sweep[-1]["psnr"] > sweep[0]["psnr"],
+                "vbr: PSNR at s=7 is not above s=0's")
+        mid, _ = level(tag, m, 1, loop_s, inputscale=VBR_INPUTSCALE)
+        require(bpps[4] < mid["bpp"] < bpps[5], f"vbr: inputscale "
+                f"{VBR_INPUTSCALE} gives {mid['bpp']:.4f} bpp, not between "
+                f"gains 4 and 5 ({bpps[4]:.4f}, {bpps[5]:.4f})")
+        del m
+
+        # 3. the seed-initialised models
+        for arch, levels in VBR_SEEDED:
+            m = create_model(arch, 1, device=dev).eval()
+            for s in levels:
+                level(f"{arch} (seed 0)", m, s, loop_s)
+            del m
+
+    # 4. the card's strings of a small image decoded on the CPU
+    for tag, cpu_model, s, out, card_symbols in on_cpu:
+        t0 = time.perf_counter()
+        y_cpu = cpu_model.decompress_y(out["strings"], out["shape"], s=s)
+        dt = time.perf_counter() - t0
+        if card_symbols is None:
+            require(torch.equal(y_cpu, out["y_hat"].cpu()), f"vbr {tag}: the "
+                    "CPU decodes the card's strings to another y_hat")
+            gap = "the card's y_hat bit for bit"
+        else:
+            require(torch.equal(_vbr_symbols(cpu_model, out, s),
+                                card_symbols), f"vbr {tag}: the CPU decodes "
+                    "the card's strings to other symbols")
+            gap = (f"the card's symbols, max |y_hat difference| "
+                   f"{float((y_cpu - out['y_hat'].cpu()).abs().max()):.3g}")
+        print(f"  vbr {tag} s={s}: the card's strings of a {VBR_SMALL}x"
+              f"{VBR_SMALL} image decoded on the CPU to {gap} ({dt:.1f} s)",
+              flush=True)
+
+    # 5. training steps of the shipped model
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, cudnn.benchmark)
+    try:
+        cudnn.allow_tf32, cudnn.benchmark = True, False
+        random.seed(VBR_SEEDS[0])
+        batch = torch.from_numpy(np.stack([
+            random_crop(imgs[i % len(imgs)], TRAIN_PATCH)
+            for i in range(TRAIN_BATCH)])).to(dev)
+        with torch.inference_mode(False):
+            batch = batch.clone()
+            m = image_models("mbt2018-mean-vbr", 1, pretrained=True,
+                             device=dev)
+            opts = make_train_state(m, TRAIN_LR, TRAIN_AUX_LR, 1.0)
+            gen = torch.Generator(device=dev).manual_seed(VBR_SEEDS[0])
+            gain0 = m.Gain.detach().clone()
+            w0 = m.g_a.layers[0].weight.detach().clone()
+            torch.cuda.reset_peak_memory_stats()
+            losses, step_ms = [], []
+            for i in range(VBR_TRAIN_STEPS):
+                s = i % m.levels
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                a.record()
+                out = vbr_train_step(m, *opts, batch, gen, s, VBR_LMBDAS[s])
+                b.record()
+                torch.cuda.synchronize()
+                step_ms.append(a.elapsed_time(b))
+                losses.append((s, float(out["loss"])))
+                require(all(np.isfinite(float(v)) for v in out.values()),
+                        f"vbr train: step {i + 1} (s={s}): {out}")
+            peak = torch.cuda.max_memory_allocated()
+            require(torch.equal(m.Gain.detach(), gain0),
+                    "vbr train: a step moved Gain")
+            require(not torch.equal(m.g_a.layers[0].weight.detach(), w0),
+                    "vbr train: g_a's first weight did not move")
+    finally:
+        cudnn.allow_tf32, cudnn.benchmark = saved
+    print(f"  vbr train mbt2018-mean-vbr (shipped), batch {TRAIN_BATCH} x "
+          f"{TRAIN_PATCH}^2, cuDNN TF32 on, autotuning off: losses (s, loss) "
+          f"{[(s, round(v, 4)) for s, v in losses]}, all finite; Gain "
+          f"unchanged, g_a moved; step {statistics.median(step_ms):.3f} ms "
+          f"(median of {VBR_TRAIN_STEPS}, CUDA events; the first "
+          f"{step_ms[0]:.1f}), peak {peak / 2 ** 30:.2f} GiB ({smi_line})",
+          flush=True)
+    phase("vbr", "the shipped mbt2018-mean-vbr over its 8 gains, the "
+          "seed-initialised VBR models, card strings on the CPU, "
+          "vbr_train_step")
+    return vbr_launches, vbr_calls
 
 
 def train_phase(dev):
@@ -2069,13 +2388,14 @@ def main() -> int:
             return 1
         bytes_worker(*sys.argv[2:5])
         return 0
-    if len(sys.argv) > 1 and sys.argv[1] == "--zoo":
+    alone = {"--zoo": zoo_only, "--vbr": vbr_only}
+    if len(sys.argv) > 1 and sys.argv[1] in alone:
         if not torch.cuda.is_available():
             return 1
         sys.path.insert(0, str(ROOT))
         try:
             with torch.inference_mode():
-                zoo_only()
+                alone[sys.argv[1]]()
         finally:
             for stop in _CLEANUP:
                 stop()
@@ -2096,9 +2416,9 @@ def main() -> int:
     return 0
 
 
-def zoo_only():
-    """``python3 chip_smoke.py --zoo``: the device line, the build and the
-    zoo phase alone, then each kernel's launches on its path."""
+def _device_and_build():
+    """The device line and the build of a phase run alone: (device,
+    nvidia-smi's name and power limit)."""
     import torch
 
     from flashgmm_tpu_torch import _build
@@ -2113,6 +2433,24 @@ def zoo_only():
     phase("device", f"{torch.cuda.get_device_name(0)} | {smi_line}")
     kernels = _build.load()
     phase("build", f"nvcc {kernels.seconds:.2f} s -> {kernels.path.name}")
+    return dev, smi_line
+
+
+def vbr_only():
+    """``python3 chip_smoke.py --vbr``: the device line, the build and the
+    vbr phase alone, then each kernel's launches on its path."""
+    dev, smi_line = _device_and_build()
+    bound = kernel_wrappers()
+    originals = {name: getattr(*where) for name, where in bound.items()}
+    launches, _ = vbr_phase(dev, make_record(bound, originals), originals,
+                            smi_line)
+    print(json.dumps({"vbr_launches": launches}), flush=True)
+
+
+def zoo_only():
+    """``python3 chip_smoke.py --zoo``: the device line, the build and the
+    zoo phase alone, then each kernel's launches on its path."""
+    dev, smi_line = _device_and_build()
     cli = ZooCli(dev)
     _CLEANUP.append(cli.close)
     cli.start()
@@ -2848,14 +3186,17 @@ def smoke():
     ref_launches, ref_calls = reference_phase(dev, x1, model, record,
                                               originals, smi_line)
 
-    # 12. the image-model line and the evaluation CLIs --------------------
+    # 12. the variable-bitrate models, while the eval CLI's CPU runs go on
+    vbr_launches, vbr_calls = vbr_phase(dev, record, originals, smi_line)
+
+    # 13. the image-model line and the evaluation CLIs --------------------
     zoo_launches, zoo_calls = zoo_phase(dev, record, originals, smi_line,
                                         zoo_cli)
 
-    # 13. training at full width under the trainer's settings ------------
+    # 14. training at full width under the trainer's settings ------------
     train_phase(dev)
 
-    # 14. timing of every recorded call -----------------------------------
+    # 15. timing of every recorded call -----------------------------------
     pass_words = [int(out[k].n_words) for k in ("z", "y0", "y1")]
 
     def probes_by_count(L):
@@ -3003,15 +3344,7 @@ def smoke():
         got = originals[name](*args, **kwargs)
         ref = conv_kernel.conv2d_nhwc_plain(*args, **kwargs)
         require(torch.equal(got, ref), "conv on the main path: kernel != plain")
-        # masked taps and a transposed conv's inserted zeros are not work:
-        # such a conv reads its input's values alone, each with every tap
-        s = inserted_stride(xi)
-        x_in = xi[:, ::s, ::s]
-        flops = 2 * x_in.shape[0] * x_in.shape[1] * x_in.shape[2] * int(
-            torch.count_nonzero(wi))
-        nbytes = 4 * (x_in.numel() + wi.numel() + got.numel()
-                      + (0 if bi is None else bi.numel())
-                      + (0 if res is None else res.numel()))
+        nbytes, flops = conv_work(xi, wi, bi, res)
         x_nchw = xi.permute(0, 3, 1, 2)
         w_oihw = wi.permute(3, 2, 0, 1).contiguous()
         pad = wi.shape[0] // 2
@@ -3135,11 +3468,12 @@ def smoke():
         launches[f"{name}_k1"] = gsm_launches[f"{name}_k1"]
 
     def path_times(base, kern, peak, path_calls, words):
-        """A batched path's calls of one kernel (ELIC's, the GSM codec's):
-        each distinct conv shape (the decoder's rows-chain convs repeat the
-        encoder's inputs) and every coder call held to its plain version
-        once, every call timed: ({"ms", "device_ms", "bound_ms"}, max|kernel
-        - plain|, zero-inserted conv inputs)."""
+        """A path's calls of one kernel (ELIC's, the GSM codec's, ...): each
+        distinct call (a conv's shapes: the decoder's rows-chain convs
+        repeat the encoder's, a VBR level's the level before's; every coder
+        call) held to its plain version and timed once, its bound and times
+        counted at each of its calls: ({"ms", "device_ms", "bound_ms"},
+        max|kernel - plain|, zero-inserted conv inputs)."""
         t = {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
         seen = {}
         err = 0.0
@@ -3153,16 +3487,20 @@ def smoke():
             if key not in seen:
                 nbytes, flops, e, _ = stats(base, i, args, kwargs, words)
                 err = max(err, e)
-                seen[key] = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / peak)
-            t["bound_ms"] += seen[key]
-            t["ms"] += cuda_ms(lambda: kern(*args, **kwargs), 20)
-            if base in DEVICE_TIMED:
-                t["device_ms"] += cuda_ms(lambda: kern(*args, **kwargs), 20,
-                                          True)
+                seen[key] = {
+                    "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                          flops / peak),
+                    "ms": cuda_ms(lambda: kern(*args, **kwargs), 20),
+                    "device_ms": cuda_ms(lambda: kern(*args, **kwargs), 20,
+                                         True) if base in DEVICE_TIMED
+                    else 0.0}
+            for k in t:
+                t[k] += seen[key][k]
         return t, err, inserted
 
     results = []
-    t_lat = t_elic = t_gsm = t_ref = t_zoo = 0.0  # seconds on those paths' calls
+    # seconds on those paths' calls
+    t_lat = t_elic = t_gsm = t_ref = t_zoo = t_vbr = 0.0
     for name in [*originals, *(f"{n}_k1" for n in K1_INSTANCES)]:
         base = name.removesuffix("_k1")
         kern = originals[base]
@@ -3231,12 +3569,22 @@ def smoke():
                                  if name == base else [], pass_words)
         err = max(err, e)
         t_zoo += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vbr_t, e, vbr_inserted = path_times(
+            base, kern, peak, vbr_calls.get(name, []) if name == base else [],
+            pass_words)
+        err = max(err, e)
+        t_vbr += time.perf_counter() - t0
         if name == "conv2d_nhwc":  # h_s's deconvs in the encode and decode
             require(inserted == 2 * ELIC_INSERTED, f"ELIC: {inserted} "
                     "zero-inserted conv inputs, not h_s's deconvs'")
             require(gsm_inserted == 0 and all(
                 inserted_stride(a[0]) == 1 for a, _ in calls[name]),
                 "a zero-inserted conv input on the flagship's or GSM path")
+            # two of h_s's three convs a direction are transposed
+            require(3 * vbr_inserted == 2 * vbr_launches[name],
+                    f"vbr: {vbr_inserted} zero-inserted conv inputs of "
+                    f"{vbr_launches[name]} launches, not h_s's deconvs'")
         if name != "conv2d_nhwc_bf16":  # held to its tolerance in stats
             require(err == 0, f"{name} differs from its plain version")
         lat_launches = {d: g_launches[d].get(name, 0) for d in g_launches}
@@ -3269,7 +3617,11 @@ def smoke():
                             "zoo_launches": zoo_launches.get(name, 0)
                             if name == base else 0,
                             "zoo_ms": zoo_t["ms"],
-                            "zoo_bound_ms": zoo_t["bound_ms"]})
+                            "zoo_bound_ms": zoo_t["bound_ms"],
+                            "vbr_launches": vbr_launches.get(name, 0)
+                            if name == base else 0,
+                            "vbr_ms": vbr_t["ms"],
+                            "vbr_bound_ms": vbr_t["bound_ms"]})
         if base in DEVICE_TIMED:
             results[-1]["device_ms"] = device_ms
             results[-1]["latency_device_ms"] = lat_t["device_ms"]
@@ -3277,6 +3629,7 @@ def smoke():
             results[-1]["gsm_device_ms"] = gsm_t["device_ms"]
             results[-1]["reference_device_ms"] = ref_t["device_ms"]
             results[-1]["zoo_device_ms"] = zoo_t["device_ms"]
+            results[-1]["vbr_device_ms"] = vbr_t["device_ms"]
         if name in ("rans_decode_gmm", "rans_encode_gmm"):
             results[-1]["serial_floor_ms"] = floor_ms
         if name == "conv2d_nhwc_bf16":
@@ -3289,7 +3642,9 @@ def smoke():
           f"codec's at batch {BATCH}, {t_gsm:.2f} s; reference_*: of the "
           f"flagship's reference-format compress + decompress of one image "
           f"in device-rows mode, {t_ref:.2f} s; zoo_*: of the image-model "
-          f"line's compress + decompress of one image, {t_zoo:.2f} s)")
+          f"line's compress + decompress of one image, {t_zoo:.2f} s; vbr_*: "
+          f"of the VBR models' compress + decompress of two images at each "
+          f"level, {t_vbr:.2f} s)")
 
     print(f"smoke total {time.perf_counter() - _T_START:.2f} s", flush=True)
     print(json.dumps({"kernels": results, "card": kind,

@@ -4,6 +4,8 @@ from .entropy_models import (
     GaussianConditional,
     GaussianMixtureConditional,
 )
+from .entropy_models_vbr import EntropyBottleneckVbr, GaussianConditionalVbr
 
 __all__ = ["EntropyBottleneck", "EntropyModel", "GaussianConditional",
-           "GaussianMixtureConditional"]
+           "GaussianMixtureConditional", "EntropyBottleneckVbr",
+           "GaussianConditionalVbr"]

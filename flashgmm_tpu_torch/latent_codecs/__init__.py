@@ -2,6 +2,7 @@ from .base import LatentCodec
 from .channel_groups import ChannelGroupsLatentCodec
 from .checkerboard import CheckerboardLatentCodec
 from .entropy_bottleneck import EntropyBottleneckLatentCodec
+from .gain import GainHyperLatentCodec, GainHyperpriorLatentCodec
 from .gaussian_conditional import GaussianConditionalLatentCodec
 from .gaussian_mixture_conditional import GaussianMixtureConditionalLatentCodec
 from .hyper import HyperLatentCodec
@@ -13,6 +14,8 @@ __all__ = [
     "ChannelGroupsLatentCodec",
     "CheckerboardLatentCodec",
     "EntropyBottleneckLatentCodec",
+    "GainHyperLatentCodec",
+    "GainHyperpriorLatentCodec",
     "GaussianConditionalLatentCodec",
     "GaussianMixtureConditionalLatentCodec",
     "HyperLatentCodec",

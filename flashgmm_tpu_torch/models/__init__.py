@@ -7,6 +7,8 @@ from .google import (FactorizedPrior, FactorizedPriorReLU,
                      MeanScaleHyperprior, ScaleHyperprior)
 from .sensetime import Cheng2020AnchorCheckerboard, Elic2022Official
 from .sigmoidkernel import SigmoidCDFCompressor
+from .vbr import (JointAutoregressiveHierarchicalPriorsVbr,
+                  MeanScaleHyperpriorVbr, ScaleHyperpriorVbr)
 from .waseda import Cheng2020Anchor, Cheng2020Attention
 
 __all__ = ["CompressionModel", "SimpleVAECompressionModel",
@@ -14,5 +16,7 @@ __all__ = ["CompressionModel", "SimpleVAECompressionModel",
            "Cheng2020AnchorCheckerboardGMMv2", "Cheng2020Attention",
            "Elic2022Chandelier", "Elic2022GMM", "Elic2022Official",
            "FactorizedPrior", "FactorizedPriorReLU",
-           "JointAutoregressiveHierarchicalPriors", "MeanScaleHyperprior",
-           "ScaleHyperprior", "SigmoidCDFCompressor"]
+           "JointAutoregressiveHierarchicalPriors",
+           "JointAutoregressiveHierarchicalPriorsVbr", "MeanScaleHyperprior",
+           "MeanScaleHyperpriorVbr", "ScaleHyperprior", "ScaleHyperpriorVbr",
+           "SigmoidCDFCompressor"]

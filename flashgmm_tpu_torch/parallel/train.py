@@ -1,5 +1,6 @@
-"""The image training step on one device (port of make_train_state and
-data_parallel_train_step, flashgmm_tpu/parallel/train.py:15-86).
+"""The image training steps on one device (port of make_train_state,
+data_parallel_train_step and vbr_train_step,
+flashgmm_tpu/parallel/train.py:15-122).
 
 The JAX step shards its batch over a mesh; the port trains on one card, so
 it has neither a mesh nor DDP. The order of the JAX step is kept:
@@ -16,6 +17,12 @@ it has neither a mesh nor DDP. The order of the JAX step is kept:
 4. the net Adam step;
 5. the aux loss of the updated model, its gradients for the quantiles
    alone, the same guard, the aux Adam step.
+
+``vbr_train_step`` is the same step for the VBR models (``models/vbr.py``)
+at one gain level: their stage-2 forward at ``s``, the loss ``lmbda * 255^2
+* mse + bpp``. ``Gain`` is a "net" parameter that reaches no loss (the
+forward detaches it), so its gradient is a zero tensor and Adam leaves it
+where it is, as under the reference's ``stop_gradient``.
 
 No library settings are pinned on the card: a training step's result
 depends on no coded bytes, so it runs under the caller's (the trainer
@@ -66,6 +73,21 @@ def set_guarded_grads(loss, params, clip_max_norm=None):
         p.grad = g.view_as(p)
 
 
+def _net_and_aux_steps(model, opt_net, opt_aux, loss):
+    """Steps 2-5 of the module's docstring after the RD loss; returns the
+    aux loss."""
+    set_guarded_grads(loss, _params(opt_net),
+                      opt_net.param_groups[0].get("clip_max_norm"))
+    opt_net.step()
+    opt_net.zero_grad(set_to_none=True)
+
+    aux_loss = model.aux_loss()
+    set_guarded_grads(aux_loss, _params(opt_aux))
+    opt_aux.step()
+    opt_aux.zero_grad(set_to_none=True)
+    return aux_loss
+
+
 def train_step(model, opt_net, opt_aux, batch, generator,
                lmbda: float = 1e-2, metric: str = "mse"):
     """One RD step and one aux step on ``batch`` [B, H, W, 3] (on the
@@ -78,19 +100,31 @@ def train_step(model, opt_net, opt_aux, batch, generator,
     out = model(batch, training=True, generator=generator)
     details = rate_distortion_loss(out, batch, lmbda=lmbda, metric=metric)
     loss = details["loss"]
-    set_guarded_grads(loss, _params(opt_net),
-                      opt_net.param_groups[0].get("clip_max_norm"))
-    opt_net.step()
-    opt_net.zero_grad(set_to_none=True)
-
-    aux_loss = model.aux_loss()
-    set_guarded_grads(aux_loss, _params(opt_aux))
-    opt_aux.step()
-    opt_aux.zero_grad(set_to_none=True)
-
+    aux_loss = _net_and_aux_steps(model, opt_net, opt_aux, loss)
     return {
         "loss": loss.detach(),
         "bpp_loss": details["bpp_loss"].detach(),
         "mse_loss": details.get("mse_loss", details[f"{metric}_loss"]).detach(),
         "aux_loss": aux_loss.detach(),
+    }
+
+
+def vbr_train_step(model, opt_net, opt_aux, batch, generator, s: int,
+                   lmbda: float):
+    """One stage-2 step of a VBR model at gain level ``s`` with the
+    rate-distortion weight ``lmbda`` (the reference's recipe draws the
+    level per step and takes ``VBR_LMBDAS[s]``); otherwise as
+    :func:`train_step` with the "mse" metric. Returns {"loss", "bpp_loss",
+    "mse_loss", "aux_loss", "s"} as 0-d tensors on the batch's device."""
+    model.train()
+    out = model(batch, training=True, generator=generator, stage=2, s=s)
+    details = rate_distortion_loss(out, batch, lmbda=1.0)
+    loss = lmbda * 255.0 ** 2 * details["mse_loss"] + details["bpp_loss"]
+    aux_loss = _net_and_aux_steps(model, opt_net, opt_aux, loss)
+    return {
+        "loss": loss.detach(),
+        "bpp_loss": details["bpp_loss"].detach(),
+        "mse_loss": details["mse_loss"].detach(),
+        "aux_loss": aux_loss.detach(),
+        "s": torch.tensor(int(s), dtype=torch.int32, device=batch.device),
     }

@@ -15,8 +15,15 @@ The host pieces are built from the port's modules: the masked conv's
 weight is ``MaskedConv2d.kernel_hwio()`` (masked, HWIO, float32) as
 ``[k*k*C, O]``, each 1x1 entropy-parameter conv ``weight[o, i, 0, 0]`` as
 ``[i, o]``, both C-contiguous as the JAX package's reshapes make them.
-The gain-scaled VBR branch of the reference (``vbr=``) waits for the VBR
-models.
+
+``vbr=`` takes the gain-scaled branch of the VBR model mbt2018-vbr
+(``models/vbr.py``): a dict of ``scale`` and ``rescale`` (Python floats),
+``ctx_scl`` (added to every position's context), ``offset_fn`` (the
+quantization offsets of a position, numpy; None: no offsets) and
+``scale_bound``. Each position's symbols are ``round((y - means) *
+scale)``, coded under the table entry of ``scales * scale``, and its y_hat
+is their reconstruction with the offsets (``_vbr_reconstruct``), with the
+JAX package's numpy op order in both directions.
 """
 
 import numpy as np
@@ -82,11 +89,11 @@ def build_indexes_np(scales, scale_table, scale_bound):
 
 
 def raster_scan_encode(y, params, ctx_conv, ep, gc_tables, scale_table,
-                       scale_bound):
+                       scale_bound, vbr=None):
     """(string, y_hat [H, W, C]) of one image: y [H, W, C] and its hyper
     side parameters params [H, W, P], numpy float32. y_hat is
-    ``round(y - means) + means`` position by position, as the decoder
-    reconstructs it."""
+    ``round(y - means) + means`` position by position (with ``vbr``, the
+    gain-scaled reconstruction), as the decoder reconstructs it."""
     h, w, c = y.shape
     pad = (ctx_conv.k - 1) // 2
     y_hat = np.zeros((h + 2 * pad, w + 2 * pad, c), np.float32)
@@ -100,11 +107,21 @@ def raster_scan_encode(y, params, ctx_conv, ep, gc_tables, scale_table,
         for j in range(w):
             window = y_hat[i:i + ctx_conv.k, j:j + ctx_conv.k]
             ctx = ctx_conv(window)
+            if vbr is not None:
+                ctx = ctx + vbr["ctx_scl"]
             gp = ep(np.concatenate([params[i, j], ctx]))
             scales_hat, means_hat = np.split(gp, 2)
-            idx = build_indexes_np(scales_hat, scale_table, scale_bound)
-            y_q = np.round(y[i, j] - means_hat).astype(np.int32)
-            y_hat[i + pad, j + pad] = y_q + means_hat
+            if vbr is None:
+                idx = build_indexes_np(scales_hat, scale_table, scale_bound)
+                y_q = np.round(y[i, j] - means_hat).astype(np.int32)
+                y_hat[i + pad, j + pad] = y_q + means_hat
+            else:
+                s, rs = vbr["scale"], vbr["rescale"]
+                idx = build_indexes_np(scales_hat * s, scale_table,
+                                       scale_bound)
+                y_q = np.round((y[i, j] - means_hat) * s).astype(np.int32)
+                y_hat[i + pad, j + pad] = _vbr_reconstruct(
+                    y_q, scales_hat, means_hat, s, rs, vbr)
             symbols[n:n + c] = y_q
             indexes[n:n + c] = idx
             n += c
@@ -115,16 +132,31 @@ def raster_scan_encode(y, params, ctx_conv, ep, gc_tables, scale_table,
 
 
 def raster_scan_compress_single_stream(y, params, ctx_conv, ep, gc_tables,
-                                       scale_table, scale_bound):
+                                       scale_table, scale_bound, vbr=None):
     """y: [H, W, C] numpy; params: [H, W, P] hyper side parameters ->
     the encoded byte string."""
     return raster_scan_encode(y, params, ctx_conv, ep, gc_tables,
-                              scale_table, scale_bound)[0]
+                              scale_table, scale_bound, vbr)[0]
+
+
+def _vbr_reconstruct(y_q, scales_hat, means_hat, s, rs, vbr):
+    """The gain-scaled reconstruction of one position's symbols, with the
+    quantization offsets unless ``vbr["offset_fn"]`` is None."""
+    offset_fn = vbr.get("offset_fn")
+    q = y_q.astype(np.float32)
+    if offset_fn is None:
+        return q * rs + means_hat
+    q_abs = np.abs(q)
+    signs = np.sign(q)
+    q_stdev = np.maximum(scales_hat * s, vbr["scale_bound"])
+    q_off = offset_fn(q_stdev, s)
+    q_off = np.where(q_abs < 1e-4, 0.0, q_off)
+    return signs * (q_abs + q_off) * rs + means_hat
 
 
 def raster_scan_decompress_single_stream(string, params, ctx_conv, ep,
                                          gc_tables, scale_table, scale_bound,
-                                         shape):
+                                         shape, vbr=None):
     """Returns y_hat [H, W, C] numpy; shape = (H, W, C)."""
     h, w, c = shape
     pad = (ctx_conv.k - 1) // 2
@@ -137,32 +169,45 @@ def raster_scan_decompress_single_stream(string, params, ctx_conv, ep,
             for j in range(w):
                 window = y_hat[i:i + ctx_conv.k, j:j + ctx_conv.k]
                 ctx = ctx_conv(window)
+                if vbr is not None:
+                    ctx = ctx + vbr["ctx_scl"]
                 gp = ep(np.concatenate([params[i, j], ctx]))
                 scales_hat, means_hat = np.split(gp, 2)
-                idx = build_indexes_np(scales_hat, scale_table, scale_bound)
-                rv = dec.decode(idx)
-                y_hat[i + pad, j + pad] = rv + means_hat
+                if vbr is None:
+                    idx = build_indexes_np(scales_hat, scale_table,
+                                           scale_bound)
+                    rv = dec.decode(idx)
+                    y_hat[i + pad, j + pad] = rv + means_hat
+                else:
+                    s, rs = vbr["scale"], vbr["rescale"]
+                    idx = build_indexes_np(scales_hat * s, scale_table,
+                                           scale_bound)
+                    rv = dec.decode(idx)
+                    y_hat[i + pad, j + pad] = _vbr_reconstruct(
+                        rv.astype(np.float32), scales_hat, means_hat, s, rs,
+                        vbr)
     finally:
         dec.close()
     return y_hat[pad:pad + h, pad:pad + w]
 
 
-def raster_scan_compress(y, params, pieces):
+def raster_scan_compress(y, params, pieces, vbr=None):
     """[B, H, W, C] y and its [B, H, W, P] side parameters -> (one string
     an image, y_hat on y's device); each goes to the host once. ``pieces``:
     :func:`host_pieces`."""
     y_np, p_np = to_host(y), to_host(params)
-    out = [raster_scan_encode(y_np[i], p_np[i], *pieces)
+    out = [raster_scan_encode(y_np[i], p_np[i], *pieces, vbr)
            for i in range(y_np.shape[0])]
     y_hat = torch.from_numpy(np.stack([o[1] for o in out])).to(y.device)
     return [o[0] for o in out], y_hat
 
 
-def raster_scan_decompress(strings, params, pieces, shape):
+def raster_scan_decompress(strings, params, pieces, shape, vbr=None):
     """One string an image -> y_hat [B, H, W, C] on the side parameters'
     device; shape = (H, W, C)."""
     p_np = to_host(params)
-    y_hat = [raster_scan_decompress_single_stream(s, p_np[i], *pieces, shape)
+    y_hat = [raster_scan_decompress_single_stream(s, p_np[i], *pieces, shape,
+                                                  vbr)
              for i, s in enumerate(strings)]
     return torch.from_numpy(np.stack(y_hat)).to(params.device)
 

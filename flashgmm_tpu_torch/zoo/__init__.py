@@ -1,4 +1,5 @@
-from .image import cfgs, create_model, image_models, model_architectures
+from .image import (cfgs, cfgs_vbr, create_model, image_models,
+                    model_architectures)
 from .npz import load_jax_params, load_npz
 from .torch_convert import (load_checkpoint_file, load_torch_state_dict,
                             rename_legacy_keys)
@@ -10,6 +11,7 @@ __all__ = [
     "image_models",
     "model_architectures",
     "cfgs",
+    "cfgs_vbr",
     "create_model",
     "load_checkpoint_file",
     "load_jax_params",

@@ -7,7 +7,8 @@ builds an (architecture, quality) at its widths and loads a weights file:
 a ``.npz`` through ``zoo.load_npz``, a CompressAI ``.pth``/``.pt`` through
 ``zoo.torch_convert``, anything else as the port's own checkpoint
 (``utils/checkpoint.py``; the JAX package takes an orbax directory there).
-The VBR, video and point-cloud entries come with their models.
+A VBR architecture has one quality: one model serves its 8 gains. The video
+and point-cloud entries come with their models.
 """
 
 import inspect
@@ -37,6 +38,11 @@ cfgs = {
     "cheng2020-anchor-checkerboard-gmm": dict(_CHENG),
     "elic2022-official": dict(_ELIC),
     "elic2022-gaussian": dict(_ELIC),
+    # VBR: ONE model serves the whole rate range; the gain index s is an
+    # argument of its forward and coding
+    "bmshj2018-hyperprior-vbr": {1: (192, 320)},
+    "mbt2018-mean-vbr": {1: (192, 320)},
+    "mbt2018-vbr": {1: (192, 320)},
 }
 
 model_architectures = dict(MODELS)
@@ -57,6 +63,8 @@ local_weights = {
         "weights/elic_gmm_n192_m320_k4_synthetic.npz",
     ("elic2022-official", 6):
         "weights/elic_gmm_n192_m320_k4_q6.npz",     # lambda=0.013
+    ("mbt2018-mean-vbr", 1):
+        "weights/mshp_vbr_n192_m320_synthetic.npz",  # ONE model, 8 gains
     ("bmshj2018-factorized", 4):
         "weights/factorized_n128_m192_synthetic.npz",
     ("mbt2018-mean", 3): "weights/mshp_n128_m192_synthetic.npz",
@@ -127,6 +135,9 @@ def create_model(architecture: str, quality: int = 1, metric: str = "mse",
             ckwargs[name] = val
     if "K" in params:
         ckwargs.setdefault("K", K)
+    if "vr_entbttlnck" in params:
+        # the shipped VBR weights train the variable-step z bottleneck
+        ckwargs.setdefault("vr_entbttlnck", True)
     model = cls(**ckwargs, seed=seed, device=device)
     if weights_path:
         load_weights(model, weights_path)
@@ -149,3 +160,10 @@ def image_models(architecture, quality=1, metric="mse", pretrained=False,
                 f"{sorted(str(k) for k in local_weights)}; or pass "
                 "weights_path= with a local checkpoint")
     return create_model(architecture, quality, metric, weights_path, **kwargs)
+
+
+# VBR models: one model spans the 8-lambda sweep (s = 0..7)
+cfgs_vbr = {
+    "bmshj2018-hyperprior-vbr": (192, 320),
+    "mbt2018-mean-vbr": (192, 320),
+}

@@ -37,7 +37,9 @@ The search coder's single-Gaussian rows kernel equals its plain version,
 and its card strings decode on the CPU.
 One training step of the narrow flagship on the card agrees with the
 CPU's (loss and gradients within 1e-4, TF32 off, zero noise), and its
-non-finite guard keeps the parameters finite.
+non-finite guard keeps the parameters finite. A VBR model's round trip on
+the card is exact, and its card strings decode on the CPU to the card's
+symbols.
 """
 
 import importlib.util
@@ -1389,3 +1391,57 @@ def test_train_step_guard_on_card(cuda):
         assert bool(torch.isfinite(p).all()), name
     for opt in (opt_net, opt_aux):
         assert {int(s["step"]) for s in opt.state.values()} == {2}
+
+
+@pytest.mark.parametrize("arch", ["mbt2018-mean-vbr", "mbt2018-vbr"])
+def test_vbr_roundtrip_on_card_decodes_on_the_cpu(cuda, arch):
+    """A VBR model at N=32, M=48 (mbt2018-mean-vbr with the variable-step
+    bottleneck) at gain level 7 and at inputscale 0.45: compress on the
+    card, decompress_y there equal to compress's y_hat, h_s's three convs on
+    the rows-chain conv; the same model on the CPU (the same z step)
+    decodes the card's strings to the card's y symbols, and for
+    mbt2018-vbr, whose offsets run on the host, to its y_hat bit for
+    bit."""
+    import copy
+
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.models import vbr
+
+    if arch == "mbt2018-mean-vbr":
+        cpu_model = vbr.MeanScaleHyperpriorVbr(32, 48, vr_entbttlnck=True,
+                                               device="cpu")
+    else:
+        cpu_model = vbr.JointAutoregressiveHierarchicalPriorsVbr(
+            32, 48, device="cpu")
+    cpu_model.eval()
+    card = copy.deepcopy(cpu_model).to(cuda)
+    x = torch.from_numpy(textured_leaves(128, 128, seed=600000)[None])
+
+    def symbols(model, out, scale):
+        params = model._vbr_side_params(out["strings"][1], out["shape"],
+                                        model._z_qs(scale))
+        gc = model.gaussian_conditional
+        return gc.decompress(out["strings"][0], gc.build_indexes(
+            model._split(params)[0] * scale)).cpu()
+
+    for s, inputscale in ((7, 0), (1, 0.45)):
+        scale = card._get_scale(s, inputscale)
+        card.update(force=True, scale=scale)
+        cpu_model.update(force=True, scale=scale.cpu())
+        if arch == "mbt2018-mean-vbr":
+            assert card._zqstep(scale) == cpu_model._zqstep(scale.cpu())
+        before = conv_kernel.conv2d_nhwc.launches
+        out = card.compress(x.to(cuda), s=s, inputscale=inputscale)
+        assert conv_kernel.conv2d_nhwc.launches - before == 3
+        assert torch.equal(card.decompress_y(out["strings"], out["shape"],
+                                             s=s, inputscale=inputscale),
+                           out["y_hat"])
+        y_cpu = cpu_model.decompress_y(out["strings"], out["shape"], s=s,
+                                       inputscale=inputscale)
+        if arch == "mbt2018-vbr":
+            assert torch.equal(y_cpu, out["y_hat"].cpu())
+        else:
+            assert torch.equal(symbols(cpu_model, out, scale.cpu()),
+                               symbols(card, out, scale))
+            torch.testing.assert_close(y_cpu, out["y_hat"].cpu(), rtol=0,
+                                       atol=1e-5)

@@ -93,6 +93,11 @@ def test_smoke_refuses_without_a_card():
     "flashgmm_tpu_torch.zoo.image",
     "flashgmm_tpu_torch.utils.eval_model.__main__",
     "flashgmm_tpu_torch.utils.update_model.__main__",
+    "flashgmm_tpu_torch.entropy_models.entropy_models_vbr",
+    "flashgmm_tpu_torch.latent_codecs.gain",
+    "flashgmm_tpu_torch.latent_codecs.gain.hyper",
+    "flashgmm_tpu_torch.latent_codecs.gain.hyperprior",
+    "flashgmm_tpu_torch.models.vbr",
 ])
 def test_forward_and_converter_modules_import_no_jax(module):
     """The CompressAI state-dict converter, the training forward's modules,
@@ -100,9 +105,10 @@ def test_forward_and_converter_modules_import_no_jax(module):
     the reference format's modules (the host coder's binding, the rows and
     softmax, the latent codecs' compress and decompress), and the training
     path's (losses, metrics, optimizers, the train step, datasets,
-    checkpoints, logging and the trainer CLI), and the image-model line's
-    (the models, the raster scan, the zoo and the evaluation CLIs), each
-    imported alone in a fresh interpreter."""
+    checkpoints, logging and the trainer CLI), the image-model line's
+    (the models, the raster scan, the zoo and the evaluation CLIs), and the
+    variable-bitrate line's (the VBR entropy models, the gain codecs and
+    the VBR models), each imported alone in a fresh interpreter."""
     probe = (f"import importlib, sys; importlib.import_module({module!r}); "
              "print(','.join(sorted(k for k in sys.modules if k.split('.')[0] "
              "in ('jax', 'jaxlib', 'flax', 'optax', 'flashgmm_tpu'))))")

@@ -3,7 +3,8 @@ tests/test_torch_port_cheng_models.py: each image model built by JAX with
 ``nnx.Rngs(0)`` at the golden widths of tests/test_golden.py (N=32, M=48,
 K=2, groups [8, 8, 32]), its parameters carried to the port through
 ``zoo.load_jax_params``, and the checks both files run on such a pair (see
-their docstrings)."""
+their docstrings). ``vbr_pair`` builds the VBR models' pairs the same way
+(tests/test_torch_port_vbr*.py)."""
 
 import inspect
 import json
@@ -48,6 +49,14 @@ def _kwargs(cls):
 
 _PAIRS = {}
 
+# the VBR models: (architecture, vr_entbttlnck), and the (s, inputscale)
+# levels their tests take
+VBR_CASES = [("bmshj2018-hyperprior-vbr", False),
+             ("bmshj2018-hyperprior-vbr", True),
+             ("mbt2018-mean-vbr", False), ("mbt2018-mean-vbr", True),
+             ("mbt2018-vbr", False)]
+VBR_LEVELS = [(0, 0), (3, 0), (7, 0), (1, 1.6)]
+
 
 def pair(arch, coder=None):
     """(JAX model, port model on its parameters), built once a module."""
@@ -58,6 +67,23 @@ def pair(arch, coder=None):
             kw["coder"] = coder
         jm = J_MODELS[arch](**kw, rngs=nnx.Rngs(0))
         tm = T_MODELS[arch](**kw, device="cpu")
+        tm.load_state_dict(load_jax_params(jax_params(jm), tm), strict=True)
+        _PAIRS[key] = (jm, tm.eval())
+    return _PAIRS[key]
+
+
+def vbr_pair(arch, vr=False):
+    """(JAX VBR model, port model on its parameters) at N=32, M=48,
+    ``vr_entbttlnck=vr`` where the architecture has it; built once a
+    module."""
+    key = ("vbr", arch, vr)
+    if key not in _PAIRS:
+        cls = J_MODELS[arch]
+        kw = {"vr_entbttlnck": vr} \
+            if "vr_entbttlnck" in inspect.signature(cls.__init__).parameters \
+            else {}
+        jm = cls(32, 48, rngs=nnx.Rngs(0), **kw)
+        tm = T_MODELS[arch](32, 48, device="cpu", **kw)
         tm.load_state_dict(load_jax_params(jax_params(jm), tm), strict=True)
         _PAIRS[key] = (jm, tm.eval())
     return _PAIRS[key]
