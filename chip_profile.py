@@ -4,7 +4,7 @@
     python3 chip_profile.py [--batch 2 24] [--reps 3]
                             [--tiles | --decode | --encode |
                              --kernel-transforms | --latency | --bytes |
-                             --forward | --elic | --gsm]
+                             --forward | --elic | --gsm | --video]
 
 For each batch size: N=192, K=4 flagship with weights/ckbd_gmm_n192_k4_
 synthetic.npz, lanes=4096, cap_divisor=4, 768x512 textured-leaves images
@@ -86,6 +86,13 @@ image, bytes, bpp, PSNR, g_a, h_a and g_s stage ms) and one of the GSM
 codec's own stages one at a time on the default route (h_s, each pass's
 parameters, one y pass's encode and decode), the routed bf16 convs, and
 each route's table of device time by kernel at the last batch.
+``--video`` instead codes the first two frames (a keyframe and an inter
+frame) of the smoke's video phase's 1920x1080 file, padded to 1920x1152,
+with its seed-initialised ssf2020: one JSON line with compress and
+decompress ms by the host clock (median of --reps after a warm-up), the
+host coder's ms of each (the reference-format rANS calls), and from
+torch.profiler the card's busy ms and the kernels that took the most
+device time.
 Needs a CUDA device; imports no JAX.
 """
 
@@ -118,6 +125,7 @@ def main() -> int:
     ap.add_argument("--forward", action="store_true")
     ap.add_argument("--elic", action="store_true")
     ap.add_argument("--gsm", action="store_true")
+    ap.add_argument("--video", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -154,6 +162,9 @@ def main() -> int:
         return 0
     if args.gsm:
         gsm_profile(args.batch, args.reps, dev, smi)
+        return 0
+    if args.video:
+        video_profile(args.reps, dev, smi)
         return 0
     model = Cheng2020AnchorCheckerboardGMMv2(N=192, K=4, seed=0, device=dev)
     load_npz(model, WEIGHTS)
@@ -207,6 +218,77 @@ def main() -> int:
                                     row_limit=25, max_name_column_width=60),
           flush=True)
     return 0
+
+
+def video_profile(reps, dev, smi):
+    """``--video``: where a frame's time goes at the video eval CLI's size
+    (see the module's docstring)."""
+    import tempfile
+
+    import torch
+
+    from chip_smoke import (VIDEO_CLI_FRAMES, VIDEO_CLI_H, VIDEO_CLI_W,
+                            VIDEO_SEED, _panned_frames, _yuv420_bytes,
+                            device_busy_ms)
+    from flashgmm_tpu_torch.ans import cext
+    from flashgmm_tpu_torch.models.video import ScaleSpaceFlow
+    from flashgmm_tpu_torch.ops import compute_padding, pad_image
+    from flashgmm_tpu_torch.utils.video.eval_model.__main__ import read_frames
+
+    model = ScaleSpaceFlow(generator=torch.Generator().manual_seed(
+        VIDEO_SEED), device=dev).eval()
+    model.update(update_quantiles=True)
+    with tempfile.TemporaryDirectory() as d:
+        seq = Path(d) / (f"leaves_{VIDEO_CLI_W}x{VIDEO_CLI_H}_30fps_420_"
+                         "8bit.yuv")
+        seq.write_bytes(b"".join(_yuv420_bytes(f) for f in _panned_frames(
+            VIDEO_CLI_H, VIDEO_CLI_W, VIDEO_CLI_FRAMES, VIDEO_SEED)))
+        pad = compute_padding(VIDEO_CLI_H, VIDEO_CLI_W, min_div=128)[0]
+        frames = [pad_image(f, pad) for f in read_frames(str(seq), 2, dev)]
+
+    names = ("encode_with_indexes", "decode_with_indexes")
+    saved = {name: getattr(cext, name) for name in names}
+    coder_s = [0.0]
+
+    def counted(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                coder_s[0] += time.perf_counter() - t0
+        return run
+
+    strings, shapes = model.compress(frames)  # warm-up
+    model.decompress(strings, shapes)
+    line = {"frames": 2, "shape": list(frames[0].shape[1:3]),
+            "reps": reps}
+    for name in names:
+        setattr(cext, name, counted(saved[name]))
+    try:
+        for tag, fn in (("compress", lambda: model.compress(frames)),
+                        ("decompress",
+                         lambda: model.decompress(strings, shapes))):
+            walls, coders = [], []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                coder_s[0] = 0.0
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+                coders.append(1e3 * coder_s[0])
+            _, busy, _, top = device_busy_ms(fn, top_n=4)
+            line[tag] = {"ms": statistics.median(walls), "runs_ms": walls,
+                         "host_coder_ms": statistics.median(coders),
+                         "busy_ms": busy,
+                         "top_kernels": [[name, ms, n] for name, (ms, n)
+                                         in top]}
+    finally:
+        for name in names:
+            setattr(cext, name, saved[name])
+    line["card"] = smi
+    print(json.dumps(line), flush=True)
 
 
 def batch1_bytes(reps):

@@ -67,7 +67,8 @@ Phases, each ending in one flushed line with its seconds:
    builds the image tensor as ``chip_profile.py`` does, and one that sets
    this script's flags, takes all but 6 GiB of the card's memory first
    and slices the image from a batch as this script does: equal sha256
-   digests, equal to this process's bytes, and both lengths printed; the
+   digests, equal to this process's bytes, and both lengths printed (the
+   two cold processes run side by side, each of the others alone); the
    first stage whose output differs, if any, with both processes' device
    kernels written to chiprun_out/;
 8. forward: the training forward of the same model at full width on the
@@ -109,8 +110,10 @@ Phases, each ending in one flushed line with its seconds:
    rows a GMM pass each, no rANS kernel), every softmax and boundary-rows
    call equal to its plain version bit for bit, y_hat exact, bytes and
    PSNR beside the batched codec's, compress and decompress ms with the
-   host coder's share and the card's busy ms, and the port on the CPU
-   decoding the card's strings of a 64x64 image to the card's y_hat;
+   host coder's share and the card's busy ms (not in host-math mode,
+   whose device kernels are the device-rows run's), and the port on the
+   CPU decoding the card's strings of a 64x64 image to the card's y_hat
+   (in phase 17);
 12. vbr: the variable-bitrate models (ROADMAP item 13; ``vbr_phase``),
    while the zoo phase's CPU runs go on, on the two 768x512 images of the
    JAX package's sweep: the shipped mbt2018-mean-vbr (N=192, M=320, the variable-step bottleneck) at each of
@@ -121,9 +124,36 @@ Phases, each ending in one flushed line with its seconds:
    monotone over the gains and the sweep beside
    results/synthetic/vbr_sweep.json; the rows-chain conv at the path's h_s
    shapes against its plain version; the card's strings of a small image
-   decoded on the CPU at s=7; 10 ``vbr_train_step``s of the shipped model.
+   decoded on the CPU at s=7 (in phase 17); 10 ``vbr_train_step``s of the
+   shipped model.
    ``python3 chip_smoke.py --vbr`` runs this phase alone;
-13. zoo: the CompressAI image-model line (ROADMAP item 12) at its zoo
+13. video: scale-space flow, ssf2020 at its published widths (ROADMAP
+   item 14a; ``video_phase``), while the zoo phase's CPU runs go on: the
+   video eval CLI with ``--real`` on the card over a raw 8-bit 4:2:0
+   1920x1080 file of 8 panned textured-leaves frames (padded to
+   1920x1152; encode and decode ms a frame, bpp, PSNR, MS-SSIM); a
+   seed-initialised model's 3-frame GOP at 256x256: the decoded frames
+   equal the encoder's reconstructions bit for bit, and a CPU copy decodes
+   the card's strings to every branch's y_hat bit for bit (in phase 17);
+   the launches of both (the f32 conv 6 times a hyperprior a direction,
+   each hyper decoder's stride-2 deconvs zero-inserted; phase 16 holds
+   the conv to its plain version at each of their shapes); 5
+   ``video_train_step``s at batch 4, GOP 3, 256x256 crops: finite terms,
+   ms a step, peak memory.
+   ``python3 chip_smoke.py --video`` runs this phase alone;
+14. train: training at full width under the trainer's library settings
+   (cuDNN TF32 on, autotuning on; ``train_phase``), while the zoo phase's
+   CPU runs go on: the flagship on a fixed batch of 8 256x256 crops, 20
+   ``train_step``s (finite terms, the loss going down, the quantiles and
+   g_a moved, a NaN batch guarded), the step,
+   forward and backward ms, peak memory, the top device kernels of a step,
+   and one step under the coding path's pinned settings (TF32 off, no
+   autotuning) beside it;
+   the trainer CLI on a folder of PPMs (2 epochs across a milestone, a
+   resume, the checkpoints loading bit for bit); one step each of ELIC and
+   GSM. None of the port's hand kernels runs there; its cached device
+   memory is released for the zoo phase's card runs;
+15. zoo: the CompressAI image-model line (ROADMAP item 12) at its zoo
    widths on the first image (``zoo_phase``): bmshj2018-factorized,
    bmshj2018-hyperprior and mbt2018-mean (both coders) at q4 (N=128,
    M=192) on the repository's weights, mbt2018 (N=192, M=320), Cheng2020
@@ -134,24 +164,15 @@ Phases, each ending in one flushed line with its seconds:
    compress and decompress ms with the raster scan's host loop apart, the
    search coder's rows kernel against its plain version at the path's
    shape, the port on the CPU decoding the card's strings of a 64x64
-   image to the card's y_hat; sigmoid-cdf's eval forward; the evaluation
-   CLI with ``--real`` in subprocesses on two 768x512 PPMs, mbt2018-mean
+   image to the card's y_hat (in phase 17); sigmoid-cdf's eval forward;
+   the evaluation CLI with ``--real`` in subprocesses on two 768x512
+   PPMs, mbt2018-mean
    and bmshj2018-hyperprior at q4 from port checkpoints on the card and on
    the CPU (bpp within 0.5 %, PSNR within 0.05 dB), the flagship on the
    card, and ``update_model``'s file reloading and coding the same bytes
    (the CPU runs start after the build, at the lowest priority, beside the
    earlier phases). ``python3 chip_smoke.py --zoo`` runs this phase alone;
-14. train: training at full width under the trainer's library settings
-   (cuDNN TF32 on, autotuning on; ``train_phase``): the flagship on a fixed
-   batch of 8 256x256 crops, 20 ``train_step``s (finite terms, the loss
-   going down, the quantiles and g_a moved, a NaN batch guarded), the step,
-   forward and backward ms, peak memory, the top device kernels of a step,
-   and one step under the coding path's pinned settings (TF32 off, no
-   autotuning) beside it;
-   the trainer CLI on a folder of PPMs (2 epochs across a milestone, a
-   resume, the checkpoints loading bit for bit); one step each of ELIC and
-   GSM. None of the port's hand kernels runs there;
-15. timing: every kernel call of those runs timed again by CUDA events,
+16. timing: every kernel call of those runs timed again by CUDA events,
    back to back ("ms"), beside its plain version, a library call where one
    computes the same function, and its bound; the encoders and the bounds
    kernel also on the device alone ("device_ms": the stream's queue filled
@@ -173,7 +194,14 @@ Phases, each ending in one flushed line with its seconds:
    has its main path's launches and calls; and each kernel's calls of the
    zoo phase's compress + decompress ("zoo_*"), where the single-Gaussian
    rows kernel (the boundary-rows kernel at K=1) has its main path's
-   launches and calls; and of the vbr phase's ("vbr_*").
+   launches and calls; and of the vbr phase's ("vbr_*"); and of the
+   video phase's ("video_*", the conv also on the device alone,
+   "video_device_ms");
+17. cpu: the CPU decodes that phases 11, 12, 13 and 15 queued, each a
+   CPU copy of the card's model decoding the card's strings, run in a
+   process of their own (``CpuSide``, started after the build) while the
+   card's phases go on: their lines and checks, and the seconds this
+   process waited for the last of them.
 
 It prints its total seconds, a ``{"kernels": [...]}`` line, the nvidia-smi
 line, and as its last line ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -285,6 +313,21 @@ VBR_SEEDED = (("bmshj2018-hyperprior-vbr", (0, 3, 7)), ("mbt2018-vbr", (0, 7)))
 VBR_ROWS_CONVS = 3  # h_s's convs a direction
 VBR_SMALL = 256
 VBR_TRAIN_STEPS = 10
+# the video phase: ssf2020 (its published widths, seed-initialised); the
+# video eval CLI over a raw 8-bit 4:2:0 sequence at the HEVC class-B / UVG
+# size (padded by the CLI to 1920x1152), VIDEO_CLI_FRAMES frames in one GOP;
+# a VIDEO_GOP-frame GOP at VIDEO_SIDE^2 coded on the card and decoded on the
+# CPU, its frames within VIDEO_CPU_ATOL of the card's; VIDEO_TRAIN_STEPS
+# video_train_steps at the video trainer's defaults (batch 4, GOP 3,
+# 256x256 crops, lambda 0.01)
+VIDEO_SEED = 700000
+VIDEO_CLI_W, VIDEO_CLI_H, VIDEO_CLI_FRAMES = 1920, 1080, 8
+VIDEO_GOP, VIDEO_SIDE, VIDEO_CPU_ATOL = 3, 256, 1e-4
+VIDEO_TRAIN_STEPS, VIDEO_TRAIN_BATCH, VIDEO_LMBDA = 5, 4, 0.01
+VIDEO_ROWS_CONVS = 6  # a hyperprior's scale and mean decoders, 3 deconvs each
+# torch threads of the process that decodes the card's strings on the CPU
+# (CpuSide) beside the card's phases
+CPU_SIDE_THREADS = 4
 # the training phase: the trainer CLI's defaults (examples/train.py) and
 # the steps the flagship takes on one fixed batch
 TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS = 8, 256, 20
@@ -380,17 +423,19 @@ def inserted_stride(x):
     return 1 if bool(x[:, 1::2].any() or x[:, :, 1::2].any()) else 2
 
 
-def cuda_ms(fn, reps, ahead=False):
+def cuda_ms(fn, reps, ahead=False, warm=True):
     """Mean ms of fn over reps calls after one warm-up, by CUDA events. With
     ``ahead`` the events time the device's work alone, without the
     wrappers' host time (only for wrappers that never wait for the device):
     a sleep kernel first holds the stream for twice the host's measured
     time to enqueue the reps calls, and a run counts only if the sleep was
     still running once the last call was enqueued (else the sleep doubles
-    and the run is repeated)."""
+    and the run is repeated). ``warm=False`` leaves the warm-up out, for a
+    call the caller has just made on the same inputs."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -415,6 +460,102 @@ def cuda_ms(fn, reps, ahead=False):
             return a.elapsed_time(b) / reps
         cycles *= 2
     raise RuntimeError("cuda_ms: the sleep ended before the calls were queued")
+
+
+def _cpu_side_init(root, threads):
+    sys.path.insert(0, root)
+    import torch
+
+    torch.set_num_threads(threads)
+
+
+def _cpu_side_run(fn, payload):
+    """In the CpuSide process: (fn(*pickle.loads(payload)), its seconds)."""
+    import pickle
+
+    args = pickle.loads(payload)
+    t0 = time.perf_counter()
+    result = fn(*args)
+    return result, time.perf_counter() - t0
+
+
+class CpuSide:
+    """A process of its own for the port on the CPU decoding the card's
+    strings (the reference, vbr, video and zoo phases' CPU checks), so that
+    the card's phases go on meanwhile. ``submit(fn, args, then)`` queues
+    ``fn(*args)`` there: a top-level function of this script over CPU
+    models and tensors, pickled here into bytes (no shared memory), whose
+    result is plain Python values; ``drain()`` waits for each result in
+    order and calls ``then(result, seconds)``, the phase's print and
+    require, so a failed check fails the run there. ``close`` stops the
+    process."""
+
+    def __init__(self, threads):
+        import multiprocessing
+
+        self._pool = multiprocessing.get_context("spawn").Pool(
+            1, initializer=_cpu_side_init, initargs=(str(ROOT), threads))
+        self._pending = []
+
+    def submit(self, fn, args, then):
+        import pickle
+
+        self._pending.append((self._pool.apply_async(
+            _cpu_side_run, (fn, pickle.dumps(args))), then))
+
+    def drain(self):
+        while self._pending:
+            pending, then = self._pending.pop(0)
+            then(*pending.get(timeout=900))
+
+    def close(self):
+        self._pool.terminate()
+        self._pool.join()
+
+
+def _cpu_latent_equal(model, strings, shape, want, host_math):
+    """Whether a CPU copy's latent codec decodes the card's reference-format
+    strings to ``want`` (the card's y_hat), FLASHGMM_HOST_MATH=host_math."""
+    import os
+
+    import torch
+
+    os.environ["FLASHGMM_HOST_MATH"] = host_math
+    return torch.equal(model.latent_codec.decompress(strings, shape)["y_hat"],
+                       want)
+
+
+def _cpu_y_equal(model, strings, shape, kwargs, want):
+    """Whether a CPU copy's ``decompress_y`` gives ``want`` (the card's
+    y_hat) from the card's strings."""
+    import torch
+
+    return torch.equal(model.decompress_y(strings, shape, **kwargs), want)
+
+
+def _cpu_vbr_symbols(model, out, s, card_symbols, card_y):
+    """A hyperprior VBR model's CPU copy over the card's strings: (whether
+    its y symbols equal the card's, max |y_hat difference| from the
+    card's)."""
+    import torch
+
+    y_cpu = model.decompress_y(out["strings"], out["shape"], s=s)
+    return (torch.equal(_vbr_symbols(model, out, s), card_symbols),
+            float((y_cpu - card_y).abs().max()))
+
+
+def _cpu_video_decode(model, strings, shapes, y_card, frames_card):
+    """ScaleSpaceFlow's CPU copy decoding the card's GOP strings:
+    ([(frame, branch)] whose y_hat differs from the card's, the frames' max
+    |difference| from the card's)."""
+    import torch
+
+    frames, details = model.decompress(strings, shapes, details=True)
+    wrong = [(i, branch) for i, (got, want) in
+             enumerate(zip(details["y_hat"], y_card)) for branch in want
+             if not torch.equal(got[branch], want[branch])]
+    return wrong, max(float((a - b).abs().max())
+                      for a, b in zip(frames, frames_card))
 
 
 def h2d_copies(fn):
@@ -1269,7 +1410,7 @@ def device_busy_ms(fn, top_n=3):
     raise RuntimeError("device_busy_ms: three traces without device events")
 
 
-def reference_phase(dev, x1, model, record, originals, smi_line):
+def reference_phase(dev, x1, model, record, originals, smi_line, cpu):
     """Reference-format coding (``model.compress``/``decompress``, the host
     coder csrc/rans.cpp built by ``ans/cext.py``) at full width on the first
     768x512 image: the flagship (N=192, K=4, the phase-4 model) in both of
@@ -1284,11 +1425,13 @@ def reference_phase(dev, x1, model, record, originals, smi_line):
     decompress's y_hat equal to compress's, x_hat finite; bytes and PSNR
     beside the batched codec's on the same image; compress and decompress
     ms (host clock, medians of REF_REPS), the host coder's share of each
-    and the card's busy ms (profiler), beside the reference's GPU + AVX2
-    yardstick; and the port on the CPU, given the same weights, decoding
-    the card's strings of a 64x64 image to the card's y_hat (the CPU's
-    rows chain is the conv kernel's plain version, slow at 768x512).
-    Returns (launches, recorded calls) of the flagship's device-rows run."""
+    and the card's busy ms (profiler; not in host-math mode, whose device
+    kernels are the device-rows run's), beside the reference's GPU + AVX2
+    yardstick; and the port on the CPU (``cpu``, a CpuSide), given the
+    same weights, decoding the card's strings of a 64x64 image to the
+    card's y_hat (the CPU's rows chain is the conv kernel's plain version,
+    slow at 768x512). Returns (launches, recorded calls) of the flagship's
+    device-rows run."""
     import copy
     import os
     import statistics
@@ -1393,40 +1536,47 @@ def reference_phase(dev, x1, model, record, originals, smi_line):
                 reps = [run()[2:] for _ in range(REF_REPS)]
                 t_c, t_d, h_c, h_d = (statistics.median(r[i] for r in reps)
                                       for i in range(4))
-                _, busy_c, n_c, top_c = device_busy_ms(
-                    lambda m=m: m.compress(x1))
-                _, busy_d, n_d, top_d = device_busy_ms(
-                    lambda m=m: m.decompress(strings, shape))
-                # the card's strings of a small image decoded on the CPU
+                busy = ("", "")
+                if mode != "host math":
+                    _, busy_c, n_c, top_c = device_busy_ms(
+                        lambda m=m: m.compress(x1))
+                    _, busy_d, n_d, top_d = device_busy_ms(
+                        lambda m=m: m.decompress(strings, shape))
+                    busy = (f", card busy {busy_c:.2f} ms",
+                            f", card busy {busy_d:.2f} ms")
+                # the card's strings of a small image, decoded on the CPU
                 s_out = m.compress(small.to(dev))
-                t0 = time.perf_counter()
-                y_cpu = cpu_model.latent_codec.decompress(
-                    s_out["strings"], s_out["shape"])["y_hat"]
-                t_cpu = time.perf_counter() - t0
-                require(torch.equal(y_cpu, s_out["y_hat"].cpu()),
-                        f"{tag}: the port on the CPU decodes the card's "
-                        "strings of a 64x64 image to another y_hat")
+
+                def then(same, t_cpu, tag=tag):
+                    require(same, f"{tag}: the port on the CPU decodes the "
+                            "card's strings of a 64x64 image to another "
+                            "y_hat")
+                    print(f"  {tag}: the card's strings of a 64x64 image "
+                          f"decoded on the CPU exactly ({t_cpu:.1f} s)",
+                          flush=True)
+                cpu.submit(_cpu_latent_equal, (
+                    cpu_model, s_out["strings"], s_out["shape"],
+                    s_out["y_hat"].cpu(), os.environ["FLASHGMM_HOST_MATH"]),
+                    then)
                 print(f"  {tag}: y_hat {list(out['y_hat'].shape)} exact "
                       f"through {n_bytes} bytes (the batched codec: "
                       f"{len(b_data)}), PSNR {psnr_of(x_hat, x1):.4f} dB; "
                       f"compress {1e3 * t_c:.2f} ms (host coder "
-                      f"{1e3 * h_c:.2f} ms, card busy {busy_c:.2f} ms), "
-                      f"decompress {1e3 * t_d:.2f} ms (host coder "
-                      f"{1e3 * h_d:.2f} ms, card busy {busy_d:.2f} ms); "
-                      f"host clock, medians of {REF_REPS}, {smi_line}; the "
-                      "reference's GPU + AVX2 yardstick ~55 + ~42 ms a Kodak "
-                      f"image (BASELINE.md); launches {launches}; "
-                      f"{len(calls['gmm_boundary_rows'])} boundary-rows and "
-                      f"{len(calls['gmm_softmax'])} softmax calls equal to "
-                      "plain bit for bit; the card's strings of a 64x64 "
-                      f"image decoded on the CPU exactly ({t_cpu:.1f} s)",
-                      flush=True)
-                for what, n_ev, top in (("compress", n_c, top_c),
-                                        ("decompress", n_d, top_d)):
-                    print(f"  {tag} {what}: {n_ev} device events; most "
-                          "device time: " + "; ".join(
-                              f"{k[:90]} {ms:.2f} ms x{n}"
-                              for k, (ms, n) in top), flush=True)
+                      f"{1e3 * h_c:.2f} ms{busy[0]}), decompress "
+                      f"{1e3 * t_d:.2f} ms (host coder {1e3 * h_d:.2f} ms"
+                      f"{busy[1]}); host clock, medians of {REF_REPS}, "
+                      f"{smi_line}; the reference's GPU + AVX2 yardstick ~55 "
+                      "+ ~42 ms a Kodak image (BASELINE.md); launches "
+                      f"{launches}; {len(calls['gmm_boundary_rows'])} "
+                      f"boundary-rows and {len(calls['gmm_softmax'])} "
+                      "softmax calls equal to plain bit for bit", flush=True)
+                if mode != "host math":
+                    for what, n_ev, top in (("compress", n_c, top_c),
+                                            ("decompress", n_d, top_d)):
+                        print(f"  {tag} {what}: {n_ev} device events; most "
+                              "device time: " + "; ".join(
+                                  f"{k[:90]} {ms:.2f} ms x{n}"
+                                  for k, (ms, n) in top), flush=True)
                 if (tag0, mode) == ("flagship", "device rows"):
                     result = (launches, calls)
     finally:
@@ -1437,7 +1587,7 @@ def reference_phase(dev, x1, model, record, originals, smi_line):
         else:
             os.environ["FLASHGMM_HOST_MATH"] = host_math
     phase("reference", "compress/decompress of the flagship (both modes), "
-          "ELIC and the GSM model on the card; their strings decoded on the "
+          "ELIC and the GSM model on the card; their strings queued for the "
           "CPU")
     return result
 
@@ -1458,9 +1608,9 @@ class ZooCli:
     (N=128, M=192) from port checkpoints of their trained weights, on the
     CPU (``--device cpu``) and on the card, the reports within ZOO_CLI_BPP
     and ZOO_CLI_PSNR of each other; the flagship at its synthetic weights
-    on the card. Then ``update_model`` on the mbt2018-mean checkpoint: the
-    file it writes reloads and codes the card's bytes of the first image as
-    the model it was made from.
+    on the card. Beside the card's runs, ``update_model`` on the
+    mbt2018-mean checkpoint: the file it writes reloads and codes the
+    card's bytes of the first image as the model it was made from.
 
     The CPU runs take minutes (the CPU's rows chain is the conv kernel's
     plain version), so the smoke starts them (``start``) right after the
@@ -1491,6 +1641,7 @@ class ZooCli:
             save_checkpoint(self.root / f"{arch}-q{q}", m)
             del m
         self.cpu_runs = {}
+        self.card_runs = []
 
     def _start(self, arch, q, widths, device, threads=None):
         import os
@@ -1515,9 +1666,10 @@ class ZooCli:
         return self
 
     def finish(self, smi_line, meanwhile):
-        """The card's runs, update_model, ``meanwhile()``, then the CPU
-        runs' reports held against the card's. Returns the seconds from the
-        CPU runs' start to the end of the last one's wait."""
+        """The card's runs and update_model side by side, ``meanwhile()``,
+        then the CPU runs' reports held against the card's. Returns the
+        seconds from the CPU runs' start to the end of the last one's
+        wait."""
         import numpy as np
         import torch
 
@@ -1527,22 +1679,29 @@ class ZooCli:
         from flashgmm_tpu_torch.zoo import image_models
 
         dev = self.dev
-        card = {}
-        for arch, q, widths in self.runs:
-            card[arch] = _cli_report(self._start(arch, q, widths, "cuda"),
-                                     f"{arch}, card", 600)
-            print(f"  zoo eval CLI {arch} q{q} on the card ({smi_line}): "
-                  + json.dumps(card[arch]), flush=True)
-
-        # update_model once; the file reloads and codes the same bytes
+        # the card's runs and update_model side by side (the reports' bpp,
+        # PSNR and MS-SSIM do not depend on it; their host times may)
+        procs = {arch: self._start(arch, q, widths, "cuda")
+                 for arch, q, widths in self.runs}
         src = self.root / "mbt2018-mean-q4"
-        up = subprocess.run(
+        up = subprocess.Popen(
             [sys.executable, "-m", "flashgmm_tpu_torch.utils.update_model",
              str(src), "-a", "mbt2018-mean", "-N", "128", "-M", "192"],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        self.card_runs = [*procs.values(), up]
+        card = {}
+        for arch, q, _ in self.runs:
+            card[arch] = _cli_report(procs[arch], f"{arch}, card", 600)
+            print(f"  zoo eval CLI {arch} q{q} on the card, beside the other "
+                  f"card runs ({smi_line}): " + json.dumps(card[arch]),
+                  flush=True)
+
+        # update_model once; the file reloads and codes the same bytes
+        out, err = up.communicate(timeout=600)
         require(up.returncode == 0, f"zoo: update_model exited "
-                f"{up.returncode}: {up.stderr[-1500:]}")
-        written = Path(up.stdout.strip().rsplit(" ", 1)[-1])
+                f"{up.returncode}: {err[-1500:]}")
+        written = Path(out.strip().rsplit(" ", 1)[-1])
         require(written.exists() and written.name.startswith(
             "mbt2018-mean-q4-"), f"zoo: update_model wrote {written}")
         fresh = MeanScaleHyperprior(128, 192, seed=1, device=dev).eval()
@@ -1577,7 +1736,7 @@ class ZooCli:
         return time.perf_counter() - self.t0
 
     def close(self):
-        for proc in self.cpu_runs.values():
+        for proc in [*self.cpu_runs.values(), *self.card_runs]:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
@@ -1614,7 +1773,7 @@ def raster_loop_seconds():
             setattr(rasterscan, name, saved[name])
 
 
-def zoo_phase(dev, record, originals, smi_line, cli):
+def zoo_phase(dev, record, originals, smi_line, cli, cpu):
     """The CompressAI image-model line (ROADMAP item 12) at its zoo widths
     on the first 768x512 image, and the evaluation CLIs (15a): for each
     coding model of ZOO_CASES, reference-format ``compress`` +
@@ -1624,11 +1783,11 @@ def zoo_phase(dev, record, originals, smi_line, cli):
     bytes, bpp and PSNR, compress and decompress ms (host clock, medians of
     REF_REPS after the counted run; the raster scan's host loop apart); the
     search coder's rows kernel at the path's shape against its plain
-    version, with its ms, device ms and bound. Then ``cli.finish`` (a
-    started ``ZooCli``), and while its CPU runs go on: the port on the CPU
-    decoding each model's card strings of a ZOO_SMALL image to the card's
-    y_hat, and sigmoid-cdf's eval forward. Returns (launches, recorded
-    calls) summed over the models."""
+    version, with its ms, device ms and bound; the port on the CPU
+    (``cpu``, a CpuSide) decoding each model's card strings of a ZOO_SMALL
+    image to the card's y_hat. Then ``cli.finish`` (a started ``ZooCli``),
+    and while its CPU runs go on, sigmoid-cdf's eval forward. Returns
+    (launches, recorded calls) summed over the models."""
     import copy
     import statistics
 
@@ -1649,7 +1808,6 @@ def zoo_phase(dev, record, originals, smi_line, cli):
         return {"abs_max": out["abs_max"]} if "abs_max" in out else {}
 
     zoo_launches, zoo_calls = {}, {}
-    on_cpu = []  # (tag, CPU copy, the card's output of the small image)
     with raster_loop_seconds() as loop_s:
         for tag, arch, q, coder in ZOO_CASES:
             kw = {} if coder is None else {"coder": coder}
@@ -1711,8 +1869,19 @@ def zoo_phase(dev, record, originals, smi_line, cli):
             reps = [run()[2:] for _ in range(REF_REPS)]
             t_c, t_d, l_c, l_d = (statistics.median(r[i] for r in reps)
                                   for i in range(4))
-            on_cpu.append((tag, copy.deepcopy(m).cpu(),
-                           m.compress(small.to(dev))))
+            # the card's strings of a small image, decoded on the CPU
+            s_out = m.compress(small.to(dev))
+
+            def then(same, dt, tag=tag):
+                require(same, f"zoo {tag}: the port on the CPU decodes the "
+                        f"card's strings of a {ZOO_SMALL}x{ZOO_SMALL} image "
+                        "to another y_hat")
+                print(f"  zoo {tag}: the card's strings of a {ZOO_SMALL}x"
+                      f"{ZOO_SMALL} image decoded on the CPU to the card's "
+                      f"y_hat ({dt:.1f} s)", flush=True)
+            cpu.submit(_cpu_y_equal, (
+                copy.deepcopy(m).cpu(), s_out["strings"], s_out["shape"],
+                dec_kw(s_out), s_out["y_hat"].cpu()), then)
             loop = (f" (host loop {1e3 * l_c:.2f} ms)" if l_c else "",
                     f" (host loop {1e3 * l_d:.2f} ms)" if l_d else "")
             print(f"  zoo {tag}: y_hat {list(out['y_hat'].shape)} exact "
@@ -1726,20 +1895,6 @@ def zoo_phase(dev, record, originals, smi_line, cli):
             del m
 
     def meanwhile():
-        # the card's strings of a small image decoded on the CPU
-        for tag, cpu_model, s_out in on_cpu:
-            t0 = time.perf_counter()
-            y_cpu = cpu_model.decompress_y(s_out["strings"], s_out["shape"],
-                                           **dec_kw(s_out))
-            require(torch.equal(y_cpu, s_out["y_hat"].cpu()),
-                    f"zoo {tag}: the port on the CPU decodes the card's "
-                    f"strings of a {ZOO_SMALL}x{ZOO_SMALL} image to another "
-                    "y_hat")
-            print(f"  zoo {tag}: the card's strings of a {ZOO_SMALL}x"
-                  f"{ZOO_SMALL} image decoded on the CPU to the card's y_hat "
-                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
-        on_cpu.clear()
-
         sig = SigmoidCDFCompressor(N=N, K=K, device=dev).eval()
         out = sig(x1, training=False)
         require(all(bool(torch.isfinite(v).all()) for v in
@@ -1820,7 +1975,7 @@ def conv_check(kernel, args, kwargs, tag):
             "version")
 
 
-def vbr_phase(dev, record, originals, smi_line):
+def vbr_phase(dev, record, originals, smi_line, cpu):
     """The variable-bitrate models (ROADMAP item 13) on the two 768x512
     images of the JAX package's sweep (textured leaves, VBR_SEEDS):
     1. the shipped mbt2018-mean-vbr (``image_models(..., pretrained=True)``,
@@ -1841,9 +1996,10 @@ def vbr_phase(dev, record, originals, smi_line):
        (VBR_SEEDED levels), the same line a level, the raster scan's host
        loop apart;
     4. at s=7 each model's card strings of a VBR_SMALL^2 image decoded on
-       the CPU by a CPU copy: the same y symbols (mbt2018-vbr: the same
-       y_hat, its offsets run on the host), the hyperprior models' max
-       |y_hat difference| printed (their offsets run on each device);
+       the CPU by a CPU copy (``cpu``, a CpuSide): the same y symbols
+       (mbt2018-vbr: the same y_hat, its offsets run on the host), the
+       hyperprior models' max |y_hat difference| printed (their offsets
+       run on each device);
     5. VBR_TRAIN_STEPS ``vbr_train_step``s of the shipped model on 8 random
        256x256 crops of the two images, s cycling 0..7 at ``VBR_LMBDAS[s]``,
        cuDNN TF32 on and its autotuning off (the first step's autotuning
@@ -1872,7 +2028,6 @@ def vbr_phase(dev, record, originals, smi_line):
                                              seed=VBR_SEEDS[0])[None])
     jax_record = json.loads(VBR_RECORD.read_text())["results"]
     vbr_launches, vbr_calls = {}, {}
-    on_cpu = []  # (tag, CPU copy, s, the card's output of the small image)
 
     def level(tag, m, s, loop_s, inputscale=0):
         """One gain level of ``m`` on both images: its printed line's
@@ -1931,12 +2086,36 @@ def vbr_phase(dev, record, originals, smi_line):
               f"{loop[0]}, decompress {t_d:.2f} ms{loop[1]} (host clock, an "
               f"image, {smi_line}); launches: conv2d_nhwc "
               f"{launches['conv2d_nhwc']}", flush=True)
-        if s == 7 and not inputscale:
-            out = m.compress(small.to(dev), s=s)
-            ar = hasattr(m, "scale_to_context")  # mbt2018-vbr
-            on_cpu.append((tag, copy.deepcopy(m).cpu(), s, out,
-                           None if ar else _vbr_symbols(m, out, s)))
+        if s == 7 and not inputscale:  # 4. queued for the CPU
+            on_cpu(tag, m, s, m.compress(small.to(dev), s=s))
         return lv, calls
+
+    def on_cpu(tag, m, s, out):
+        """The card's strings ``out`` of the small image, decoded by a CPU
+        copy of ``m`` in the CpuSide process."""
+        cpu_model = copy.deepcopy(m).cpu()
+        y_card = out["y_hat"].cpu()
+        what = f"vbr {tag} s={s}: the card's strings of a {VBR_SMALL}x" \
+               f"{VBR_SMALL} image decoded on the CPU to"
+        if hasattr(m, "scale_to_context"):  # mbt2018-vbr
+            def then(same, dt):
+                require(same, f"vbr {tag}: the CPU decodes the card's "
+                        "strings to another y_hat")
+                print(f"  {what} the card's y_hat bit for bit ({dt:.1f} s)",
+                      flush=True)
+            cpu.submit(_cpu_y_equal, (cpu_model, out["strings"], out["shape"],
+                                      {"s": s}, y_card), then)
+            return
+
+        def then(result, dt):
+            same, gap = result
+            require(same, f"vbr {tag}: the CPU decodes the card's strings "
+                    "to other symbols")
+            print(f"  {what} the card's symbols, max |y_hat difference| "
+                  f"{gap:.3g} ({dt:.1f} s)", flush=True)
+        cpu.submit(_cpu_vbr_symbols, (
+            cpu_model, {"strings": out["strings"], "shape": out["shape"]}, s,
+            _vbr_symbols(m, out, s), y_card), then)
 
     with raster_loop_seconds() as loop_s:
         # 1. the shipped model over its 8 gains
@@ -1980,25 +2159,6 @@ def vbr_phase(dev, record, originals, smi_line):
             for s in levels:
                 level(f"{arch} (seed 0)", m, s, loop_s)
             del m
-
-    # 4. the card's strings of a small image decoded on the CPU
-    for tag, cpu_model, s, out, card_symbols in on_cpu:
-        t0 = time.perf_counter()
-        y_cpu = cpu_model.decompress_y(out["strings"], out["shape"], s=s)
-        dt = time.perf_counter() - t0
-        if card_symbols is None:
-            require(torch.equal(y_cpu, out["y_hat"].cpu()), f"vbr {tag}: the "
-                    "CPU decodes the card's strings to another y_hat")
-            gap = "the card's y_hat bit for bit"
-        else:
-            require(torch.equal(_vbr_symbols(cpu_model, out, s),
-                                card_symbols), f"vbr {tag}: the CPU decodes "
-                    "the card's strings to other symbols")
-            gap = (f"the card's symbols, max |y_hat difference| "
-                   f"{float((y_cpu - out['y_hat'].cpu()).abs().max()):.3g}")
-        print(f"  vbr {tag} s={s}: the card's strings of a {VBR_SMALL}x"
-              f"{VBR_SMALL} image decoded on the CPU to {gap} ({dt:.1f} s)",
-              flush=True)
 
     # 5. training steps of the shipped model
     cudnn = torch.backends.cudnn
@@ -2045,9 +2205,232 @@ def vbr_phase(dev, record, originals, smi_line):
           f"{step_ms[0]:.1f}), peak {peak / 2 ** 30:.2f} GiB ({smi_line})",
           flush=True)
     phase("vbr", "the shipped mbt2018-mean-vbr over its 8 gains, the "
-          "seed-initialised VBR models, card strings on the CPU, "
+          "seed-initialised VBR models, card strings queued for the CPU, "
           "vbr_train_step")
     return vbr_launches, vbr_calls
+
+
+def _panned_frames(h, w, n, seed):
+    """n frames [h, w, 3] of one textured-leaves still panned by (i, 2i)
+    pixels, frame i (tools/train_video_artifact.py makes its clips so)."""
+    from flashgmm_tpu_torch.datasets import textured_leaves
+
+    big = textured_leaves(h + n, w + 2 * n, seed=seed)
+    return [big[i:i + h, 2 * i:2 * i + w] for i in range(n)]
+
+
+def _yuv420_bytes(rgb):
+    """8-bit 4:2:0 planes (BT.601 full range, chroma averaged 2x2) of an RGB
+    frame [H, W, 3] in [0, 1], in the raw file's order Y, U, V."""
+    import numpy as np
+
+    r, g, b = np.moveaxis(rgb.astype(np.float64), -1, 0)
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    h, w = y.shape
+    planes = [y] + [c.reshape(h // 2, 2, w // 2, 2).mean((1, 3)) for c in
+                    (0.5 * (b - y) / (1 - 0.114) + 0.5,
+                     0.5 * (r - y) / (1 - 0.299) + 0.5)]
+    return b"".join(np.clip(np.round(p * 255), 0, 255).astype(np.uint8)
+                    .tobytes() for p in planes)
+
+
+def video_phase(dev, record, smi_line, cpu):
+    """Scale-space flow video, ssf2020 (ROADMAP item 14a), while the zoo
+    phase's CPU runs go on:
+    1. the video eval CLI (``python -m flashgmm_tpu_torch.utils.video.
+       eval_model --real``, its ``main`` in this process, on the card: a
+       seed-initialised ssf2020 with its quantiles updated) over a raw
+       8-bit 4:2:0 file ``*_1920x1080_30fps_420_8bit.yuv`` of
+       VIDEO_CLI_FRAMES panned textured-leaves frames in a temporary
+       directory, one GOP: once on 2 frames to warm up, then counted: the
+       rows-chain conv VIDEO_ROWS_CONVS times a hyperprior a direction
+       (the keyframe's one, two an inter frame), nothing else; the report's
+       encode and decode ms a frame, bpp, PSNR and MS-SSIM
+       (``chip_profile.py --video`` breaks a frame's time down);
+    2. ssf2020 from a ``torch.Generator`` (VIDEO_SEED) with
+       ``update(update_quantiles=True)``: compress/decompress of a
+       VIDEO_GOP-frame GOP at VIDEO_SIDE^2 on the card, launches counted as
+       in 1: the decoded frames equal the encoder's reconstructions and
+       the decoder's y_hat of every branch the encoder's, bit for bit (the
+       timing phase holds the rows-chain conv to its plain version at each
+       of the path's shapes); a CPU copy of the model (``cpu``, a CpuSide)
+       decodes the card's strings to every branch's y_hat bit for bit and
+       to frames within VIDEO_CPU_ATOL;
+    3. VIDEO_TRAIN_STEPS ``video_train_step``s of a seed-initialised model
+       on one batch of VIDEO_TRAIN_BATCH random 256x256 crops of panned
+       clips, GOP 3, lambda VIDEO_LMBDA, cuDNN TF32 on and its autotuning
+       off: every term finite, the parameters moved; the median step ms and
+       the peak memory.
+    Returns (launches, recorded calls) of the counted coding runs."""
+    import contextlib
+    import copy
+    import io
+    import random
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.models.video import ScaleSpaceFlow
+    from flashgmm_tpu_torch.parallel import make_train_state, video_train_step
+    from flashgmm_tpu_torch.utils.video.eval_model.__main__ import (
+        _count, main as video_cli)
+
+    video_launches, video_calls = {}, {}
+    model = ScaleSpaceFlow(generator=torch.Generator().manual_seed(
+        VIDEO_SEED), device=dev).eval()
+    model.update(update_quantiles=True)
+
+    def counted(tag, run, n_hyperpriors):
+        result, launches, calls = record(run)
+        want = dict.fromkeys(launches, 0)
+        want["conv2d_nhwc"] = 2 * VIDEO_ROWS_CONVS * n_hyperpriors
+        require(launches == want, f"video {tag}: launches {launches}, not "
+                f"{want}")
+        for name, n in launches.items():
+            video_launches[name] = video_launches.get(name, 0) + n
+            video_calls.setdefault(name, []).extend(calls[name])
+        return result, launches, calls
+
+    # 1. the eval CLI on the card
+    with tempfile.TemporaryDirectory() as d:
+        seq = Path(d) / (f"leaves_{VIDEO_CLI_W}x{VIDEO_CLI_H}_30fps_420_"
+                         "8bit.yuv")
+        seq.write_bytes(b"".join(_yuv420_bytes(f) for f in _panned_frames(
+            VIDEO_CLI_H, VIDEO_CLI_W, VIDEO_CLI_FRAMES, VIDEO_SEED)))
+
+        def cli(n_frames):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = video_cli([str(seq), "-f", str(n_frames), "--gop",
+                                str(n_frames), "--real", "--device", "cuda"])
+            require(rc == 0, f"video eval CLI: exit code {rc}")
+            return json.loads(buf.getvalue())
+
+        cli(2)  # warm-up: cuDNN's first calls at these shapes
+        report, launches, _ = counted(
+            "eval CLI", lambda: cli(VIDEO_CLI_FRAMES),
+            2 * VIDEO_CLI_FRAMES - 1)
+    res = report["results"]
+    require(all(np.isfinite(v) for v in res.values()),
+            f"video eval CLI: {res}")
+    print(f"  video eval CLI ssf2020 --real on the card, {VIDEO_CLI_W}x"
+          f"{VIDEO_CLI_H} 8-bit 4:2:0 (padded to a multiple of 128), "
+          f"{VIDEO_CLI_FRAMES} frames, one GOP: encode "
+          f"{1e3 * res['enc_time_per_frame']:.2f} ms, decode "
+          f"{1e3 * res['dec_time_per_frame']:.2f} ms a frame (host clock, "
+          f"{smi_line}); {res['bpp']:.5f} bpp, PSNR RGB "
+          f"{res['psnr-rgb']:.4f} dB, YUV {res['psnr-yuv']:.4f} dB, MS-SSIM "
+          f"{res['ms-ssim-rgb']:.5f}; launches: conv2d_nhwc "
+          f"{launches['conv2d_nhwc']}", flush=True)
+
+    # 2. a GOP coded on the card, decoded on the card and on the CPU
+    frames = [torch.from_numpy(f[None].copy()).to(dev) for f in
+              _panned_frames(VIDEO_SIDE, VIDEO_SIDE, VIDEO_GOP,
+                             VIDEO_SEED + 1)]
+
+    def gop():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        strings, shapes, details = model.compress(frames, details=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec, dec_details = model.decompress(strings, shapes, details=True)
+        torch.cuda.synchronize()
+        return (strings, shapes, details, dec, dec_details["y_hat"], t1 - t0,
+                time.perf_counter() - t1)
+
+    (strings, shapes, details, dec, y_card, t_c, t_d), _, _ = counted(
+        f"GOP {VIDEO_SIDE}^2", gop, 2 * VIDEO_GOP - 1)
+    for i, (got, want) in enumerate(zip(dec, details["x_hat"])):
+        require(torch.equal(got, want), f"video GOP: frame {i} decodes to "
+                "another frame than the encoder's reconstruction")
+    for i, (got, enc) in enumerate(zip(y_card, details["y_hat"])):
+        for branch in enc:
+            require(torch.equal(got[branch], enc[branch]), f"video GOP: "
+                    f"frame {i} {branch} y_hat differs from the encoder's")
+    n_bytes = _count(strings)
+    psnrs = [psnr_of(torch.clamp(x_hat, 0, 1), x)
+             for x_hat, x in zip(dec, frames)]
+    print(f"  video GOP ssf2020 (seed {VIDEO_SEED}), {VIDEO_GOP} frames "
+          f"{VIDEO_SIDE}x{VIDEO_SIDE}: decoded frames equal the encoder's "
+          f"reconstructions, every branch's y_hat exact; {n_bytes} bytes, "
+          f"{8 * n_bytes / (VIDEO_GOP * VIDEO_SIDE ** 2):.4f} bpp, PSNR a "
+          f"frame {[round(p, 4) for p in psnrs]} dB; compress "
+          f"{1e3 * t_c:.2f} ms, decompress {1e3 * t_d:.2f} ms (host clock)",
+          flush=True)
+
+    def then(result, dt):
+        wrong, gap = result
+        require(not wrong, f"video: the CPU decodes the strings of (frame, "
+                f"branch) {wrong} to another y_hat")
+        require(gap <= VIDEO_CPU_ATOL, f"video: the CPU's frames {gap:.3g} "
+                "from the card's")
+        print(f"  video GOP ssf2020: the card's strings decoded on the CPU to "
+              f"every branch's y_hat bit for bit, frames max |difference| "
+              f"{gap:.3g} ({dt:.1f} s)", flush=True)
+    cpu.submit(_cpu_video_decode, (
+        copy.deepcopy(model).cpu(), strings, shapes,
+        [{b: t.cpu() for b, t in y.items()} for y in y_card],
+        [f.cpu() for f in dec]), then)
+    del model
+
+    # 3. training steps
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, cudnn.benchmark)
+    try:
+        cudnn.allow_tf32, cudnn.benchmark = True, False
+        random.seed(VIDEO_SEED)
+        clips = [_panned_frames(TRAIN_PATCH + 64, TRAIN_PATCH + 64, 3,
+                                VIDEO_SEED + 2 + b)
+                 for b in range(VIDEO_TRAIN_BATCH)]
+        crops = []
+        for clip in clips:  # one random crop a clip, the same in its frames
+            top = random.randint(0, 64)
+            left = random.randint(0, 64)
+            crops.append([f[top:top + TRAIN_PATCH, left:left + TRAIN_PATCH]
+                          for f in clip])
+        with torch.inference_mode(False):
+            batch = [torch.from_numpy(np.stack([c[t] for c in crops])).to(dev)
+                     for t in range(3)]
+            m = ScaleSpaceFlow(seed=VIDEO_SEED, device=dev)
+            opts = make_train_state(m, TRAIN_LR, TRAIN_AUX_LR, 1.0)
+            gen = torch.Generator(device=dev).manual_seed(VIDEO_SEED)
+            w0 = m.res_decoder.layers[0].weight.detach().clone()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            losses, step_ms = [], []
+            for i in range(VIDEO_TRAIN_STEPS):
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                a.record()
+                out = video_train_step(m, *opts, batch, gen, VIDEO_LMBDA)
+                b.record()
+                torch.cuda.synchronize()
+                step_ms.append(a.elapsed_time(b))
+                losses.append(float(out["loss"]))
+                require(all(np.isfinite(float(v)) for v in out.values()),
+                        f"video train: step {i + 1}: {out}")
+            peak = torch.cuda.max_memory_allocated()
+            require(not torch.equal(m.res_decoder.layers[0].weight.detach(),
+                                    w0), "video train: the weights did not "
+                    "move")
+            del m, opts
+    finally:
+        cudnn.allow_tf32, cudnn.benchmark = saved
+    print(f"  video train ssf2020 (seed {VIDEO_SEED}), batch "
+          f"{VIDEO_TRAIN_BATCH} x GOP 3 x {TRAIN_PATCH}^2, lambda "
+          f"{VIDEO_LMBDA}, cuDNN TF32 on, autotuning off: losses "
+          f"{[round(v, 4) for v in losses]}, all finite, weights moved; step "
+          f"{statistics.median(step_ms):.3f} ms (median of "
+          f"{VIDEO_TRAIN_STEPS}, CUDA events; the first {step_ms[0]:.1f}), "
+          f"peak {peak / 2 ** 30:.2f} GiB, {(peak - before) / 2 ** 30:.2f} "
+          f"GiB above what was allocated before the steps ({smi_line})",
+          flush=True)
+    phase("video", "ssf2020: the eval CLI on the card at "
+          f"{VIDEO_CLI_W}x{VIDEO_CLI_H}, a GOP exact on the card and queued "
+          "for the CPU, video_train_step")
+    return video_launches, video_calls
 
 
 def train_phase(dev):
@@ -2388,7 +2771,7 @@ def main() -> int:
             return 1
         bytes_worker(*sys.argv[2:5])
         return 0
-    alone = {"--zoo": zoo_only, "--vbr": vbr_only}
+    alone = {"--zoo": zoo_only, "--vbr": vbr_only, "--video": video_only}
     if len(sys.argv) > 1 and sys.argv[1] in alone:
         if not torch.cuda.is_available():
             return 1
@@ -2436,15 +2819,37 @@ def _device_and_build():
     return dev, smi_line
 
 
+def _cpu_side():
+    """A started CpuSide, stopped on the way out."""
+    cpu = CpuSide(CPU_SIDE_THREADS)
+    _CLEANUP.append(cpu.close)
+    return cpu
+
+
 def vbr_only():
     """``python3 chip_smoke.py --vbr``: the device line, the build and the
     vbr phase alone, then each kernel's launches on its path."""
     dev, smi_line = _device_and_build()
+    cpu = _cpu_side()
     bound = kernel_wrappers()
     originals = {name: getattr(*where) for name, where in bound.items()}
     launches, _ = vbr_phase(dev, make_record(bound, originals), originals,
-                            smi_line)
+                            smi_line, cpu)
+    cpu.drain()
     print(json.dumps({"vbr_launches": launches}), flush=True)
+
+
+def video_only():
+    """``python3 chip_smoke.py --video``: the device line, the build and the
+    video phase alone, then each kernel's launches on its path."""
+    dev, smi_line = _device_and_build()
+    cpu = _cpu_side()
+    bound = kernel_wrappers()
+    originals = {name: getattr(*where) for name, where in bound.items()}
+    launches, _ = video_phase(dev, make_record(bound, originals), smi_line,
+                              cpu)
+    cpu.drain()
+    print(json.dumps({"video_launches": launches}), flush=True)
 
 
 def zoo_only():
@@ -2454,10 +2859,12 @@ def zoo_only():
     cli = ZooCli(dev)
     _CLEANUP.append(cli.close)
     cli.start()
+    cpu = _cpu_side()
     bound = kernel_wrappers()
     originals = {name: getattr(*where) for name, where in bound.items()}
     launches, _ = zoo_phase(dev, make_record(bound, originals), originals,
-                            smi_line, cli)
+                            smi_line, cli, cpu)
+    cpu.drain()
     print(json.dumps({"zoo_launches": launches}), flush=True)
 
 
@@ -2523,6 +2930,8 @@ def smoke():
     zoo_cli = ZooCli(dev)
     _CLEANUP.append(zoo_cli.close)
     zoo_cli.start()
+    # the process for the later phases' CPU decodes of the card's strings
+    cpu = _cpu_side()
 
     # 3. each kernel against its plain version at the main path's shapes --
     rng = np.random.RandomState(0)
@@ -3128,16 +3537,37 @@ def smoke():
     # 7. bytes: batch 1 in fresh processes (ROADMAP C9) ---------------------
     import hashlib
 
-    digests = {}
-    for route in ("default", "kernel"):
-        for setup in ("cold", "hog"):
-            p = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                                "--bytes-worker", route, setup, "1"],
-                               capture_output=True, text=True, timeout=300)
-            require(p.returncode == 0, f"bytes worker {route} {setup} failed:"
-                    f" {p.stderr[-2000:]}")
-            digests[(route, setup)] = json.loads(
-                p.stdout.strip().splitlines()[-1])
+    procs = []
+
+    def bytes_run(route, setup):
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--bytes-worker",
+             route, setup, "1"], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+        return procs[-1]
+
+    def bytes_digest(proc, route, setup):
+        out, err = proc.communicate(timeout=300)
+        require(proc.returncode == 0, f"bytes worker {route} {setup} failed:"
+                f" {err[-2000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+
+    routes = ("default", "kernel")
+    # the two cold processes side by side; each hog process alone, as it
+    # takes the card's free memory
+    try:
+        colds = {route: bytes_run(route, "cold") for route in routes}
+        digests = {(route, "cold"): bytes_digest(colds[route], route, "cold")
+                   for route in routes}
+        for route in routes:
+            digests[(route, "hog")] = bytes_digest(bytes_run(route, "hog"),
+                                                   route, "hog")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for route in routes:
         cold, hog = digests[(route, "cold")], digests[(route, "hog")]
         own = lat_bytes[route == "kernel"]
         print(f"  bytes {route} route, batch 1, lanes={LAT_LANES}: cold "
@@ -3184,19 +3614,25 @@ def smoke():
 
     # 11. reference-format coding (model.compress/decompress) ------------
     ref_launches, ref_calls = reference_phase(dev, x1, model, record,
-                                              originals, smi_line)
+                                              originals, smi_line, cpu)
 
     # 12. the variable-bitrate models, while the eval CLI's CPU runs go on
-    vbr_launches, vbr_calls = vbr_phase(dev, record, originals, smi_line)
+    vbr_launches, vbr_calls = vbr_phase(dev, record, originals, smi_line,
+                                        cpu)
 
-    # 13. the image-model line and the evaluation CLIs --------------------
-    zoo_launches, zoo_calls = zoo_phase(dev, record, originals, smi_line,
-                                        zoo_cli)
+    # 13. scale-space flow video, while the eval CLI's CPU runs go on -----
+    video_launches, video_calls = video_phase(dev, record, smi_line, cpu)
 
-    # 14. training at full width under the trainer's settings ------------
+    # 14. training at full width under the trainer's settings, while the
+    # eval CLI's CPU runs go on --------------------------------------------
     train_phase(dev)
+    torch.cuda.empty_cache()  # room for the zoo phase's card runs
 
-    # 15. timing of every recorded call -----------------------------------
+    # 15. the image-model line and the evaluation CLIs --------------------
+    zoo_launches, zoo_calls = zoo_phase(dev, record, originals, smi_line,
+                                        zoo_cli, cpu)
+
+    # 16. timing of every recorded call -----------------------------------
     pass_words = [int(out[k].n_words) for k in ("z", "y0", "y1")]
 
     def probes_by_count(L):
@@ -3467,13 +3903,14 @@ def smoke():
         calls[f"{name}_k1"] = gsm_calls[f"{name}_k1"]
         launches[f"{name}_k1"] = gsm_launches[f"{name}_k1"]
 
-    def path_times(base, kern, peak, path_calls, words):
+    def path_times(base, kern, peak, path_calls, words, device=False):
         """A path's calls of one kernel (ELIC's, the GSM codec's, ...): each
         distinct call (a conv's shapes: the decoder's rows-chain convs
         repeat the encoder's, a VBR level's the level before's; every coder
         call) held to its plain version and timed once, its bound and times
         counted at each of its calls: ({"ms", "device_ms", "bound_ms"},
-        max|kernel - plain|, zero-inserted conv inputs)."""
+        max|kernel - plain|, zero-inserted conv inputs). ``device`` times
+        every kernel on the device alone too, not only DEVICE_TIMED's."""
         t = {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
         seen = {}
         err = 0.0
@@ -3492,15 +3929,15 @@ def smoke():
                                           flops / peak),
                     "ms": cuda_ms(lambda: kern(*args, **kwargs), 20),
                     "device_ms": cuda_ms(lambda: kern(*args, **kwargs), 20,
-                                         True) if base in DEVICE_TIMED
-                    else 0.0}
+                                         True)
+                    if device or base in DEVICE_TIMED else 0.0}
             for k in t:
                 t[k] += seen[key][k]
         return t, err, inserted
 
     results = []
     # seconds on those paths' calls
-    t_lat = t_elic = t_gsm = t_ref = t_zoo = t_vbr = 0.0
+    t_lat = t_elic = t_gsm = t_ref = t_zoo = t_vbr = t_video = 0.0
     for name in [*originals, *(f"{n}_k1" for n in K1_INSTANCES)]:
         base = name.removesuffix("_k1")
         kern = originals[base]
@@ -3518,7 +3955,9 @@ def smoke():
             ms += cuda_ms(lambda: kern(*args, **kwargs), 20)
             if base in DEVICE_TIMED:
                 device_ms += cuda_ms(lambda: kern(*args, **kwargs), 20, True)
-            plain_ms += cuda_ms(lambda: plains[base](*args, **kwargs), 1)
+            # stats has just run the plain version on these inputs
+            plain_ms += cuda_ms(lambda: plains[base](*args, **kwargs), 1,
+                                warm=False)
             if library is not None:
                 lib_ms = (lib_ms or 0.0) + cuda_ms(library, 20)
             if name == "rans_decode_gmm":
@@ -3575,6 +4014,12 @@ def smoke():
             pass_words)
         err = max(err, e)
         t_vbr += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        video_t, e, video_inserted = path_times(
+            base, kern, peak, video_calls.get(name, []) if name == base
+            else [], pass_words, device=name == "conv2d_nhwc")
+        err = max(err, e)
+        t_video += time.perf_counter() - t0
         if name == "conv2d_nhwc":  # h_s's deconvs in the encode and decode
             require(inserted == 2 * ELIC_INSERTED, f"ELIC: {inserted} "
                     "zero-inserted conv inputs, not h_s's deconvs'")
@@ -3585,6 +4030,10 @@ def smoke():
             require(3 * vbr_inserted == 2 * vbr_launches[name],
                     f"vbr: {vbr_inserted} zero-inserted conv inputs of "
                     f"{vbr_launches[name]} launches, not h_s's deconvs'")
+            # every conv of the video hyper decoders is a stride-2 deconv
+            require(video_inserted == video_launches[name], f"video: "
+                    f"{video_inserted} zero-inserted conv inputs of "
+                    f"{video_launches[name]} launches")
         if name != "conv2d_nhwc_bf16":  # held to its tolerance in stats
             require(err == 0, f"{name} differs from its plain version")
         lat_launches = {d: g_launches[d].get(name, 0) for d in g_launches}
@@ -3621,7 +4070,13 @@ def smoke():
                             "vbr_launches": vbr_launches.get(name, 0)
                             if name == base else 0,
                             "vbr_ms": vbr_t["ms"],
-                            "vbr_bound_ms": vbr_t["bound_ms"]})
+                            "vbr_bound_ms": vbr_t["bound_ms"],
+                            "video_launches": video_launches.get(name, 0)
+                            if name == base else 0,
+                            "video_ms": video_t["ms"],
+                            "video_bound_ms": video_t["bound_ms"]})
+        if base in DEVICE_TIMED or name == "conv2d_nhwc":
+            results[-1]["video_device_ms"] = video_t["device_ms"]
         if base in DEVICE_TIMED:
             results[-1]["device_ms"] = device_ms
             results[-1]["latency_device_ms"] = lat_t["device_ms"]
@@ -3644,7 +4099,14 @@ def smoke():
           f"in device-rows mode, {t_ref:.2f} s; zoo_*: of the image-model "
           f"line's compress + decompress of one image, {t_zoo:.2f} s; vbr_*: "
           f"of the VBR models' compress + decompress of two images at each "
-          f"level, {t_vbr:.2f} s)")
+          f"level, {t_vbr:.2f} s; video_*: of the video phase's eval CLI run "
+          f"and GOP, compress + decompress, {t_video:.2f} s)")
+
+    # 17. the CPU decodes queued by phases 11, 12, 13 and 15 -------------
+    cpu.drain()
+    phase("cpu", "the card's strings decoded on the CPU by copies of the "
+          "models, in a process of their own beside phases 11-16 (this "
+          "phase's seconds: the wait for the last)")
 
     print(f"smoke total {time.perf_counter() - _T_START:.2f} s", flush=True)
     print(json.dumps({"kernels": results, "card": kind,

@@ -528,6 +528,52 @@ def sequential_channel_ramp(in_ch: int, out_ch: int, *, min_ch: int = 0,
     return Sequential(*layers[:-1])
 
 
+class _QReLU(torch.autograd.Function):
+    """Forward: ``clip(x, 0, 2**bit_depth - 1)``. Backward: the incoming
+    gradient inside the range, and outside it the smooth surrogate
+    ``exp(-alpha**beta * |2x / max - 1|**beta)`` times it (CompressAI's
+    layers.py:339-388; the JAX package's ``jax.custom_vjp``)."""
+
+    ALPHA = 0.9943258522851727
+
+    @staticmethod
+    def forward(ctx, x, bit_depth, beta):
+        ctx.save_for_backward(x)
+        ctx.bit_depth, ctx.beta = bit_depth, beta
+        return torch.clamp(x, 0.0, float(2 ** bit_depth - 1))
+
+    @staticmethod
+    def _integer_pow(x, n):
+        """x ** n by squaring, JAX's ``lax.integer_pow`` multiply for
+        multiply (torch's float pow rounds otherwise, and the exponent
+        magnifies it)."""
+        acc = None
+        while n > 0:
+            if n & 1:
+                acc = x if acc is None else acc * x
+            n >>= 1
+            if n > 0:
+                x = x * x
+        return acc
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        max_value = float(2 ** ctx.bit_depth - 1)
+        grad_sub = torch.exp(
+            -(_QReLU.ALPHA ** ctx.beta)
+            * _QReLU._integer_pow(torch.abs(2.0 * x / max_value - 1),
+                                  int(ctx.beta))) * grad
+        outside = (x < 0) | (x > max_value)
+        return torch.where(outside, grad_sub, grad), None, None
+
+
+def qrelu(x, bit_depth: int = 8, beta: int = 100):
+    """The integer network's clamp to [0, 2**bit_depth - 1] with a smooth
+    surrogate gradient outside it (``_QReLU``)."""
+    return _QReLU.apply(x, bit_depth, beta)
+
+
 def route_bf16_kernel(module):
     """Mark every conv of ``module`` that the bf16 conv kernel takes
     (``conv_kernel.bf16_route_takes``), and the fused subpel convs of its
@@ -541,11 +587,12 @@ def route_bf16_kernel(module):
 
 
 def run_canonical(module, x):
-    """Rows-chain forward of a conv, a transposed conv, or a Sequential of
-    them, pixel shuffles, LeakyReLUs and ReLUs: every conv goes through the
-    hand conv kernel in float32, and an activation right after a conv fuses
-    into its epilogue (a ReLU as slope 0)."""
-    if isinstance(module, (Conv2d, ConvTranspose2d)):
+    """Rows-chain forward of a conv, a transposed conv, a module with a
+    ``canonical`` forward of its own, or a Sequential of them, pixel
+    shuffles, LeakyReLUs and ReLUs: every conv goes through the hand conv
+    kernel in float32, and an activation right after a conv fuses into its
+    epilogue (a ReLU as slope 0)."""
+    if hasattr(module, "canonical"):
         return module.canonical(x)
     if not isinstance(module, Sequential):
         return module(x)

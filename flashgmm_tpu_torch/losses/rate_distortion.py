@@ -42,6 +42,35 @@ def rate_distortion_loss(output, target, lmbda: float = 1e-2,
     }
 
 
+def video_rate_distortion_loss(output, frames, lmbda: float = 1e-2):
+    """The multi-frame RD loss of the video models (ssf2020; the JAX
+    package's losses/rate_distortion.py:45-69, the reference's
+    examples/train_video.py:73-190): the distortion is the mean over the
+    frames of each frame's MSE, the rate the bits of every likelihood
+    tensor of every frame over one frame's pixels. ``output`` is
+    ScaleSpaceFlow's forward ({"x_hat": [frame, ...], "likelihoods":
+    [{branch: {"y", "z"}}, ...]}), ``frames`` the list of [N, H, W, 3]
+    targets. Returns {"loss", "bpp_loss", "mse_loss"}, 0-d tensors."""
+    n, h, w, _ = frames[0].shape
+    num_pixels = n * h * w
+
+    bpp_loss = sum(
+        torch.sum(torch.log(lk)) / (-math.log(2) * num_pixels)
+        for frame_lk in output["likelihoods"]
+        for branch in frame_lk.values()
+        for lk in branch.values()
+    )
+    mse_loss = sum(
+        torch.mean((x_hat - x) ** 2)
+        for x_hat, x in zip(output["x_hat"], frames)
+    ) / len(frames)
+    return {
+        "loss": lmbda * 255**2 * mse_loss + bpp_loss,
+        "bpp_loss": bpp_loss,
+        "mse_loss": mse_loss,
+    }
+
+
 @register_criterion("RateDistortionLoss")
 class RateDistortionLoss:
     def __init__(self, lmbda: float = 1e-2, metric: str = "mse"):

@@ -9,6 +9,7 @@ from .sensetime import Cheng2020AnchorCheckerboard, Elic2022Official
 from .sigmoidkernel import SigmoidCDFCompressor
 from .vbr import (JointAutoregressiveHierarchicalPriorsVbr,
                   MeanScaleHyperpriorVbr, ScaleHyperpriorVbr)
+from .video import ScaleSpaceFlow
 from .waseda import Cheng2020Anchor, Cheng2020Attention
 
 __all__ = ["CompressionModel", "SimpleVAECompressionModel",
@@ -19,4 +20,4 @@ __all__ = ["CompressionModel", "SimpleVAECompressionModel",
            "JointAutoregressiveHierarchicalPriors",
            "JointAutoregressiveHierarchicalPriorsVbr", "MeanScaleHyperprior",
            "MeanScaleHyperpriorVbr", "ScaleHyperprior", "ScaleHyperpriorVbr",
-           "SigmoidCDFCompressor"]
+           "ScaleSpaceFlow", "SigmoidCDFCompressor"]

@@ -1,6 +1,6 @@
-"""The image training steps on one device (port of make_train_state,
-data_parallel_train_step and vbr_train_step,
-flashgmm_tpu/parallel/train.py:15-122).
+"""The training steps on one device (port of make_train_state,
+data_parallel_train_step, vbr_train_step and video_train_step,
+flashgmm_tpu/parallel/train.py:15-150).
 
 The JAX step shards its batch over a mesh; the port trains on one card, so
 it has neither a mesh nor DDP. The order of the JAX step is kept:
@@ -24,6 +24,9 @@ at one gain level: their stage-2 forward at ``s``, the loss ``lmbda * 255^2
 forward detaches it), so its gradient is a zero tensor and Adam leaves it
 where it is, as under the reference's ``stop_gradient``.
 
+``video_train_step`` is the same step for the video model (ssf2020) on a
+GOP: its forward over the frames, ``video_rate_distortion_loss``.
+
 No library settings are pinned on the card: a training step's result
 depends on no coded bytes, so it runs under the caller's (the trainer
 leaves TF32 at PyTorch's defaults and lets cuDNN time its algorithms).
@@ -31,7 +34,8 @@ leaves TF32 at PyTorch's defaults and lets cuDNN time its algorithms).
 
 import torch
 
-from flashgmm_tpu_torch.losses import rate_distortion_loss
+from flashgmm_tpu_torch.losses import (rate_distortion_loss,
+                                       video_rate_distortion_loss)
 from flashgmm_tpu_torch.optimizers.net_aux import make_adam, net_aux_partition
 
 
@@ -127,4 +131,25 @@ def vbr_train_step(model, opt_net, opt_aux, batch, generator, s: int,
         "mse_loss": details["mse_loss"].detach(),
         "aux_loss": aux_loss.detach(),
         "s": torch.tensor(int(s), dtype=torch.int32, device=batch.device),
+    }
+
+
+def video_train_step(model, opt_net, opt_aux, frames, generator,
+                     lmbda: float = 1e-2):
+    """One multi-frame RD step and one aux step of a video model on
+    ``frames``, a list or tuple of [B, H, W, 3] (a GOP; the first frame is
+    the keyframe), on the model's device; otherwise as :func:`train_step`.
+    Returns {"loss", "bpp_loss", "mse_loss", "aux_loss"} as detached 0-d
+    tensors on the device."""
+    model.train()
+    frames = list(frames)
+    out = model(frames, training=True, generator=generator)
+    details = video_rate_distortion_loss(out, frames, lmbda=lmbda)
+    loss = details["loss"]
+    aux_loss = _net_and_aux_steps(model, opt_net, opt_aux, loss)
+    return {
+        "loss": loss.detach(),
+        "bpp_loss": details["bpp_loss"].detach(),
+        "mse_loss": details["mse_loss"].detach(),
+        "aux_loss": aux_loss.detach(),
     }

@@ -1,4 +1,4 @@
-from .image import (cfgs, cfgs_vbr, create_model, image_models,
+from .image import (cfgs, cfgs_vbr, cfgs_video, create_model, image_models,
                     model_architectures)
 from .npz import load_jax_params, load_npz
 from .torch_convert import (load_checkpoint_file, load_torch_state_dict,
@@ -12,6 +12,7 @@ __all__ = [
     "model_architectures",
     "cfgs",
     "cfgs_vbr",
+    "cfgs_video",
     "create_model",
     "load_checkpoint_file",
     "load_jax_params",

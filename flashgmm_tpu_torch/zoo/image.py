@@ -7,8 +7,9 @@ builds an (architecture, quality) at its widths and loads a weights file:
 a ``.npz`` through ``zoo.load_npz``, a CompressAI ``.pth``/``.pt`` through
 ``zoo.torch_convert``, anything else as the port's own checkpoint
 (``utils/checkpoint.py``; the JAX package takes an orbax directory there).
-A VBR architecture has one quality: one model serves its 8 gains. The video
-and point-cloud entries come with their models.
+A VBR architecture has one quality: one model serves its 8 gains. The
+video model (ssf2020) takes no widths: its qualities are checkpoints. The
+point-cloud entries come with their models.
 """
 
 import inspect
@@ -43,6 +44,9 @@ cfgs = {
     "bmshj2018-hyperprior-vbr": {1: (192, 320)},
     "mbt2018-mean-vbr": {1: (192, 320)},
     "mbt2018-vbr": {1: (192, 320)},
+    # video: one architecture at its published widths; a quality is a
+    # checkpoint
+    "ssf2020": {q: () for q in range(1, 10)},
 }
 
 model_architectures = dict(MODELS)
@@ -65,6 +69,8 @@ local_weights = {
         "weights/elic_gmm_n192_m320_k4_q6.npz",     # lambda=0.013
     ("mbt2018-mean-vbr", 1):
         "weights/mshp_vbr_n192_m320_synthetic.npz",  # ONE model, 8 gains
+    ("ssf2020", 5):
+        "weights/ssf2020_synthetic.npz",
     ("bmshj2018-factorized", 4):
         "weights/factorized_n128_m192_synthetic.npz",
     ("mbt2018-mean", 3): "weights/mshp_n128_m192_synthetic.npz",
@@ -166,4 +172,9 @@ def image_models(architecture, quality=1, metric="mse", pretrained=False,
 cfgs_vbr = {
     "bmshj2018-hyperprior-vbr": (192, 320),
     "mbt2018-mean-vbr": (192, 320),
+}
+
+# the video zoo (ssf2020): a quality is a checkpoint of one architecture
+cfgs_video = {
+    "ssf2020": {q: () for q in range(1, 10)},
 }

@@ -39,7 +39,9 @@ One training step of the narrow flagship on the card agrees with the
 CPU's (loss and gradients within 1e-4, TF32 off, zero noise), and its
 non-finite guard keeps the parameters finite. A VBR model's round trip on
 the card is exact, and its card strings decode on the CPU to the card's
-symbols.
+symbols. The video model's (ssf2020) round trip of a GOP on the card is
+exact, and the CPU decodes the card's strings to every branch's y_hat bit
+for bit.
 """
 
 import importlib.util
@@ -1445,3 +1447,40 @@ def test_vbr_roundtrip_on_card_decodes_on_the_cpu(cuda, arch):
                                symbols(card, out, scale))
             torch.testing.assert_close(y_cpu, out["y_hat"].cpu(), rtol=0,
                                        atol=1e-5)
+
+
+def test_video_roundtrip_on_card_decodes_on_the_cpu(cuda):
+    """ssf2020 (seed-initialised, its full width) on a 3-frame GOP of
+    128x128 frames: compress on the card, each hyperprior's scale and mean
+    decoders on the rows-chain conv (6 launches a hyperprior); the card's
+    decompress gives the encoder's reconstructions and its decompress_y
+    the encoder's y_hat of every branch, bit for bit; a CPU copy decodes
+    the card's strings to the same y_hat of every branch bit for bit, and
+    to frames within 1e-4 of the card's."""
+    import copy
+
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.models.video import ScaleSpaceFlow
+
+    cpu_model = ScaleSpaceFlow(seed=3, device="cpu").eval()
+    cpu_model.update(force=True, update_quantiles=True)
+    card = copy.deepcopy(cpu_model).to(cuda)
+    big = textured_leaves(144, 144, seed=600002)
+    frames = [torch.from_numpy(big[None, 2 * i:2 * i + 128, i:i + 128].copy())
+              for i in range(3)]
+    before = conv_kernel.conv2d_nhwc.launches
+    strings, shapes, details = card.compress([f.to(cuda) for f in frames],
+                                             details=True)
+    assert conv_kernel.conv2d_nhwc.launches - before == 6 * 5
+    dec = card.decompress(strings, shapes)
+    for got, want in zip(dec, details["x_hat"]):
+        assert torch.equal(got, want)
+    y_card = card.decompress_y(strings, shapes)
+    y_cpu = cpu_model.decompress_y(strings, shapes)
+    for got, want, enc in zip(y_cpu, y_card, details["y_hat"]):
+        assert set(got) == set(want) == set(enc)
+        for branch in got:
+            assert torch.equal(want[branch], enc[branch])
+            assert torch.equal(got[branch], want[branch].cpu())
+    for got, want in zip(cpu_model.decompress(strings, shapes), dec):
+        torch.testing.assert_close(got, want.cpu(), rtol=0, atol=1e-4)

@@ -98,6 +98,17 @@ def test_smoke_refuses_without_a_card():
     "flashgmm_tpu_torch.latent_codecs.gain.hyper",
     "flashgmm_tpu_torch.latent_codecs.gain.hyperprior",
     "flashgmm_tpu_torch.models.vbr",
+    "flashgmm_tpu_torch.transforms",
+    "flashgmm_tpu_torch.transforms.functional",
+    "flashgmm_tpu_torch.transforms.transforms",
+    "flashgmm_tpu_torch.models.video",
+    "flashgmm_tpu_torch.models.video.google",
+    "flashgmm_tpu_torch.datasets.rawvideo",
+    "flashgmm_tpu_torch.datasets.video",
+    "flashgmm_tpu_torch.examples.train_video",
+    "flashgmm_tpu_torch.utils.video",
+    "flashgmm_tpu_torch.utils.video.eval_model",
+    "flashgmm_tpu_torch.utils.video.eval_model.__main__",
 ])
 def test_forward_and_converter_modules_import_no_jax(module):
     """The CompressAI state-dict converter, the training forward's modules,
@@ -108,7 +119,9 @@ def test_forward_and_converter_modules_import_no_jax(module):
     checkpoints, logging and the trainer CLI), the image-model line's
     (the models, the raster scan, the zoo and the evaluation CLIs), and the
     variable-bitrate line's (the VBR entropy models, the gain codecs and
-    the VBR models), each imported alone in a fresh interpreter."""
+    the VBR models), and the video line's (the colour transforms, ssf2020,
+    the video datasets, the video trainer and the video evaluation CLI),
+    each imported alone in a fresh interpreter."""
     probe = (f"import importlib, sys; importlib.import_module({module!r}); "
              "print(','.join(sorted(k for k in sys.modules if k.split('.')[0] "
              "in ('jax', 'jaxlib', 'flax', 'optax', 'flashgmm_tpu'))))")
@@ -152,5 +165,36 @@ def test_eval_and_update_clis_run_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert '"bpp"' in out.stdout and "Saved updated model" in out.stdout
+    bad = [line for line in out.stdout.splitlines() if line.startswith("BAD:")]
+    assert bad == ["BAD:"], bad
+
+
+VIDEO_CLI_PROBE = """
+import os, runpy, sys, tempfile
+import numpy as np
+d = tempfile.mkdtemp()
+path = os.path.join(d, "flat_128x128_30fps_420_8bit.yuv")
+np.full(128 * 128 * 3 // 2, 128, np.uint8).tofile(path)
+sys.argv = ["eval_model", path, "-f", "1", "--real", "--device", "cpu"]
+try:
+    runpy.run_module("flashgmm_tpu_torch.utils.video.eval_model",
+                     run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+print("BAD:" + ",".join(sorted(k for k in sys.modules if k.split(".")[0]
+                               in ("jax", "jaxlib", "flax", "optax", "flashgmm_tpu"))))
+"""
+
+
+def test_video_eval_cli_runs_without_jax():
+    """``python -m flashgmm_tpu_torch.utils.video.eval_model`` runs to its
+    end on the CPU (as ``-m`` runs it; one seed-initialised keyframe of a
+    flat 128x128 sequence, really coded) in a fresh interpreter, importing
+    no JAX-side module."""
+    out = subprocess.run([sys.executable, "-c", VIDEO_CLI_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert '"bpp"' in out.stdout and '"real coding"' not in out.stdout
+    assert "ssf2020 real coding" in out.stdout
     bad = [line for line in out.stdout.splitlines() if line.startswith("BAD:")]
     assert bad == ["BAD:"], bad

@@ -182,7 +182,7 @@ def test_registry_matches_jax_names():
              "bmshj2018-hyperprior", "mbt2018-mean", "mbt2018",
              "cheng2020-anchor", "cheng2020-attn", "elic2022-chandelier",
              "sigmoid-cdf", "bmshj2018-hyperprior-vbr", "mbt2018-mean-vbr",
-             "mbt2018-vbr"}
+             "mbt2018-vbr", "ssf2020"}
     assert set(MODELS) == names
     for name in names:
         assert MODELS[name].__module__.startswith("flashgmm_tpu_torch.")
