@@ -141,6 +141,22 @@ Phases, each ending in one flushed line with its seconds:
    ``video_train_step``s at batch 4, GOP 3, 256x256 crops: finite terms,
    ms a step, peak memory.
    ``python3 chip_smoke.py --video`` runs this phase alone;
+13b. pcc: point-cloud compression (ROADMAP item 14b; ``pcc_phase``),
+   while the zoo phase's CPU runs go on: the shipped hrtzxf2022-pcc-rec
+   and sfu-pcc-rec-pointnet (256 wide) from the zoo over the 8 held-out
+   clouds of tools/train_pointcloud_artifact.py, each decoded twice (bit
+   for bit the same), mean bpp within 1 % and mean chamfer within 2 % of
+   the JAX package's on the same clouds and weights, hrtzxf2022's 1026
+   points out, none of the port's hand kernels launched (no TPU kernel is
+   on this path), compress and decompress ms, each direction's device
+   events and busy ms, the FPS loop's share of the encode; the other two
+   codecs seed-initialised, their strings decoding to the encoder's
+   latent bit for bit; the card's strings of the first cloud decoded on
+   the CPU to the card's symbols (in phase 17); 10
+   ``pointcloud_train_step``s of each shipped architecture (seed
+   weights), ms a step and peak memory; the point-cloud trainer CLI for
+   one epoch of 2 steps on the card.
+   ``python3 chip_smoke.py --pcc`` runs this phase alone;
 14. train: training at full width under the trainer's library settings
    (cuDNN TF32 on, autotuning on; ``train_phase``), while the zoo phase's
    CPU runs go on: the flagship on a fixed batch of 8 256x256 crops, 20
@@ -197,7 +213,7 @@ Phases, each ending in one flushed line with its seconds:
    launches and calls; and of the vbr phase's ("vbr_*"); and of the
    video phase's ("video_*", the conv also on the device alone,
    "video_device_ms");
-17. cpu: the CPU decodes that phases 11, 12, 13 and 15 queued, each a
+17. cpu: the CPU decodes that phases 11, 12, 13, 13b and 15 queued, each a
    CPU copy of the card's model decoding the card's strings, run in a
    process of their own (``CpuSide``, started after the build) while the
    card's phases go on: their lines and checks, and the seconds this
@@ -325,6 +341,23 @@ VIDEO_CLI_W, VIDEO_CLI_H, VIDEO_CLI_FRAMES = 1920, 1080, 8
 VIDEO_GOP, VIDEO_SIDE, VIDEO_CPU_ATOL = 3, 256, 1e-4
 VIDEO_TRAIN_STEPS, VIDEO_TRAIN_BATCH, VIDEO_LMBDA = 5, 4, 0.01
 VIDEO_ROWS_CONVS = 6  # a hyperprior's scale and mean decoders, 3 deconvs each
+# the pcc phase (ROADMAP item 14b): the held-out clouds of
+# tools/train_pointcloud_artifact.py (PCC_CLOUDS clouds of PCC_POINTS points
+# from RandomState(PCC_EVAL_SEED), batch 1); each shipped codec's zoo name,
+# the mean bpp and chamfer the JAX package gives on those clouds with the
+# same weights after update(force=True, update_quantiles=True), and its
+# decoded point count (the decoder's ceil takes 38 -> 114 -> 342 -> 1026);
+# the tolerances on those means; the runs each timing is the median of; the
+# seed-initialised codecs; the training steps (the artifact tool's batches
+# from RandomState(0), its lambda for the chamfer loss)
+PCC_POINTS, PCC_CLOUDS, PCC_EVAL_SEED = 1024, 8, 999
+PCC_SHIPPED = (("hrtzxf2022-pcc-rec", 0.69921875, 0.0100103, 1026),
+               ("sfu-pcc-rec-pointnet", 0.2421875, 0.0066151, 1024))
+PCC_BPP_RTOL, PCC_CHAMFER_RTOL, PCC_REPS = 0.01, 0.02, 5
+PCC_SEEDED, PCC_SEED = ("sfu-pcc-rec-pointnet2", "folding-pcc-rec"), 800000
+PCC_TRAIN = (("hrtzxf2022-pcc-rec", "hrtzxf2022", 1.0),
+             ("sfu-pcc-rec-pointnet", "chamfer", 600.0))
+PCC_TRAIN_STEPS, PCC_TRAIN_BATCH, PCC_CLI_CLOUDS = 10, 8, 16
 # torch threads of the process that decodes the card's strings on the CPU
 # (CpuSide) beside the card's phases
 CPU_SIDE_THREADS = 4
@@ -481,8 +514,8 @@ def _cpu_side_run(fn, payload):
 
 class CpuSide:
     """A process of its own for the port on the CPU decoding the card's
-    strings (the reference, vbr, video and zoo phases' CPU checks), so that
-    the card's phases go on meanwhile. ``submit(fn, args, then)`` queues
+    strings (the reference, vbr, video, pcc and zoo phases' CPU checks), so
+    that the card's phases go on meanwhile. ``submit(fn, args, then)`` queues
     ``fn(*args)`` there: a top-level function of this script over CPU
     models and tensors, pickled here into bytes (no shared memory), whose
     result is plain Python values; ``drain()`` waits for each result in
@@ -556,6 +589,36 @@ def _cpu_video_decode(model, strings, shapes, y_card, frames_card):
              if not torch.equal(got[branch], want[branch])]
     return wrong, max(float((a - b).abs().max())
                       for a, b in zip(frames, frames_card))
+
+
+def _pcc_symbols(model, strings, shape):
+    """The EntropyBottleneck values (symbols + medians) that a point-cloud
+    codec's strings decode to: the features' and the latent positions'
+    for hrtzxf2022, the latent vector's for the PointNet family."""
+    if isinstance(shape, list):  # hrtzxf2022: [features, positions]
+        codec = model.latent_codec
+        return [codec["feat"].entropy_bottleneck.decompress(
+                    strings[0][0], tuple(shape[0])),
+                codec["xyz"].entropy_bottleneck.decompress(
+                    strings[1][0], tuple(shape[1]))]
+    return [model.entropy_bottleneck.decompress(strings[0], tuple(shape))]
+
+
+def _cpu_pcc_decode(model, strings, shape, card_symbols, card_x_hat):
+    """A point-cloud codec's CPU copy decoding the card's strings: (whether
+    its symbols equal the card's, the chamfer distance between its x_hat
+    and the card's, the rows more than 1e-4 from the card's, the rows)."""
+    import torch
+
+    from flashgmm_tpu_torch.losses import chamfer_distance
+
+    with torch.inference_mode():
+        same = all(torch.equal(a, b) for a, b in zip(
+            _pcc_symbols(model, strings, shape), card_symbols))
+        x_hat = model.decompress(strings, shape)["x_hat"]
+    rows = (x_hat - card_x_hat).abs().amax(-1) > 1e-4
+    return (same, float(chamfer_distance(x_hat, card_x_hat)),
+            int(rows.sum()), int(rows.numel()))
 
 
 def h2d_copies(fn):
@@ -2433,6 +2496,293 @@ def video_phase(dev, record, smi_line, cpu):
     return video_launches, video_calls
 
 
+def synth_cloud(rs, n):
+    """One unit-cube point cloud sampled from a random shape surface (a
+    copy of tools/train_pointcloud_artifact.py's)."""
+    import numpy as np
+
+    kind = rs.randint(3)
+    if kind == 0:  # sphere surface
+        v = rs.normal(size=(n, 3))
+        v /= np.linalg.norm(v, axis=1, keepdims=True) + 1e-9
+    elif kind == 1:  # box surface
+        v = rs.uniform(-1, 1, size=(n, 3))
+        face = rs.randint(3, size=n)
+        sign = rs.choice([-1.0, 1.0], size=n)
+        v[np.arange(n), face] = sign
+    else:  # cylinder surface
+        theta = rs.uniform(0, 2 * np.pi, size=n)
+        z = rs.uniform(-1, 1, size=n)
+        v = np.stack([np.cos(theta), np.sin(theta), z], axis=1)
+    # random rotation (QR of a gaussian), anisotropic scale, jitter
+    q, _ = np.linalg.qr(rs.normal(size=(3, 3)))
+    scale = rs.uniform(0.2, 0.45, size=3)
+    v = (v @ q) * scale
+    v += rs.normal(scale=0.004, size=v.shape)
+    return (v + 0.5 + rs.uniform(-0.04, 0.04, size=3)).clip(0, 1)
+
+
+def _nbits(obj):
+    if isinstance(obj, (bytes, bytearray)):
+        return 8 * len(obj)
+    return sum(_nbits(o) for o in obj)
+
+
+def pcc_phase(dev, record, smi_line, cpu):
+    """Point-cloud compression (ROADMAP item 14b), while the zoo phase's
+    CPU runs go on:
+    1. each shipped codec of PCC_SHIPPED from the zoo (``image_models(...,
+       pretrained=True)``) with ``update(force=True,
+       update_quantiles=True)``, over the PCC_CLOUDS held-out clouds: a
+       ``compress`` and two ``decompress``es each, the two decodes equal bit
+       for bit, the decoded point count, the mean bpp within PCC_BPP_RTOL
+       and the mean chamfer within PCC_CHAMFER_RTOL of the JAX package's
+       over the same clouds and weights; none of the port's hand kernels
+       launched; the median compress and decompress ms of one cloud over
+       PCC_REPS runs (host clock: the host coder is on the path), the
+       device events (kernels and copies) and busy ms of each direction
+       from a profiler trace, and the farthest-point sampling of one encode
+       alone (its ms and device events); the card's strings of the first
+       cloud decoded by a CPU copy (``cpu``, a CpuSide) to the card's
+       symbols, and the chamfer distance between the two clouds;
+    2. the PCC_SEEDED codecs from a ``torch.Generator`` (PCC_SEED): the
+       strings of the first cloud decode to the encoder's quantized latent
+       bit for bit, and the decoded cloud is finite;
+    3. PCC_TRAIN_STEPS ``pointcloud_train_step``s of each PCC_TRAIN codec
+       (seed-initialised, the zoo's widths) on one batch of
+       PCC_TRAIN_BATCH x PCC_POINTS synthetic clouds: every term finite,
+       the parameters moved; the median step ms and the peak memory; then
+       the trainer CLI (``python -m flashgmm_tpu_torch.examples.
+       train_pointcloud``, its ``main`` in this process) on the card for
+       one epoch of 2 steps over PCC_CLI_CLOUDS ``.npy`` clouds, its
+       ``latest`` checkpoint loading into a new model.
+    Prints the phase's seconds."""
+    import contextlib
+    import copy
+    import io
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.examples.train_pointcloud import \
+        main as train_cli
+    from flashgmm_tpu_torch.layers import pinned_library_settings
+    from flashgmm_tpu_torch.layers.pointcloud import farthest_point_sample
+    from flashgmm_tpu_torch.losses import chamfer_distance
+    from flashgmm_tpu_torch.parallel import (make_train_state,
+                                             pointcloud_train_step)
+    from flashgmm_tpu_torch.registry import MODELS
+    from flashgmm_tpu_torch.utils.checkpoint import load_checkpoint
+    from flashgmm_tpu_torch.zoo import create_model, image_models
+
+    t_start = time.perf_counter()
+    rs = np.random.RandomState(PCC_EVAL_SEED)
+    clouds = [torch.from_numpy(np.stack([synth_cloud(rs, PCC_POINTS)])
+                               .astype(np.float32)).to(dev)
+              for _ in range(PCC_CLOUDS)]
+
+    def host_ms(fn):
+        times = []
+        for _ in range(PCC_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    # 1. the shipped codecs over the held-out clouds ----------------------
+    for arch, want_bpp, want_chamfer, n_out in PCC_SHIPPED:
+        model = image_models(arch, 1, pretrained=True, device=dev).eval()
+        model.update(force=True, update_quantiles=True)
+
+        def code_all():
+            outs = []
+            for x in clouds:
+                c = model.compress(x)
+                outs.append((c, model.decompress(c["strings"], c["shape"]),
+                             model.decompress(c["strings"], c["shape"])))
+            torch.cuda.synchronize()
+            return outs
+
+        outs, launches, _ = record(code_all)
+        require(not any(launches.values()), f"pcc {arch}: the path launched "
+                f"the port's hand kernels: {launches}")
+        bpps, chamfers = [], []
+        for i, (x, (c, r1, r2)) in enumerate(zip(clouds, outs)):
+            require(torch.equal(r1["x_hat"], r2["x_hat"]), f"pcc {arch}: "
+                    f"cloud {i} decodes to two different clouds")
+            require(tuple(r1["x_hat"].shape) == (1, n_out, 3), f"pcc {arch}: "
+                    f"cloud {i} decodes to {tuple(r1['x_hat'].shape)}")
+            require(bool(torch.isfinite(r1["x_hat"]).all()),
+                    f"pcc {arch}: cloud {i} decodes to non-finite points")
+            bpps.append(_nbits(c["strings"]) / PCC_POINTS)
+            chamfers.append(float(chamfer_distance(r1["x_hat"], x)))
+        bpp, ch = float(np.mean(bpps)), float(np.mean(chamfers))
+        require(abs(bpp / want_bpp - 1) <= PCC_BPP_RTOL, f"pcc {arch}: mean "
+                f"bpp {bpp} is not within {PCC_BPP_RTOL} of {want_bpp}")
+        require(abs(ch / want_chamfer - 1) <= PCC_CHAMFER_RTOL, f"pcc {arch}: "
+                f"mean chamfer {ch} is not within {PCC_CHAMFER_RTOL} of "
+                f"{want_chamfer}")
+
+        x0, (c0, r0, _) = clouds[0], outs[0]
+        enc_ms = host_ms(lambda: model.compress(x0))
+        dec_ms = host_ms(lambda: model.decompress(c0["strings"],
+                                                  c0["shape"]))
+        _, enc_busy, enc_events, _ = device_busy_ms(
+            lambda: model.compress(x0))
+        _, dec_busy, dec_events, _ = device_busy_ms(
+            lambda: model.decompress(c0["strings"], c0["shape"]))
+        fps = ""
+        if arch == "hrtzxf2022-pcc-rec":
+            levels = []
+            n = PCC_POINTS
+            for layer in model.encoder.layers:
+                m = round(n * layer.downsample_rate)
+                levels.append((n, m))
+                n = m
+
+            def fps_all():
+                with pinned_library_settings():
+                    pts = x0
+                    for _, m in levels:
+                        pts = torch.gather(pts, 1, farthest_point_sample(
+                            pts, m)[..., None].expand(1, m, 3))
+                return pts
+
+            fps_ms = host_ms(fps_all)
+            _, fps_busy, fps_events, _ = device_busy_ms(fps_all)
+            fps = (f"; FPS alone ({' -> '.join(str(a) for a, _ in levels)} "
+                   f"-> {levels[-1][1]}, {sum(m - 1 for _, m in levels)} loop "
+                   f"steps): {fps_ms:.3f} ms ({100 * fps_ms / enc_ms:.1f} % of "
+                   f"the encode), {fps_events} device events, busy "
+                   f"{fps_busy:.3f} ms")
+        print(f"  pcc {arch} (the shipped weights), {PCC_CLOUDS} held-out "
+              f"clouds of {PCC_POINTS} points: decodes repeatable, "
+              f"{n_out} points out, mean {bpp:.8f} bpp (JAX {want_bpp}), "
+              f"mean chamfer {ch:.7f} (JAX {want_chamfer}); none of the "
+              f"port's hand kernels launched; one cloud: compress "
+              f"{enc_ms:.3f} ms, decompress {dec_ms:.3f} ms (medians of "
+              f"{PCC_REPS}, host clock, {smi_line}); device events a "
+              f"direction: compress {enc_events} (busy {enc_busy:.3f} ms), "
+              f"decompress {dec_events} (busy {dec_busy:.3f} ms){fps}",
+              flush=True)
+
+        def then(result, dt, arch=arch, n_out=n_out):
+            same, gap, rows, total = result
+            require(same, f"pcc {arch}: the CPU decodes the card's strings to "
+                    "other symbols")
+            print(f"  pcc {arch}: the card's strings of cloud 0 decoded on the "
+                  f"CPU to the card's symbols; chamfer between the CPU's and "
+                  f"the card's cloud {gap:.3g}, {rows} of {total} rows more "
+                  f"than 1e-4 apart ({dt:.1f} s)", flush=True)
+        cpu.submit(_cpu_pcc_decode, (
+            copy.deepcopy(model).cpu(), c0["strings"], c0["shape"],
+            [t.cpu() for t in _pcc_symbols(model, c0["strings"],
+                                           c0["shape"])],
+            r0["x_hat"].cpu()), then)
+        del model
+
+    # 2. the seed-initialised codecs --------------------------------------
+    for arch in PCC_SEEDED:
+        model = MODELS[arch](generator=torch.Generator().manual_seed(
+            PCC_SEED), device=dev).eval()
+        model.update(force=True, update_quantiles=True)
+        x0 = clouds[0]
+        c = model.compress(x0)
+        with pinned_library_settings():
+            y = model._encode_latent(x0)[:, None, None, :]
+        eb = model.entropy_bottleneck
+        want = eb.quantize(y, "dequantize", eb._medians(tuple(y.shape)))
+        (got,) = _pcc_symbols(model, c["strings"], c["shape"])
+        require(torch.equal(got, want), f"pcc {arch}: the strings decode to "
+                "another latent than the encoder's")
+        x_hat = model.decompress(c["strings"], c["shape"])["x_hat"]
+        require(tuple(x_hat.shape) == (1, PCC_POINTS, 3)
+                and bool(torch.isfinite(x_hat).all()),
+                f"pcc {arch}: decoded {tuple(x_hat.shape)}, finite "
+                f"{bool(torch.isfinite(x_hat).all())}")
+        print(f"  pcc {arch} (seed {PCC_SEED}): the strings of cloud 0 "
+              f"({_nbits(c['strings'])} bits) decode to the encoder's "
+              "quantized latent bit for bit; the decoded cloud is finite",
+              flush=True)
+        del model
+
+    # 3. training steps and the trainer CLI -------------------------------
+    rs = np.random.RandomState(0)
+    batch = torch.from_numpy(np.stack([
+        synth_cloud(rs, PCC_POINTS) for _ in range(PCC_TRAIN_BATCH)])
+        .astype(np.float32)).to(dev)
+    with torch.inference_mode(False):
+        batch = batch.clone()
+        for arch, loss_type, lmbda in PCC_TRAIN:
+            m = create_model(arch, 1, seed=PCC_SEED, device=dev)
+            opts = make_train_state(m, 1e-4, 1e-3, 1.0)
+            gen = torch.Generator(device=dev).manual_seed(PCC_SEED)
+            w0 = [p.detach().clone() for p in m.parameters()]
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            losses, step_ms = [], []
+            for i in range(PCC_TRAIN_STEPS):
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                a.record()
+                out = pointcloud_train_step(m, *opts, batch, gen, loss_type,
+                                            lmbda)
+                b.record()
+                torch.cuda.synchronize()
+                step_ms.append(a.elapsed_time(b))
+                out = {k: float(v) for k, v in out.items()}
+                require(all(np.isfinite(v) for v in out.values()),
+                        f"pcc train {arch}: step {i + 1}: {out}")
+                losses.append(out["loss"])
+            peak = torch.cuda.max_memory_allocated()
+            require(any(not torch.equal(p.detach(), q)
+                        for p, q in zip(m.parameters(), w0)),
+                    f"pcc train {arch}: the weights did not move")
+            print(f"  pcc train {arch} ({loss_type} loss, lambda {lmbda}), "
+                  f"batch {PCC_TRAIN_BATCH} x {PCC_POINTS} points: losses "
+                  f"{[round(v, 4) for v in losses]}, every term finite, "
+                  f"weights moved; step {statistics.median(step_ms):.3f} ms "
+                  f"(median of {PCC_TRAIN_STEPS}, CUDA events; the first "
+                  f"{step_ms[0]:.1f}), peak {peak / 2 ** 30:.3f} GiB, "
+                  f"{(peak - before) / 2 ** 30:.3f} GiB above what was "
+                  f"allocated before the steps ({smi_line})", flush=True)
+            del m, opts
+
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            (root / "data" / "train").mkdir(parents=True)
+            rs = np.random.RandomState(1)
+            for i in range(PCC_CLI_CLOUDS):
+                np.save(root / "data" / "train" / f"{i}.npy",
+                        synth_cloud(rs, PCC_POINTS + 200).astype(np.float32))
+            args = ["-d", str(root / "data"), "--model", "hrtzxf2022-pcc-rec",
+                    "-e", "1", "--batch-size", str(PCC_TRAIN_BATCH),
+                    "--steps-per-epoch", "2", "--num-workers", "2",
+                    "--checkpoint-dir", str(root / "ck"), "--device", "cuda"]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_cli(args)
+            t_cli = time.perf_counter() - t0
+            require(rc == 0, f"pcc trainer CLI: exit code {rc}")
+            m = MODELS["hrtzxf2022-pcc-rec"](device=dev)
+            meta = load_checkpoint(root / "ck" / "latest", m)
+            require(meta.get("epoch") == 0 and np.isfinite(meta["loss"]),
+                    f"pcc trainer CLI: checkpoint meta {meta}")
+            del m
+    print(f"  pcc trainer CLI hrtzxf2022-pcc-rec on the card: 1 epoch of 2 "
+          f"steps at batch {PCC_TRAIN_BATCH} over {PCC_CLI_CLOUDS} .npy "
+          f"clouds in {t_cli:.2f} s, loss {meta['loss']:.4f}; its latest "
+          "checkpoint loads", flush=True)
+    phase("pcc", f"point cloud: the shipped codecs on {PCC_CLOUDS} held-out "
+          "clouds, the seed-initialised codecs, pointcloud_train_step, the "
+          f"trainer CLI ({time.perf_counter() - t_start:.2f} s of the 60 s "
+          "target)")
+
+
 def train_phase(dev):
     """Training on the card under the trainer's library settings (cuDNN's
     TF32 on, as PyTorch's default, matmul TF32 off, ``cudnn.benchmark``
@@ -2771,7 +3121,8 @@ def main() -> int:
             return 1
         bytes_worker(*sys.argv[2:5])
         return 0
-    alone = {"--zoo": zoo_only, "--vbr": vbr_only, "--video": video_only}
+    alone = {"--zoo": zoo_only, "--vbr": vbr_only, "--video": video_only,
+             "--pcc": pcc_only}
     if len(sys.argv) > 1 and sys.argv[1] in alone:
         if not torch.cuda.is_available():
             return 1
@@ -2850,6 +3201,17 @@ def video_only():
                               cpu)
     cpu.drain()
     print(json.dumps({"video_launches": launches}), flush=True)
+
+
+def pcc_only():
+    """``python3 chip_smoke.py --pcc``: the device line, the build and the
+    pcc phase alone."""
+    dev, smi_line = _device_and_build()
+    cpu = _cpu_side()
+    bound = kernel_wrappers()
+    originals = {name: getattr(*where) for name, where in bound.items()}
+    pcc_phase(dev, make_record(bound, originals), smi_line, cpu)
+    cpu.drain()
 
 
 def zoo_only():
@@ -3623,6 +3985,9 @@ def smoke():
     # 13. scale-space flow video, while the eval CLI's CPU runs go on -----
     video_launches, video_calls = video_phase(dev, record, smi_line, cpu)
 
+    # 13b. point-cloud compression, while the eval CLI's CPU runs go on ---
+    pcc_phase(dev, record, smi_line, cpu)
+
     # 14. training at full width under the trainer's settings, while the
     # eval CLI's CPU runs go on --------------------------------------------
     train_phase(dev)
@@ -4102,7 +4467,7 @@ def smoke():
           f"level, {t_vbr:.2f} s; video_*: of the video phase's eval CLI run "
           f"and GOP, compress + decompress, {t_video:.2f} s)")
 
-    # 17. the CPU decodes queued by phases 11, 12, 13 and 15 -------------
+    # 17. the CPU decodes queued by phases 11, 12, 13, 13b and 15 --------
     cpu.drain()
     phase("cpu", "the card's strings decoded on the CPU by copies of the "
           "models, in a process of their own beside phases 11-16 (this "

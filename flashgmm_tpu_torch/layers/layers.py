@@ -268,6 +268,18 @@ def conv1x1(in_ch, out_ch, stride=1, *, generator=None):
                   generator=generator)
 
 
+def linear(in_f, out_f, generator=None):
+    """``nn.Linear`` with a weight uniform in +-1/sqrt(in) from
+    ``generator`` and a zero bias (nnx.Linear's default bias)."""
+    lin = nn.Linear(in_f, out_f)
+    with torch.no_grad():
+        bound = 1.0 / in_f ** 0.5
+        lin.weight.copy_((torch.rand((out_f, in_f), generator=generator)
+                          * 2.0 - 1.0) * bound)
+        lin.bias.zero_()
+    return lin
+
+
 def pixel_shuffle(x, r: int):
     """NHWC pixel shuffle: [N,H,W,C*r*r] -> [N,H*r,W*r,C], with
     torch.nn.PixelShuffle's channel order."""

@@ -37,8 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from flashgmm_tpu_torch.entropy_models import EntropyBottleneckVbr, xla_math
-from flashgmm_tpu_torch.layers import (pinned_library_settings, run_canonical,
-                                       run_transform)
+from flashgmm_tpu_torch.layers import (linear, pinned_library_settings,
+                                       run_canonical, run_transform)
 from flashgmm_tpu_torch.ops import lower_bound, quantize_ste
 from flashgmm_tpu_torch.registry import register_model
 from flashgmm_tpu_torch.runtime import rasterscan
@@ -53,18 +53,6 @@ VBR_LMBDAS = [0.0018, 0.0035, 0.0067, 0.0130, 0.025, 0.0483, 0.0932, 0.18]
 VBR_GAINS = [0.10000, 0.13944, 0.19293, 0.26874, 0.37268, 0.51801, 0.71957, 1.0]
 
 
-def _linear(in_f, out_f, generator):
-    """``nn.Linear`` with a weight uniform in +-1/sqrt(in) from
-    ``generator`` and a zero bias (nnx.Linear's default bias)."""
-    lin = nn.Linear(in_f, out_f)
-    with torch.no_grad():
-        bound = 1.0 / in_f ** 0.5
-        lin.weight.copy_((torch.rand((out_f, in_f), generator=generator)
-                          * 2.0 - 1.0) * bound)
-        lin.bias.zero_()
-    return lin
-
-
 class _MLP(nn.Module):
     """Linear layers with a ReLU between each two, optionally a softplus
     after the last."""
@@ -72,7 +60,7 @@ class _MLP(nn.Module):
     def __init__(self, dims, final_softplus: bool = False, *, generator=None):
         super().__init__()
         self.linears = nn.ModuleList(
-            [_linear(i, o, generator) for i, o in zip(dims[:-1], dims[1:])])
+            [linear(i, o, generator) for i, o in zip(dims[:-1], dims[1:])])
         self.final_softplus = final_softplus
 
     def forward(self, x):
@@ -376,7 +364,7 @@ class JointAutoregressiveHierarchicalPriorsVbr(
         self._base.__init__(self, N, M, device="cpu", generator=g)
         self._init_vbr(N, g, False)
         self.scl2ctx = True
-        self.scale_to_context = _linear(1, 2 * M, g)
+        self.scale_to_context = linear(1, 2 * M, g)
         self.to(device)
 
     def forward(self, x, training: bool = True, generator=None,

@@ -27,6 +27,11 @@ where it is, as under the reference's ``stop_gradient``.
 ``video_train_step`` is the same step for the video model (ssf2020) on a
 GOP: its forward over the frames, ``video_rate_distortion_loss``.
 
+``pointcloud_train_step`` is the same step for the point-cloud codecs on
+[B, N, 3] clouds: the chamfer RD loss (the PointNet family) or the
+density-preserving one (hrtzxf2022, whose weights are its own; ``lmbda``
+is unused there).
+
 No library settings are pinned on the card: a training step's result
 depends on no coded bytes, so it runs under the caller's (the trainer
 leaves TF32 at PyTorch's defaults and lets cuDNN time its algorithms).
@@ -34,7 +39,9 @@ leaves TF32 at PyTorch's defaults and lets cuDNN time its algorithms).
 
 import torch
 
-from flashgmm_tpu_torch.losses import (rate_distortion_loss,
+from flashgmm_tpu_torch.losses import (ChamferPccRateDistortionLoss,
+                                       RateDistortionLossHrtzxf2022,
+                                       rate_distortion_loss,
                                        video_rate_distortion_loss)
 from flashgmm_tpu_torch.optimizers.net_aux import make_adam, net_aux_partition
 
@@ -153,3 +160,26 @@ def video_train_step(model, opt_net, opt_aux, frames, generator,
         "mse_loss": details["mse_loss"].detach(),
         "aux_loss": aux_loss.detach(),
     }
+
+
+def pointcloud_train_step(model, opt_net, opt_aux, points, generator,
+                          loss_type: str = "chamfer", lmbda: float = 1.0):
+    """One RD step and one aux step of a point-cloud codec on ``points``
+    [B, N, 3] (on the model's device). ``loss_type``: "chamfer"
+    (``ChamferPccRateDistortionLoss(lmbda)``, the PointNet family) or
+    "hrtzxf2022" (``RateDistortionLossHrtzxf2022()`` at its default
+    weights; ``lmbda`` unused). Returns {"loss", "aux_loss"} and those of
+    "bpp_loss", "rec_loss", "chamfer_loss" the criterion gives, as detached
+    0-d tensors on the device."""
+    criterion = (RateDistortionLossHrtzxf2022() if loss_type == "hrtzxf2022"
+                 else ChamferPccRateDistortionLoss(lmbda=lmbda))
+    model.train()
+    out = model(points, training=True, generator=generator)
+    details = criterion(out, points)
+    loss = details["loss"]
+    aux_loss = _net_and_aux_steps(model, opt_net, opt_aux, loss)
+    result = {"loss": loss.detach(), "aux_loss": aux_loss.detach()}
+    for k in ("bpp_loss", "rec_loss", "chamfer_loss"):
+        if k in details:
+            result[k] = details[k].detach()
+    return result

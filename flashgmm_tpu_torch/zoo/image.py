@@ -8,8 +8,11 @@ a ``.npz`` through ``zoo.load_npz``, a CompressAI ``.pth``/``.pt`` through
 ``zoo.torch_convert``, anything else as the port's own checkpoint
 (``utils/checkpoint.py``; the JAX package takes an orbax directory there).
 A VBR architecture has one quality: one model serves its 8 gains. The
-video model (ssf2020) takes no widths: its qualities are checkpoints. The
-point-cloud entries come with their models.
+video model (ssf2020) takes no widths: its qualities are checkpoints. A
+point-cloud entry is a dict of constructor keywords: its quality is a
+checkpoint, and the PointNet codec's quality 1 is as wide as its shipped
+weights (``latent_dim=256``; the JAX zoo builds it at the default 512,
+which its shipped file does not fit).
 """
 
 import inspect
@@ -47,6 +50,9 @@ cfgs = {
     # video: one architecture at its published widths; a quality is a
     # checkpoint
     "ssf2020": {q: () for q in range(1, 10)},
+    # point cloud: keyword arguments; a quality is a checkpoint
+    "hrtzxf2022-pcc-rec": {1: {}},
+    "sfu-pcc-rec-pointnet": {1: {"latent_dim": 256}},
 }
 
 model_architectures = dict(MODELS)
@@ -75,6 +81,9 @@ local_weights = {
         "weights/factorized_n128_m192_synthetic.npz",
     ("mbt2018-mean", 3): "weights/mshp_n128_m192_synthetic.npz",
     ("bmshj2018-hyperprior", 3): "weights/bmshj_hp_n128_m192_synthetic.npz",
+    # point-cloud codecs (results/synthetic/pointcloud_*.json)
+    ("hrtzxf2022-pcc-rec", 1): "weights/pcc_hrtzxf2022_synthetic.npz",
+    ("sfu-pcc-rec-pointnet", 1): "weights/pcc_pointnet_synthetic.npz",
 }
 
 # Slots that join the table when their weight file is present; 3-tuple
@@ -135,8 +144,10 @@ def create_model(architecture: str, quality: int = 1, metric: str = "mse",
             f"expected one of {sorted(cfgs[architecture])}")
     cls = MODELS[architecture]
     params = inspect.signature(cls.__init__).parameters
-    ckwargs = dict(kwargs)
-    for name, val in zip(("N", "M"), cfgs[architecture][quality]):
+    cfg = cfgs[architecture][quality]
+    ckwargs = dict(cfg) if isinstance(cfg, dict) else {}
+    ckwargs.update(kwargs)
+    for name, val in zip(("N", "M"), () if isinstance(cfg, dict) else cfg):
         if name in params:
             ckwargs[name] = val
     if "K" in params:

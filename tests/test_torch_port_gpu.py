@@ -41,7 +41,8 @@ non-finite guard keeps the parameters finite. A VBR model's round trip on
 the card is exact, and its card strings decode on the CPU to the card's
 symbols. The video model's (ssf2020) round trip of a GOP on the card is
 exact, and the CPU decodes the card's strings to every branch's y_hat bit
-for bit.
+for bit. A point-cloud codec's (hrtzxf2022) round trip on the card is
+repeatable, and the CPU decodes the card's strings to the card's symbols.
 """
 
 import importlib.util
@@ -1484,3 +1485,45 @@ def test_video_roundtrip_on_card_decodes_on_the_cpu(cuda):
             assert torch.equal(got[branch], want[branch].cpu())
     for got, want in zip(cpu_model.decompress(strings, shapes), dec):
         torch.testing.assert_close(got, want.cpu(), rtol=0, atol=1e-4)
+
+
+def test_hrtzxf2022_roundtrip_on_card_decodes_on_the_cpu(cuda):
+    """hrtzxf2022-pcc-rec on the shipped weights, one synthetic cloud of
+    1024 points: compress on the card (TF32 allowed by the caller: the
+    codec pins its settings), decompress twice on the card, equal bit for
+    bit, 1026 points; a CPU copy decodes the card's strings to the card's
+    symbols (the EntropyBottleneck values of the features and the latent
+    positions), and to a cloud within 1e-6 chamfer of the card's; none of
+    the port's hand kernels launches on this path."""
+    import copy
+
+    from flashgmm_tpu_torch.losses import chamfer_distance
+    from flashgmm_tpu_torch.zoo import image_models
+
+    cpu_model = image_models("hrtzxf2022-pcc-rec", 1, pretrained=True,
+                             device="cpu").eval()
+    cpu_model.update(force=True, update_quantiles=True)
+    card = copy.deepcopy(cpu_model).to(cuda)
+    rs = np.random.RandomState(11)
+    x = torch.from_numpy(rs.rand(1, 1024, 3).astype(np.float32) * 0.5 + 0.25)
+    before = conv_kernel.conv2d_nhwc.launches
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        c = card.compress(x.to(cuda))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    a = card.decompress(c["strings"], c["shape"])["x_hat"]
+    b = card.decompress(c["strings"], c["shape"])["x_hat"]
+    assert conv_kernel.conv2d_nhwc.launches == before
+    assert torch.equal(a, b) and tuple(a.shape) == (1, 1026, 3)
+
+    def symbols(model):
+        lc = model.latent_codec
+        return [lc["feat"].entropy_bottleneck.decompress(c["strings"][0][0],
+                                                         c["shape"][0]),
+                lc["xyz"].entropy_bottleneck.decompress(c["strings"][1][0],
+                                                        c["shape"][1])]
+    for got, want in zip(symbols(cpu_model), symbols(card)):
+        assert torch.equal(got, want.cpu())
+    x_cpu = cpu_model.decompress(c["strings"], c["shape"])["x_hat"]
+    assert float(chamfer_distance(x_cpu, a.cpu())) < 1e-6

@@ -109,6 +109,18 @@ def test_smoke_refuses_without_a_card():
     "flashgmm_tpu_torch.utils.video",
     "flashgmm_tpu_torch.utils.video.eval_model",
     "flashgmm_tpu_torch.utils.video.eval_model.__main__",
+    "flashgmm_tpu_torch.layers.pointcloud",
+    "flashgmm_tpu_torch.layers.pointcloud.pointnet",
+    "flashgmm_tpu_torch.layers.pointcloud.pointnet2",
+    "flashgmm_tpu_torch.layers.pointcloud.hrtzxf2022",
+    "flashgmm_tpu_torch.models.pointcloud",
+    "flashgmm_tpu_torch.models.pointcloud.hrtzxf2022",
+    "flashgmm_tpu_torch.models.pointcloud.sfu_pointnet",
+    "flashgmm_tpu_torch.models.pointcloud.sfu_pointnet2",
+    "flashgmm_tpu_torch.losses.pointcloud",
+    "flashgmm_tpu_torch.transforms.point",
+    "flashgmm_tpu_torch.datasets.pointcloud",
+    "flashgmm_tpu_torch.examples.train_pointcloud",
 ])
 def test_forward_and_converter_modules_import_no_jax(module):
     """The CompressAI state-dict converter, the training forward's modules,
@@ -121,7 +133,9 @@ def test_forward_and_converter_modules_import_no_jax(module):
     variable-bitrate line's (the VBR entropy models, the gain codecs and
     the VBR models), and the video line's (the colour transforms, ssf2020,
     the video datasets, the video trainer and the video evaluation CLI),
-    each imported alone in a fresh interpreter."""
+    and the point-cloud line's (the layers, the four codecs, the losses,
+    the point transforms and datasets, and the point-cloud trainer), each
+    imported alone in a fresh interpreter."""
     probe = (f"import importlib, sys; importlib.import_module({module!r}); "
              "print(','.join(sorted(k for k in sys.modules if k.split('.')[0] "
              "in ('jax', 'jaxlib', 'flax', 'optax', 'flashgmm_tpu'))))")

@@ -169,6 +169,8 @@ def test_train_step_isolates_net_and_aux(frozen):
 
 
 def test_registry_matches_jax_names():
+    import flashgmm_tpu.losses.pointcloud  # noqa: F401
+    from flashgmm_tpu.registry import CRITERIONS as J_CRITERIONS
     from flashgmm_tpu.registry import MODELS as J_MODELS
 
     import flashgmm_tpu_torch.losses  # noqa: F401
@@ -182,13 +184,17 @@ def test_registry_matches_jax_names():
              "bmshj2018-hyperprior", "mbt2018-mean", "mbt2018",
              "cheng2020-anchor", "cheng2020-attn", "elic2022-chandelier",
              "sigmoid-cdf", "bmshj2018-hyperprior-vbr", "mbt2018-mean-vbr",
-             "mbt2018-vbr", "ssf2020"}
+             "mbt2018-vbr", "ssf2020", "hrtzxf2022-pcc-rec",
+             "folding-pcc-rec", "sfu-pcc-rec-pointnet",
+             "sfu-pcc-rec-pointnet2"}
     assert set(MODELS) == names
     for name in names:
         assert MODELS[name].__module__.startswith("flashgmm_tpu_torch.")
         assert MODELS[name].__name__ == J_MODELS[name].__name__, name
-    assert CRITERIONS["RateDistortionLoss"].__module__.startswith(
-        "flashgmm_tpu_torch.")
+    for name in ("RateDistortionLoss", "RateDistortionLoss_hrtzxf2022",
+                 "ChamferPccRateDistortionLoss"):
+        assert CRITERIONS[name].__module__.startswith("flashgmm_tpu_torch.")
+        assert CRITERIONS[name].__name__ == J_CRITERIONS[name].__name__
     opts = OPTIMIZERS["net_optimizer"](TModel(N=16, K=2, device="cpu"),
                                        {"net": {"type": "Adam", "lr": 1e-3}})
     assert set(opts) == {"net"}
