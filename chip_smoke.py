@@ -114,6 +114,22 @@ Phases, each ending in one flushed line with its seconds:
    whose device kernels are the device-rows run's), and the port on the
    CPU decoding the card's strings of a 64x64 image to the card's y_hat
    (in phase 17);
+11b. tools: the last modules (ROADMAP item 15; ``tools_phase``): tiled
+   synthesis (``runtime/tiled.py``) of the flagship on one 3840x2160
+   image (a 136 x 240 x 192 latent) on both transform routes, within the
+   JAX test's bounds of the direct g_s, with the largest difference, the
+   share of pixels apart, each one's ms and peak memory and the bf16 conv's
+   launches; the .fgm file CLI (``python -m
+   flashgmm_tpu_torch.examples.codec``) in subprocesses on the card, the
+   flagship and bmshj2018-factorized on a 768x512 PPM and a 3-frame
+   ssf2020 GOP, its files decoded on the CPU by the same CLI (``--device cpu``; queued after the zoo phase,
+   read in phase 17) to the card's y_hat exactly and pixels within 1
+   level, and its ``main`` once under the kernel recorder;
+   the standalone codec's model card exported on the card and its streams
+   crossing the C++ binaries ``fgsc_encode`` / ``fgsc_decode`` (built from
+   csrc/ in the CpuSide process after the kernels' build); the range coder
+   (``set_entropy_coder("rangecoder")``) giving the rANS coder's y_hat.
+   ``python3 chip_smoke.py --tools`` runs this phase alone;
 12. vbr: the variable-bitrate models (ROADMAP item 13; ``vbr_phase``),
    while the zoo phase's CPU runs go on, on the two 768x512 images of the
    JAX package's sweep: the shipped mbt2018-mean-vbr (N=192, M=320, the variable-step bottleneck) at each of
@@ -212,9 +228,10 @@ Phases, each ending in one flushed line with its seconds:
    rows kernel (the boundary-rows kernel at K=1) has its main path's
    launches and calls; and of the vbr phase's ("vbr_*"); and of the
    video phase's ("video_*", the conv also on the device alone,
-   "video_device_ms");
-17. cpu: the CPU decodes that phases 11, 12, 13, 13b and 15 queued, each a
-   CPU copy of the card's model decoding the card's strings, run in a
+   "video_device_ms"); and of the tools phase's tiled UHD g_s (kernel
+   route) and in-process .fgm CLI encode + decode ("tools_*");
+17. cpu: the CPU decodes that phases 11, 11b, 12, 13, 13b and 15 queued,
+   each a CPU copy of the card's model decoding the card's strings, run in a
    process of their own (``CpuSide``, started after the build) while the
    card's phases go on: their lines and checks, and the seconds this
    process waited for the last of them.
@@ -274,7 +291,11 @@ GSM_N, GSM_ROWS_CONVS = 128, 12
 GSM_REPS = 5  # the encode and decode times are the medians of as many runs
 # reference-format coding: its compress and decompress times are the
 # medians of as many runs
-REF_REPS = 3
+REF_REPS = 2
+# the timing phase: each kernel call timed as the mean of as many
+# back-to-back launches (20 until the tools phase joined the smoke; cut to
+# keep the smoke within its time)
+TIMING_REPS = 10
 # the coder kernels' K=1 instances (the GSM passes), named apart on the
 # kernels line; their wrappers count them in ``launches_k1``
 K1_INSTANCES = ("rans_encode_gmm", "rans_decode_gmm")
@@ -361,6 +382,17 @@ PCC_TRAIN_STEPS, PCC_TRAIN_BATCH, PCC_CLI_CLOUDS = 10, 8, 16
 # torch threads of the process that decodes the card's strings on the CPU
 # (CpuSide) beside the card's phases
 CPU_SIDE_THREADS = 4
+# the tools phase (ROADMAP item 15): tiled synthesis of one UHD image
+# (TOOLS_UHD; padded to 2176 x 3840, a 136 x 240 x 192 latent) against the
+# direct g_s within the JAX test's bounds (tests/test_fast_codec.py:
+# 210-225), each timed as the median of TILED_REPS runs; the .fgm CLI's
+# video GOP and the standalone codec's and the range coder's images
+# TOOLS_SMALL on a side; the standalone decoders' pixels within
+# STANDALONE_LEVELS of each other
+TOOLS_UHD = (2160, 3840)
+TILED_ATOL, TILED_FRAC, TILED_REPS = 2e-2, 0.05, 3
+TOOLS_SMALL, TOOLS_VIDEO_FRAMES, STANDALONE_LEVELS = 256, 3, 2
+FACTORIZED_WEIGHTS = ROOT / "weights" / "factorized_n128_m192_synthetic.npz"
 # the training phase: the trainer CLI's defaults (examples/train.py) and
 # the steps the flagship takes on one fixed batch
 TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS = 8, 256, 20
@@ -536,6 +568,14 @@ class CpuSide:
         self._pending.append((self._pool.apply_async(
             _cpu_side_run, (fn, pickle.dumps(args))), then))
 
+    def start(self, fn, args):
+        """``fn(*args)`` queued now, outside ``drain``'s list: the pool's
+        AsyncResult, whose ``get`` gives (result, seconds)."""
+        import pickle
+
+        return self._pool.apply_async(_cpu_side_run,
+                                      (fn, pickle.dumps(args)))
+
     def drain(self):
         while self._pending:
             pending, then = self._pending.pop(0)
@@ -623,9 +663,11 @@ def _cpu_pcc_decode(model, strings, shape, card_symbols, card_x_hat):
 
 def h2d_copies(fn):
     """fn() under torch.profiler: (fn's result, the host-to-device copies
-    the card ran). A trace that holds no kernel at all lost its device
-    events (seen after several profiler sessions in one process) and is
-    taken again, up to three times."""
+    the card ran). fn decodes bytes from the host, so it copies at least
+    once: a trace that holds no kernel at all, or no host-to-device copy,
+    lost device events (seen after several profiler sessions in one
+    process, and once in a latency decode's trace that held its kernels)
+    and is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -637,9 +679,12 @@ def h2d_copies(fn):
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type.name == "CUDA"]
-        if any(not n.startswith(("Memcpy", "Memset")) for n in names):
-            return out, sum(n.startswith("Memcpy HtoD") for n in names)
-    raise RuntimeError("h2d_copies: three traces without device kernels")
+        copies = sum(n.startswith("Memcpy HtoD") for n in names)
+        if copies and any(not n.startswith(("Memcpy", "Memset"))
+                          for n in names):
+            return out, copies
+    raise RuntimeError("h2d_copies: three traces without device kernels or "
+                       "without a host-to-device copy")
 
 
 def truncate_pass(data, lanes, which, n_passes):
@@ -1444,7 +1489,10 @@ def device_busy_ms(fn, top_n=3):
     the ``top_n`` names that took the most device time, with their ms and
     counts). A trace that holds no device event lost them (seen after
     several profiler sessions in one process) and is taken again, up to
-    three times."""
+    three times; after three such traces the profiler stays blind in this
+    process (with most of the card's memory free), so the CUDA-event span
+    of one more call stands in for the busy ms, with 0 device events and
+    no names, and a line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1470,7 +1518,18 @@ def device_busy_ms(fn, top_n=3):
                 by_name[e.name] = (ms + (b - a) / 1e3, n + 1)
             top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
             return out, busy / 1e3, len(events), top
-    raise RuntimeError("device_busy_ms: three traces without device events")
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    span = a.elapsed_time(b)
+    print(f"  device_busy_ms: three traces without device events; the call's "
+          f"CUDA-event span, {span:.3f} ms, stands in for its busy ms "
+          "(device events and busy time not measured)", flush=True)
+    return out, span, 0, []
 
 
 def reference_phase(dev, x1, model, record, originals, smi_line, cpu):
@@ -2783,6 +2842,563 @@ def pcc_phase(dev, record, smi_line, cpu):
           "target)")
 
 
+@contextmanager
+def _decoded_y(codec_cli):
+    """Over the .fgm CLI module: every model that its ``load_model`` makes
+    keeps the y_hat its ``decompress_y`` returns in the yielded dict's "y"
+    (the CLI's decode runs ``decompress``, which calls it)."""
+    kept = {}
+    load = codec_cli.load_model
+
+    def load_keeping(*args):
+        model = load(*args)
+        decompress_y = model.decompress_y
+
+        def wrapped(*a, **kw):
+            kept["y"] = decompress_y(*a, **kw)
+            return kept["y"]
+        model.decompress_y = wrapped
+        return model
+    codec_cli.load_model = load_keeping
+    try:
+        yield kept
+    finally:
+        codec_cli.load_model = load
+
+
+def _levels(a_path, b_path):
+    """(max, share of pixels off) of the 8-bit difference of two images."""
+    import numpy as np
+
+    from flashgmm_tpu_torch.datasets import load_image
+
+    d = np.abs(np.round(load_image(a_path) * 255)
+               - np.round(load_image(b_path) * 255))
+    return float(d.max()), float((d.max(-1) > 0).mean())
+
+
+def _cpu_fgm_decode(path, weights, out_ppm, card_ppm, card_y):
+    """The .fgm CLI decoding a card's image file on the CPU
+    (``--device cpu``): (whether its y_hat equals the card's, the max and
+    share of pixels off the card's decoded image, in 8-bit levels)."""
+    import torch
+
+    from flashgmm_tpu_torch.examples import codec as codec_cli
+
+    with _decoded_y(codec_cli) as kept:
+        codec_cli.main(["decode", path, "-o", out_ppm, "--weights", weights,
+                        "--device", "cpu"])
+    return (torch.equal(kept["y"], card_y),) + _levels(out_ppm, card_ppm)
+
+
+def _cpu_fgmv_decode(path, out_dir, card_dir, card_y):
+    """The .fgm CLI decoding a card's video file on the CPU (``--device
+    cpu``, the seed-initialised ssf2020): (the (GOP, frame, branch) whose
+    y_hat differs from the card's, the max and share of pixels off the
+    card's decoded frames)."""
+    from pathlib import Path
+
+    import torch
+
+    from flashgmm_tpu_torch.examples import codec as codec_cli
+
+    with open(path, "rb") as f:
+        (quality, *_), gops = codec_cli.read_video_file(f)
+    model = codec_cli.load_video_model(quality, None, "cpu")
+    load = codec_cli.load_video_model
+    codec_cli.load_video_model = lambda *args: model
+    try:
+        codec_cli.main(["decode_video", path, "-o", out_dir, "--ext", "ppm",
+                        "--device", "cpu"])
+    finally:
+        codec_cli.load_video_model = load
+    wrong = [(g, i, branch) for g, (strings, shapes) in enumerate(gops)
+             for i, (got, want) in enumerate(zip(
+                 model.decompress_y(strings, shapes), card_y[g]))
+             for branch in want if not torch.equal(got[branch], want[branch])]
+    worst, share = 0.0, 0.0
+    frames = sorted(Path(card_dir).iterdir())
+    for f in frames:
+        m, s = _levels(Path(out_dir) / f.name, f)
+        worst, share = max(worst, m), max(share, s)
+    return wrong, worst, share, len(frames)
+
+
+class ToolsCli:
+    """The .fgm CLI (``python -m flashgmm_tpu_torch.examples.codec``) in
+    subprocesses on the card: ``jobs`` maps a tag to its argv lists, run in
+    order (encode, then decode), the tags side by side, each in a thread
+    of its own. ``finish`` waits and requires each command to succeed:
+    {tag: [(command, seconds, its last output line)]}; ``close`` stops
+    what still runs."""
+
+    def __init__(self, jobs):
+        import threading
+
+        self.procs, self.results = [], {}
+        self.threads = [threading.Thread(target=self._run, args=(tag, cmds),
+                                         daemon=True)
+                        for tag, cmds in jobs.items()]
+        for t in self.threads:
+            t.start()
+
+    def _run(self, tag, cmds):
+        done = []
+        for argv in cmds:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "flashgmm_tpu_torch.examples.codec",
+                 *map(str, argv)], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            self.procs.append(proc)
+            out, err = proc.communicate(timeout=600)
+            done.append((argv[0], proc.returncode, time.perf_counter() - t0,
+                         (out.strip().splitlines() or [""])[-1], err))
+            if proc.returncode:
+                break
+        self.results[tag] = done
+
+    def finish(self):
+        for t in self.threads:
+            t.join(timeout=900)
+        for tag, done in self.results.items():
+            for cmd, rc, _, _, err in done:
+                require(rc == 0, f"tools: the .fgm CLI's {cmd} ({tag}) "
+                        f"exited {rc}: {err[-1500:]}")
+        require(len(self.results) == len(self.threads),
+                "tools: a .fgm CLI job did not end")
+        return {tag: [(cmd, s, line) for cmd, _, s, line, _ in done]
+                for tag, done in self.results.items()}
+
+    def close(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def shared_calls(calls):
+    """Recorded calls with each repeated call key's tensors shared with its
+    first call's (the timing phase times a key once), so that a long run's
+    recorded inputs hold no more memory than its distinct shapes'."""
+    first = {}
+    return [first.setdefault(call_key(args, kwargs), (args, kwargs))
+            for args, kwargs in calls]
+
+
+def tools_phase(dev, model, record, smi_line, early):
+    """The last modules (ROADMAP item 15) on the card: tiled synthesis at
+    UHD, the .fgm file CLI, the standalone codec and the range coder.
+
+    - Tiled synthesis: the flagship (the phase-4 model) through the batched
+      codec (lanes=LANES, cap_divisor=CAP_DIVISOR) on one 3840x2160
+      textured-leaves image, padded to 3840x2176 (a 136 x 240 x 192
+      latent), on both transform routes: y_hat exact through the bytes,
+      then ``make_tiled_gs(codec)`` (tile_h=32, halo=8) against the direct
+      g_s within TILED_ATOL with under TILED_FRAC of the pixels more than
+      1e-6 apart (the JAX test's bounds); the largest difference, the share
+      of pixels apart, whether the kernel route is bitwise equal, each one's
+      ms (CUDA events, after a warm-up) and peak memory above its start
+      (``torch.cuda.max_memory_allocated``); the bf16 conv's launches in
+      the kernel route's tiled run (recorded for the timing phase).
+    - The .fgm CLI in subprocesses on the card (``ToolsCli``): encode and
+      decode of the flagship (q5, its synthetic weights) and of
+      bmshj2018-factorized (q1, N=128, M=192, the repository's weights) on
+      one 768x512 PPM, and encode_video and decode_video of a
+      seed-initialised ssf2020 GOP of TOOLS_VIDEO_FRAMES 256x256 frames;
+      bytes, bpp, PSNR and each command's seconds. The card's files are to be decoded on the CPU
+      by the same CLI (``--device cpu``): the card's y_hat exactly, pixels
+      within 1 level of the card's decode; the phase returns these jobs
+      for the caller to queue on its CpuSide (the smoke queues them after
+      the zoo phase, whose eval CLI's CPU runs they would slow). The image
+      CLI's ``main`` runs once in this process under the kernel recorder,
+      encode and decode of the flagship: the f32 conv for each
+      entropy-parameter conv, the softmax and the boundary rows a GMM pass
+      each, no rANS kernel.
+    - The standalone codec: the card of bmshj2018-factorized (the same
+      weights) exported on the card (``synthesis_gains`` runs g_s there),
+      ``fgsc_encode`` / ``fgsc_decode`` built from csrc/ (in the CpuSide
+      process, right after the kernels' build); on a 256x256 PPM the port's
+      stream decoded by ``fgsc_decode`` and ``fgsc_encode``'s by the port,
+      pixels within STANDALONE_LEVELS of the other side's decode, the
+      C++ stream's symbols re-packed by the port to its bytes, each
+      direction's ms.
+    - The range coder: bmshj2018-hyperprior (q4, N=128) built under
+      ``set_entropy_coder("rangecoder")`` and under "rans", one compress and
+      decompress of a 256x256 image each: the same y_hat; the registry is
+      reset after.
+
+    Returns (launches, recorded calls) of the kernel route's tiled run and
+    the in-process image CLI run together, and the CPU decodes as
+    ``CpuSide.submit`` argument tuples."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import flashgmm_tpu_torch
+    from flashgmm_tpu_torch.datasets import (load_image, save_image,
+                                             textured_leaves)
+    from flashgmm_tpu_torch.examples import codec as codec_cli
+    from flashgmm_tpu_torch.ops import compute_padding, pad_image
+    from flashgmm_tpu_torch.runtime import FastCheckerboardGmmCodec
+    from flashgmm_tpu_torch.runtime.tiled import make_tiled_gs
+    from flashgmm_tpu_torch.standalone import (decode_bitstream,
+                                               encode_bitstream,
+                                               export_model_card)
+    from flashgmm_tpu_torch.standalone.format import (encode_symbols,
+                                                      pack_bitstream,
+                                                      unpack_bitstream)
+    from flashgmm_tpu_torch.zoo import image_models
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    ppm = root / "leaves.ppm"
+    save_image(ppm, textured_leaves(H, W, seed=SEED0 + 1))
+    frames = root / "frames"
+    frames.mkdir()
+    for i, f in enumerate(_panned_frames(TOOLS_SMALL, TOOLS_SMALL,
+                                         TOOLS_VIDEO_FRAMES, VIDEO_SEED)):
+        save_image(frames / f"f{i}.ppm", f)
+    archs = {"flagship": ("cheng2020-anchor-checkerboard-gmm", "5", WEIGHTS),
+             "factorized": ("bmshj2018-factorized", "1",
+                            FACTORIZED_WEIGHTS)}
+    jobs = {tag: [["encode", ppm, "-o", root / f"{tag}.fgm", "-a", arch,
+                   "-q", q, "--weights", w],
+                  ["decode", root / f"{tag}.fgm", "-o",
+                   root / f"{tag}_card.ppm", "--weights", w]]
+            for tag, (arch, q, w) in archs.items()}
+    jobs["video"] = [["encode_video", frames, "-o", root / "gop.fgmv",
+                      "--gop", str(TOOLS_VIDEO_FRAMES)],
+                     ["decode_video", root / "gop.fgmv", "-o",
+                      root / "video_card", "--ext", "ppm"]]
+    cli = ToolsCli(jobs)
+    _CLEANUP.append(cli.close)
+    _CLEANUP.append(tmp.cleanup)
+
+    # the range coder: the same y_hat as the host rANS coder's ------------
+    x_small = torch.from_numpy(textured_leaves(TOOLS_SMALL, TOOLS_SMALL,
+                                               seed=SEED0 + 4)[None]).to(dev)
+    coded = {}
+    for name in ("rans", "rangecoder"):
+        flashgmm_tpu_torch.set_entropy_coder(name)
+        try:
+            m = image_models("bmshj2018-hyperprior", 4, pretrained=True,
+                             device=dev).eval()
+        finally:
+            flashgmm_tpu_torch.set_entropy_coder("rans")
+        require(m.entropy_bottleneck.entropy_coder.name == name
+                and m.gaussian_conditional.entropy_coder.name == name,
+                f"tools: the {name} model codes with another backend")
+        m.update(force=True)
+        m.compress(x_small)  # warm-up: the first call loads the convs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m.compress(x_small)
+        t1 = time.perf_counter()
+        y = m.decompress_y(out["strings"], out["shape"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        require(torch.equal(y, out["y_hat"]), f"tools: {name}: decompress's "
+                "y_hat differs from compress's")
+        n_bytes = sum(len(s) for group in out["strings"] for s in group)
+        coded[name] = (y, n_bytes, t1 - t0, t2 - t1)
+        del m
+    require(torch.equal(coded["rans"][0], coded["rangecoder"][0]),
+            "tools: the range coder's y_hat differs from the rANS coder's")
+    require(flashgmm_tpu_torch.get_entropy_coder() == "rans",
+            "tools: the registry was not reset")
+    print("  range coder: bmshj2018-hyperprior q4 on a "
+          f"{TOOLS_SMALL}x{TOOLS_SMALL} image, y_hat equal to the rANS "
+          "coder's; " + "; ".join(
+              f"{name} {n} bytes, compress {1e3 * tc:.1f} ms, decompress "
+              f"{1e3 * td:.1f} ms" for name, (_, n, tc, td) in coded.items())
+          + f" (host clock; {smi_line})", flush=True)
+
+    # the standalone codec: the card's streams and the C++ binaries' -------
+    (enc_bin, dec_bin), build_s = early["standalone"].get(timeout=900)
+    fm = image_models("bmshj2018-factorized", 4, pretrained=True,
+                      device=dev).eval()
+    fm.update(force=True)
+    card = root / "factorized.fgsam"
+    t0 = time.perf_counter()
+    card_bytes = export_model_card(fm, str(card))
+    t_export = time.perf_counter() - t0
+    small_ppm = root / "small.ppm"
+    save_image(small_ppm, x_small[0].cpu().numpy())
+    img = load_image(small_ppm)
+
+    def binary(*argv):
+        t0 = time.perf_counter()
+        r = subprocess.run([str(a) for a in argv], capture_output=True,
+                           text=True, timeout=300)
+        require(r.returncode == 0, f"tools: {Path(str(argv[0])).name} "
+                f"exited {r.returncode}: {r.stderr[-800:]}")
+        return time.perf_counter() - t0
+
+    def u8(x):
+        return np.clip(x * 255 + 0.5, 0, 255).astype(np.uint8).astype(int)
+
+    times = {}
+    t0 = time.perf_counter()
+    bs_port = encode_bitstream(fm, img)
+    times["port encode (card)"] = time.perf_counter() - t0
+    (root / "port.fgs").write_bytes(bs_port)
+    times["fgsc_decode"] = binary(dec_bin, card, root / "port.fgs",
+                                  root / "port_by_cpp.ppm")
+    t0 = time.perf_counter()
+    rec_port = decode_bitstream(fm, bs_port)
+    times["port decode (card)"] = time.perf_counter() - t0
+    times["fgsc_encode"] = binary(enc_bin, card, small_ppm, root / "cpp.fgs")
+    bs_cpp = (root / "cpp.fgs").read_bytes()
+    rec_cpp_port = decode_bitstream(fm, bs_cpp)
+    binary(dec_bin, card, root / "cpp.fgs", root / "cpp_by_cpp.ppm")
+    syms_cpp, w_cpp, h_cpp = unpack_bitstream(bs_cpp, fm)
+    require(pack_bitstream(syms_cpp, fm, w_cpp, h_cpp) == bs_cpp,
+            "tools: the port re-packs the C++ stream's symbols to other bytes")
+    syms_port = encode_symbols(fm, img)[0]
+    require(np.array_equal(unpack_bitstream(bs_port, fm)[0], syms_port),
+            "tools: the port's stream unpacks to other symbols")
+    offs = []
+    for tag, got, ref in (
+            ("port stream: fgsc_decode against the port",
+             u8(load_image(root / "port_by_cpp.ppm")), u8(rec_port)),
+            ("C++ stream: the port against fgsc_decode", u8(rec_cpp_port),
+             u8(load_image(root / "cpp_by_cpp.ppm")))):
+        d = np.abs(got - ref)
+        offs.append(f"{tag} max {int(d.max())} levels, "
+                    f"{100 * float((d.max(-1) > 0).mean()):.3f} % of pixels "
+                    "off")
+        require(int(d.max()) <= STANDALONE_LEVELS, f"tools: standalone {tag}"
+                f": {int(d.max())} levels apart")
+    print(f"  standalone: {card.name} {card_bytes} bytes exported on the "
+          f"card in {t_export:.2f} s (g_s's synthesis gains there); fgsc "
+          f"binaries built in {build_s:.1f} s (CpuSide); on a "
+          f"{TOOLS_SMALL}x{TOOLS_SMALL} PPM the port's stream "
+          f"{len(bs_port)} bytes, fgsc_encode's {len(bs_cpp)} bytes (its "
+          "symbols re-packed by the port to its bytes; "
+          f"{100 * float((syms_cpp == syms_port).mean()):.3f} % of the two "
+          "encoders' symbols equal); " + "; ".join(offs) + "; " + ", ".join(
+              f"{k} {1e3 * v:.1f} ms" for k, v in times.items())
+          + f" (host clock; {smi_line})", flush=True)
+    del fm
+
+    # the in-process CLI run under the kernel recorder --------------------
+    arch, q, w = archs["flagship"]
+    inproc = root / "flagship_inproc.fgm"
+    _, enc_launches, enc_calls = record(lambda: codec_cli.main(
+        ["encode", str(ppm), "-o", str(inproc), "-a", arch, "-q", q,
+         "--weights", str(w)]))
+    # while the jobs run: the card's video model (its update takes
+    # seconds) and the UHD image's y_hat on both routes, exact through the
+    # bytes (the timed runs wait for the jobs)
+    vm = codec_cli.load_video_model(5, None, dev)
+    uhd, _ = early["uhd"].get(timeout=900)
+    x = torch.from_numpy(uhd[None]).to(dev)
+    x = pad_image(x, compute_padding(*TOOLS_UHD, min_div=64)[0])
+    padded = tuple(x.shape[1:3])  # (2176, 3840)
+    uhd_coded = {}
+    for route in (False, True):
+        tag = f"tiled ({'kernel' if route else 'default'} route)"
+        codec = FastCheckerboardGmmCodec(model, lanes=LANES,
+                                         cap_divisor=CAP_DIVISOR,
+                                         kernel_transforms=route)
+        data, enc = codec.encode_to_bytes(x)
+        y_shape = tuple(enc["y_hat"].shape[1:])
+        require(y_shape == (padded[0] // 16, padded[1] // 16, N),
+                f"{tag}: latent {y_shape}")
+        y_hat = codec.decode_y_hat(codec.from_bytes(data, y_shape), y_shape)
+        require(torch.equal(y_hat, enc["y_hat"]),
+                f"{tag}: y_hat not exact through the bytes")
+        uhd_coded[route] = (tag, codec, y_hat, len(data))
+        del enc, data
+    del x, uhd
+    done = cli.finish()
+    for tag, runs in done.items():
+        print(f"  .fgm CLI {tag} on the card: " + "; ".join(
+            f"{cmd} {s:.2f} s ({line})" for cmd, s, line in runs), flush=True)
+
+    def card_y(tag, run=lambda fn: fn()):
+        """The card's y_hat of the subprocess's file of ``tag``, decoded by
+        the CLI's main in this process under ``run``: (y_hat, run's
+        result)."""
+        with _decoded_y(codec_cli) as kept:
+            result = run(lambda: codec_cli.main(
+                ["decode", str(root / f"{tag}.fgm"), "-o",
+                 str(root / f"{tag}_inproc.ppm"), "--weights",
+                 str(archs[tag][2])]))
+        return kept["y"], result
+
+    y_card, (_, dec_launches, dec_calls) = card_y("flagship", record)
+    launches = {k: enc_launches[k] + dec_launches[k] for k in enc_launches}
+    want = dict.fromkeys(launches, 0)
+    want.update(conv2d_nhwc=2 * 12, gmm_softmax=2 * 2,
+                gmm_boundary_rows=2 * 2)
+    require(launches == want, f"tools: the in-process CLI run's launches "
+            f"{launches}, not {want}")
+    same_file = inproc.read_bytes() == (root / "flagship.fgm").read_bytes()
+    cpu_jobs = []  # (fn, args, then) for the caller to queue on the CpuSide
+    for tag, (arch, q, w) in archs.items():
+        y = y_card if tag == "flagship" else card_y(tag)[0]
+        nbytes = (root / f"{tag}.fgm").stat().st_size
+        x_card = load_image(root / f"{tag}_card.ppm")
+        apart = _levels(root / f"{tag}_card.ppm", root / f"{tag}_inproc.ppm")
+        require(apart[0] <= 1, f"tools: {tag}: the card's two decodes "
+                f"{apart[0]} levels apart")
+        mse = float(np.mean((x_card.astype(np.float64)
+                             - load_image(ppm)) ** 2))
+        print(f"  .fgm {tag} ({arch} q{q}): {nbytes} bytes, "
+              f"{8 * nbytes / (H * W):.4f} bpp, PSNR "
+              f"{-10 * np.log10(mse):.4f} dB on the card; the subprocess's "
+              f"and this process's decodes {apart[0]:.0f} levels apart "
+              f"({100 * apart[1]:.3f} % of pixels)", flush=True)
+
+        def then(result, t_cpu, tag=tag):
+            same, worst, share = result
+            require(same, f"tools: {tag}: the CPU decodes the card's .fgm "
+                    "file to another y_hat")
+            require(worst <= 1, f"tools: {tag}: the CPU's pixels "
+                    f"{worst} levels from the card's")
+            print(f"  .fgm {tag}: the card's file decoded on the CPU "
+                  f"(--device cpu) to the card's y_hat exactly, pixels "
+                  f"within {worst:.0f} level ({100 * share:.3f} % off), "
+                  f"{t_cpu:.1f} s", flush=True)
+        cpu_jobs.append((_cpu_fgm_decode, (
+            str(root / f"{tag}.fgm"), str(w), str(root / f"{tag}_cpu.ppm"),
+            str(root / f"{tag}_card.ppm"), y.cpu()), then))
+
+    with open(root / "gop.fgmv", "rb") as f:
+        header, gops = codec_cli.read_video_file(f)
+    y_video = [[{b: t.cpu() for b, t in frame.items()}
+                for frame in vm.decompress_y(s, shapes)]
+               for s, shapes in gops]
+    del vm
+    v_bytes = (root / "gop.fgmv").stat().st_size
+    print(f"  .fgm video (ssf2020, seed-initialised): {header[3]} frames "
+          f"{TOOLS_SMALL}x{TOOLS_SMALL}, {v_bytes} bytes, "
+          f"{8 * v_bytes / (TOOLS_SMALL ** 2 * header[3]):.4f} bpp a frame",
+          flush=True)
+
+    def then_video(result, t_cpu):
+        wrong, worst, share, n = result
+        require(not wrong and n == TOOLS_VIDEO_FRAMES, f"tools: video: the "
+                f"CPU's y_hat differs at {wrong} ({n} frames)")
+        require(worst <= 1, f"tools: video: the CPU's frames {worst} levels "
+                "from the card's")
+        print(f"  .fgm video: the card's file decoded on the CPU (--device "
+              f"cpu) to the card's y_hat of every branch exactly, {n} frames "
+              f"within {worst:.0f} level ({100 * share:.3f} % off), "
+              f"{t_cpu:.1f} s", flush=True)
+    cpu_jobs.append((_cpu_fgmv_decode, (str(root / "gop.fgmv"),
+                                        str(root / "video_cpu"),
+                                        str(root / "video_card"), y_video),
+                     then_video))
+    print(f"  .fgm CLI in this process (flagship encode + decode): launches "
+          f"{launches}; its bytes {'equal' if same_file else 'NOT equal'} "
+          "to the subprocess's", flush=True)
+
+    # tiled synthesis at UHD on both routes, timed ----------------------------
+    tiled_launches = tiled_calls = None
+    for route in (False, True):
+        tag, codec, y_hat, n_bytes = uhd_coded.pop(route)
+        gs = make_tiled_gs(codec)
+        runs = {"direct": lambda: torch.clamp(
+                    codec._transform(codec._g_s, y_hat), 0, 1),
+                "tiled": lambda: gs(y_hat)}
+        outs, ms, peak = {}, {}, {}
+        for name, fn in runs.items():
+            fn()  # warm-up: the library's algorithms for these shapes
+            times_ms = []
+            for _ in range(TILED_REPS):
+                outs.pop(name, None)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                outs[name] = fn()
+                b.record()
+                torch.cuda.synchronize()
+                times_ms.append(a.elapsed_time(b))
+                peak[name] = torch.cuda.max_memory_allocated() - base
+            ms[name] = statistics.median(times_ms)
+        diff = (outs["tiled"] - outs["direct"]).abs()
+        worst = float(diff.max())
+        frac = float((diff > 1e-6).float().mean())
+        require(tuple(outs["tiled"].shape) == (1, *padded, 3),
+                f"{tag}: shape {tuple(outs['tiled'].shape)}")
+        require(worst <= TILED_ATOL and frac < TILED_FRAC,
+                f"{tag}: {worst} max, {frac} of pixels beyond 1e-6")
+        if route:
+            out, tiled_launches, tiled_calls = record(lambda: gs(y_hat))
+            require(torch.equal(out, outs["tiled"]),
+                    f"{tag}: the recorded run differs")
+            require(tiled_launches["conv2d_nhwc_bf16"] > 0,
+                    f"{tag}: no bf16 conv launched")
+            tiled_calls = {k: shared_calls(v) for k, v in tiled_calls.items()}
+        print(f"  {tag}: {TOOLS_UHD[1]}x{TOOLS_UHD[0]} (padded to "
+              f"{padded[1]}x{padded[0]}, latent {list(y_hat.shape[1:])}) "
+              f"through {n_bytes} bytes, y_hat exact; "
+              f"tiled (tile_h=32, halo=8) against direct g_s: max "
+              f"{worst:.3g}, {100 * frac:.4f} % of pixels beyond 1e-6, "
+              f"bitwise {'equal' if worst == 0 else 'NOT equal'}; ms direct "
+              f"{ms['direct']:.2f}, tiled {ms['tiled']:.2f} (CUDA events, "
+              f"medians of {TILED_REPS}); peak memory above the start direct "
+              f"{peak['direct'] / 2**30:.3f} GiB, tiled "
+              f"{peak['tiled'] / 2**30:.3f} GiB "
+              f"({100 * peak['tiled'] / peak['direct']:.1f} %); {smi_line}"
+              + (f"; bf16 conv launches in the tiled run "
+                 f"{tiled_launches['conv2d_nhwc_bf16']}" if route else ""),
+              flush=True)
+        del codec, gs, outs, diff, y_hat
+    torch.cuda.empty_cache()
+
+    launches = {k: launches[k] + tiled_launches[k] for k in launches}
+    calls = {k: enc_calls[k] + dec_calls[k] + tiled_calls[k]
+             for k in enc_calls}
+    phase("tools", "tiled UHD synthesis on both routes, the .fgm CLI on the "
+          "card, the standalone codec against its C++ binaries, the range "
+          "coder")
+    return launches, calls, cpu_jobs
+
+
+def tools_only():
+    """``python3 chip_smoke.py --tools``: the device line, the build and the
+    tools phase alone (the flagship built as phase 4 builds it), then each
+    kernel's launches on its path."""
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+    from flashgmm_tpu_torch.zoo import load_npz
+
+    dev, smi_line = _device_and_build()
+    cpu = _cpu_side()
+    early = tools_early(cpu)
+    model = Cheng2020AnchorCheckerboardGMMv2(N=N, K=K, seed=0, device=dev)
+    load_npz(model, WEIGHTS)
+    model.update(update_quantiles=True)
+    bound = kernel_wrappers()
+    originals = {name: getattr(*where) for name, where in bound.items()}
+    launches, _, cpu_jobs = tools_phase(dev, model,
+                                        make_record(bound, originals),
+                                        smi_line, early)
+    for job in cpu_jobs:
+        cpu.submit(*job)
+    cpu.drain()
+    print(json.dumps({"tools_launches": launches}), flush=True)
+
+
+def tools_early(cpu):
+    """The tools phase's CPU work started in the CpuSide process right
+    after the kernels' build: the standalone binaries' build and the UHD
+    image."""
+    from flashgmm_tpu_torch.datasets.synthetic import textured_leaves
+    from flashgmm_tpu_torch.standalone.build import build_binaries
+
+    return {"standalone": cpu.start(build_binaries, ()),
+            "uhd": cpu.start(textured_leaves, (*TOOLS_UHD, SEED0 + 5))}
+
+
 def train_phase(dev):
     """Training on the card under the trainer's library settings (cuDNN's
     TF32 on, as PyTorch's default, matmul TF32 off, ``cudnn.benchmark``
@@ -3122,7 +3738,7 @@ def main() -> int:
         bytes_worker(*sys.argv[2:5])
         return 0
     alone = {"--zoo": zoo_only, "--vbr": vbr_only, "--video": video_only,
-             "--pcc": pcc_only}
+             "--pcc": pcc_only, "--tools": tools_only}
     if len(sys.argv) > 1 and sys.argv[1] in alone:
         if not torch.cuda.is_available():
             return 1
@@ -3294,6 +3910,7 @@ def smoke():
     zoo_cli.start()
     # the process for the later phases' CPU decodes of the card's strings
     cpu = _cpu_side()
+    early = tools_early(cpu)  # the tools phase's binaries and UHD image
 
     # 3. each kernel against its plain version at the main path's shapes --
     rng = np.random.RandomState(0)
@@ -3978,6 +4595,11 @@ def smoke():
     ref_launches, ref_calls = reference_phase(dev, x1, model, record,
                                               originals, smi_line, cpu)
 
+    # 11b. the last modules: tiled synthesis, the .fgm CLI, the standalone
+    # codec, the range coder --------------------------------------------
+    tools_launches, tools_calls, tools_cpu = tools_phase(
+        dev, model, record, smi_line, early)
+
     # 12. the variable-bitrate models, while the eval CLI's CPU runs go on
     vbr_launches, vbr_calls = vbr_phase(dev, record, originals, smi_line,
                                         cpu)
@@ -3996,6 +4618,11 @@ def smoke():
     # 15. the image-model line and the evaluation CLIs --------------------
     zoo_launches, zoo_calls = zoo_phase(dev, record, originals, smi_line,
                                         zoo_cli, cpu)
+    # the tools phase's CPU decodes (the flagship's takes minutes of CPU),
+    # queued once the eval CLI's CPU runs, which the zoo phase waits for,
+    # are done: they run beside the timing phase
+    for job in tools_cpu:
+        cpu.submit(*job)
 
     # 16. timing of every recorded call -----------------------------------
     pass_words = [int(out[k].n_words) for k in ("z", "y0", "y1")]
@@ -4186,7 +4813,7 @@ def smoke():
                                                 act_f, lo_, nb, md)
         require(torch.equal(run().reshape(-1)[lanes].long(), sym.long()),
                 "serial floor: the one-lane-per-CTA decode is wrong")
-        return cuda_ms(run, 20)  # as many calls as the kernel is timed over
+        return cuda_ms(run, TIMING_REPS)  # as the kernel is timed
 
     def encoder_floor(args):
         """The GMM encoder's serial floor, device ms, for one recorded call:
@@ -4200,7 +4827,8 @@ def smoke():
         ref = rans_kernels.encode_scan_gmm_plain(*one)
         require(all(torch.equal(a, b) for a, b in zip(got, ref)),
                 "serial floor: the one-lane GMM encode differs from plain")
-        return cuda_ms(lambda: originals["rans_encode_gmm"](*one), 20, True)
+        return cuda_ms(lambda: originals["rans_encode_gmm"](*one),
+                       TIMING_REPS, True)
 
     plains = {"rans_encode": il.encode_scan, "rans_decode": il.decode_scan,
               "rans_encode_gmm": rans_kernels.encode_scan_gmm_plain,
@@ -4292,9 +4920,10 @@ def smoke():
                 seen[key] = {
                     "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
                                           flops / peak),
-                    "ms": cuda_ms(lambda: kern(*args, **kwargs), 20),
-                    "device_ms": cuda_ms(lambda: kern(*args, **kwargs), 20,
-                                         True)
+                    "ms": cuda_ms(lambda: kern(*args, **kwargs),
+                                  TIMING_REPS),
+                    "device_ms": cuda_ms(lambda: kern(*args, **kwargs),
+                                         TIMING_REPS, True)
                     if device or base in DEVICE_TIMED else 0.0}
             for k in t:
                 t[k] += seen[key][k]
@@ -4302,7 +4931,7 @@ def smoke():
 
     results = []
     # seconds on those paths' calls
-    t_lat = t_elic = t_gsm = t_ref = t_zoo = t_vbr = t_video = 0.0
+    t_lat = t_elic = t_gsm = t_ref = t_zoo = t_vbr = t_video = t_tools = 0.0
     for name in [*originals, *(f"{n}_k1" for n in K1_INSTANCES)]:
         base = name.removesuffix("_k1")
         kern = originals[base]
@@ -4317,14 +4946,15 @@ def smoke():
         for i, (args, kwargs) in enumerate(calls[name]):
             nbytes, flops, e, library = stats(base, i, args, kwargs, words)
             err = max(err, e)
-            ms += cuda_ms(lambda: kern(*args, **kwargs), 20)
+            ms += cuda_ms(lambda: kern(*args, **kwargs), TIMING_REPS)
             if base in DEVICE_TIMED:
-                device_ms += cuda_ms(lambda: kern(*args, **kwargs), 20, True)
+                device_ms += cuda_ms(lambda: kern(*args, **kwargs),
+                                     TIMING_REPS, True)
             # stats has just run the plain version on these inputs
             plain_ms += cuda_ms(lambda: plains[base](*args, **kwargs), 1,
                                 warm=False)
             if library is not None:
-                lib_ms = (lib_ms or 0.0) + cuda_ms(library, 20)
+                lib_ms = (lib_ms or 0.0) + cuda_ms(library, TIMING_REPS)
             if name == "rans_decode_gmm":
                 floor_ms += serial_floor(args)
             if name == "rans_encode_gmm":
@@ -4341,10 +4971,10 @@ def smoke():
             nbytes, flops, e, _ = stats(name, i, args, kwargs,
                                         lat_words[route])
             err = max(err, e)
-            lat_t["ms"] += cuda_ms(lambda: kern(*args, **kwargs), 20)
+            lat_t["ms"] += cuda_ms(lambda: kern(*args, **kwargs), TIMING_REPS)
             if name in DEVICE_TIMED:
                 lat_t["device_ms"] += cuda_ms(lambda: kern(*args, **kwargs),
-                                              20, True)
+                                              TIMING_REPS, True)
             lat_t["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_PER_S,
                                            flops / peak)
         t_lat += time.perf_counter() - t0
@@ -4385,6 +5015,12 @@ def smoke():
             else [], pass_words, device=name == "conv2d_nhwc")
         err = max(err, e)
         t_video += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tools_t, e, _ = path_times(
+            base, kern, peak, tools_calls.get(name, []) if name == base
+            else [], pass_words)
+        err = max(err, e)
+        t_tools += time.perf_counter() - t0
         if name == "conv2d_nhwc":  # h_s's deconvs in the encode and decode
             require(inserted == 2 * ELIC_INSERTED, f"ELIC: {inserted} "
                     "zero-inserted conv inputs, not h_s's deconvs'")
@@ -4439,7 +5075,11 @@ def smoke():
                             "video_launches": video_launches.get(name, 0)
                             if name == base else 0,
                             "video_ms": video_t["ms"],
-                            "video_bound_ms": video_t["bound_ms"]})
+                            "video_bound_ms": video_t["bound_ms"],
+                            "tools_launches": tools_launches.get(name, 0)
+                            if name == base else 0,
+                            "tools_ms": tools_t["ms"],
+                            "tools_bound_ms": tools_t["bound_ms"]})
         if base in DEVICE_TIMED or name == "conv2d_nhwc":
             results[-1]["video_device_ms"] = video_t["device_ms"]
         if base in DEVICE_TIMED:
@@ -4450,6 +5090,7 @@ def smoke():
             results[-1]["reference_device_ms"] = ref_t["device_ms"]
             results[-1]["zoo_device_ms"] = zoo_t["device_ms"]
             results[-1]["vbr_device_ms"] = vbr_t["device_ms"]
+            results[-1]["tools_device_ms"] = tools_t["device_ms"]
         if name in ("rans_decode_gmm", "rans_encode_gmm"):
             results[-1]["serial_floor_ms"] = floor_ms
         if name == "conv2d_nhwc_bf16":
@@ -4465,13 +5106,15 @@ def smoke():
           f"line's compress + decompress of one image, {t_zoo:.2f} s; vbr_*: "
           f"of the VBR models' compress + decompress of two images at each "
           f"level, {t_vbr:.2f} s; video_*: of the video phase's eval CLI run "
-          f"and GOP, compress + decompress, {t_video:.2f} s)")
+          f"and GOP, compress + decompress, {t_video:.2f} s; tools_*: of the "
+          "tools phase's tiled UHD g_s on the kernel route and its "
+          f"in-process .fgm CLI encode + decode, {t_tools:.2f} s)")
 
-    # 17. the CPU decodes queued by phases 11, 12, 13, 13b and 15 --------
+    # 17. the CPU decodes queued by phases 11, 11b, 12, 13, 13b and 15 ----
     cpu.drain()
-    phase("cpu", "the card's strings decoded on the CPU by copies of the "
-          "models, in a process of their own beside phases 11-16 (this "
-          "phase's seconds: the wait for the last)")
+    phase("cpu", "the card's strings and files decoded on the CPU by copies "
+          "of the models, in a process of their own beside phases 11-16 "
+          "(this phase's seconds: the wait for the last)")
 
     print(f"smoke total {time.perf_counter() - _T_START:.2f} s", flush=True)
     print(json.dumps({"kernels": results, "card": kind,

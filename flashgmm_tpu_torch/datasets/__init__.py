@@ -5,12 +5,14 @@ from .pointcloud import (ModelNetDataset, PointCloudFolder, S3disDataset,
                          load_point_cloud)
 from .rawvideo import RawVideoSequence, VideoFormat, get_raw_video_file_info
 from .synthetic import dead_leaves, textured_leaves
-from .utils import NdArrayDataset
+from .utils import (CacheDataset, NdArrayDataset, PreGeneratedMemmapDataset,
+                    StackDataset)
 from .video import VideoFolder, Vimeo90kDataset
 
-__all__ = ["BatchLoader", "ImageFolder", "ModelNetDataset", "NdArrayDataset",
-           "PointCloudFolder", "RawVideoSequence", "S3disDataset",
-           "SemanticKittiDataset", "ShapeNetCorePartDataset", "VideoFolder",
+__all__ = ["BatchLoader", "CacheDataset", "ImageFolder", "ModelNetDataset",
+           "NdArrayDataset", "PointCloudFolder", "PreGeneratedMemmapDataset",
+           "RawVideoSequence", "S3disDataset", "SemanticKittiDataset",
+           "ShapeNetCorePartDataset", "StackDataset", "VideoFolder",
            "VideoFormat", "Vimeo90kDataset", "dead_leaves",
            "get_raw_video_file_info", "load_image", "load_point_cloud",
            "save_image", "textured_leaves"]

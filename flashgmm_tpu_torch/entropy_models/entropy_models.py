@@ -11,7 +11,9 @@ Reference-format coding runs the host coder ``csrc/rans.cpp`` (the port's
 build, ``ans/cext.py``) over numpy buffers, with the JAX package's
 container, symbol order (NCHW flatten on the table path; ``(b, c, h, w)``
 over the nonzero channels on the GMM path), environment switches and
-refusals. The GMM path has two modes: device rows (the default), each
+refusals. After ``flashgmm_tpu_torch.set_entropy_coder("rangecoder")`` (or
+with ``entropy_coder="rangecoder"``) the table path and the rows path run
+the numpy range coder instead (``ans/range_coder.py``). The GMM path has two modes: device rows (the default), each
 symbol's uint16 boundary row computed on the tensors' device with XLA's CPU
 roundings (``ans/gaussian_cdf.py::gmm_boundary_rows``; on the card its
 kernel) and the serial chain on the host; and host math
@@ -75,17 +77,48 @@ def _host(t) -> np.ndarray:
 
 
 class _EntropyCoder(RansEncoder, RansDecoder):
-    """The coding backend (reference :48-82). Only "rans", the host rANS
-    coder, is ported; the pure-numpy "rangecoder" waits for ROADMAP item
-    15."""
+    """The coding backend (reference :48-82): "rans", the host rANS coder
+    (``ans/cext.py``), or "rangecoder", the numpy range coder
+    (``ans/range_coder.py``), which codes the table path and the rows path;
+    host-math GMM calls stay on the host rANS coder, as in the JAX package.
+    ``method=None`` takes the registry's choice
+    (``flashgmm_tpu_torch.set_entropy_coder``)."""
 
-    def __init__(self, method: str = "rans"):
+    def __init__(self, method: str = None):
+        if method is None:
+            import flashgmm_tpu_torch
+
+            method = flashgmm_tpu_torch.get_entropy_coder()
         if method == "rangecoder":
-            raise NotImplementedError(
-                'the "rangecoder" backend is not ported (ROADMAP item 15)')
-        if method != "rans":
+            from flashgmm_tpu_torch.ans import range_coder
+
+            self._table = range_coder
+        elif method == "rans":
+            self._table = None
+        else:
             raise ValueError(f'Unknown entropy coder "{method}"')
         self.name = method
+
+    def encode_with_indexes(self, *args):
+        if self._table is not None:
+            return self._table.encode_with_indexes(*args)
+        return super().encode_with_indexes(*args)
+
+    def decode_with_indexes(self, *args):
+        if self._table is not None:
+            return self._table.decode_with_indexes(*args)
+        return super().decode_with_indexes(*args)
+
+    def encode_rows(self, values, rows, lo):
+        """Search-path coding over per-symbol boundary rows (GSM/GMM)."""
+        if self._table is not None:
+            return self._table.encode_rows(values, rows, lo)
+        return super().encode_rows(values, rows, lo)
+
+    def decode_rows(self, encoded, rows, lo):
+        if self._table is not None:
+            return self._table.decode_rows(encoded, rows, lo)
+        return super().decode_rows(encoded, rows, lo)
 
 
 def _sigmoid_np(x):
@@ -106,7 +139,7 @@ class EntropyModel(nn.Module):
     table-based coding (reference :93-224)."""
 
     def __init__(self, likelihood_bound: float = 1e-9,
-                 entropy_coder: str = "rans",
+                 entropy_coder: str = None,
                  entropy_coder_precision: int = 16):
         super().__init__()
         self.entropy_coder = _EntropyCoder(entropy_coder)

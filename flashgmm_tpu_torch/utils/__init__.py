@@ -1,6 +1,7 @@
-"""Training utilities: checkpoints, logging and the RD probe, and image
-quality metrics (ports of flashgmm_tpu/utils/checkpoint.py, logging.py and
-metrics.py), and the evaluation CLIs ``python -m
-flashgmm_tpu_torch.utils.eval_model`` and ``... .utils.update_model``. The
-JAX package's other CLIs (bench, plot, find_close, video) wait for ROADMAP
-item 15."""
+"""Training utilities: checkpoints, logging and the RD probe, image
+quality metrics and phase timers (ports of flashgmm_tpu/utils/checkpoint.py,
+logging.py, metrics.py and profiler.py), and the CLIs: ``python -m
+flashgmm_tpu_torch.utils.eval_model`` and ``... .update_model`` (the
+port's models), ``... .bench``, ``... .find_close`` and ``... .plot``
+(classical codecs and RD curves, on the host), and their video
+counterparts under ``utils.video``."""

@@ -43,6 +43,8 @@ symbols. The video model's (ssf2020) round trip of a GOP on the card is
 exact, and the CPU decodes the card's strings to every branch's y_hat bit
 for bit. A point-cloud codec's (hrtzxf2022) round trip on the card is
 repeatable, and the CPU decodes the card's strings to the card's symbols.
+Tiled synthesis of the flagship's g_s stays within the JAX test's bounds
+of the direct g_s on both transform routes.
 """
 
 import importlib.util
@@ -1527,3 +1529,39 @@ def test_hrtzxf2022_roundtrip_on_card_decodes_on_the_cpu(cuda):
         assert torch.equal(got, want.cpu())
     x_cpu = cpu_model.decompress(c["strings"], c["shape"])["x_hat"]
     assert float(chamfer_distance(x_cpu, a.cpu())) < 1e-6
+
+
+@pytest.mark.parametrize("kernel_transforms", [False, True])
+def test_tiled_synthesis_matches_direct_on_card(cuda, kernel_transforms):
+    """Tiled g_s (``runtime/tiled.py``) of the flagship at N=192 on its
+    synthetic weights, on the card, on both transform routes: the y_hat of
+    a 640x384 textured-leaves image decoded by tiles of 8 latent rows
+    within 2e-2 of the direct g_s with under 5 % of the pixels more than
+    1e-6 apart (the JAX test's bounds), the kernel route launching the
+    bf16 conv for each tile."""
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+    from flashgmm_tpu_torch.runtime import FastCheckerboardGmmCodec
+    from flashgmm_tpu_torch.runtime.tiled import make_tiled_gs
+    from flashgmm_tpu_torch.zoo import load_npz
+
+    model = Cheng2020AnchorCheckerboardGMMv2(N=192, K=4, seed=0,
+                                             device=cuda)
+    load_npz(model, Path(__file__).resolve().parent.parent / "weights"
+             / "ckbd_gmm_n192_k4_synthetic.npz")
+    model.update(update_quantiles=True)
+    codec = FastCheckerboardGmmCodec(model, lanes=256,
+                                     kernel_transforms=kernel_transforms)
+    x = torch.from_numpy(textured_leaves(640, 384, seed=500006)[None])
+    with torch.inference_mode():
+        y = codec.encode(x.to(cuda))["y_hat"]
+        direct = torch.clamp(codec._transform(codec._g_s, y), 0, 1)
+        before = conv_kernel.conv2d_nhwc_bf16.launches
+        tiled = make_tiled_gs(codec, tile_h=8, halo=8)(y)
+        launched = conv_kernel.conv2d_nhwc_bf16.launches - before
+    assert tuple(y.shape) == (1, 40, 24, 192)
+    assert tiled.shape == direct.shape == (1, 640, 384, 3)
+    diff = (tiled - direct).abs()
+    assert float(diff.max()) <= 2e-2
+    assert float((diff > 1e-6).float().mean()) < 0.05
+    assert (launched > 0) == kernel_transforms

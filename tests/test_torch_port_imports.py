@@ -145,6 +145,49 @@ def test_forward_and_converter_modules_import_no_jax(module):
     assert out.stdout.strip() == "", out.stdout
 
 
+LAST_MODULES = [
+    "flashgmm_tpu_torch",
+    "flashgmm_tpu_torch.typing",
+    "flashgmm_tpu_torch.layers.basic",
+    "flashgmm_tpu_torch.ans.rans_numpy",
+    "flashgmm_tpu_torch.ans.range_coder",
+    "flashgmm_tpu_torch.runtime.tiled",
+    "flashgmm_tpu_torch.standalone",
+    "flashgmm_tpu_torch.standalone.export",
+    "flashgmm_tpu_torch.standalone.format",
+    "flashgmm_tpu_torch.standalone.build",
+    "flashgmm_tpu_torch.standalone.__main__",
+    "flashgmm_tpu_torch.examples.codec",
+    "flashgmm_tpu_torch.zoo.torch_export",
+    "flashgmm_tpu_torch.utils.profiler",
+    "flashgmm_tpu_torch.utils.bench",
+    "flashgmm_tpu_torch.utils.bench.codecs",
+    "flashgmm_tpu_torch.utils.bench.__main__",
+    "flashgmm_tpu_torch.utils.find_close.__main__",
+    "flashgmm_tpu_torch.utils.plot.__main__",
+    "flashgmm_tpu_torch.utils.video.bench.__main__",
+    "flashgmm_tpu_torch.utils.video.plot.__main__",
+]
+
+
+def test_last_modules_import_no_jax():
+    """The last modules (the entropy-coder registry, the numpy coders,
+    tiled synthesis, the standalone codec's export, bitstream and build,
+    the .fgm CLI, the state-dict export, the profiler and the host tool
+    CLIs), imported one after another in a fresh interpreter, each
+    followed by a look at what got imported."""
+    probe = ("import importlib, sys\n"
+             f"for m in {LAST_MODULES!r}:\n"
+             "    importlib.import_module(m)\n"
+             "    bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'flax', 'optax', 'flashgmm_tpu'))\n"
+             "    print(m, ','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")[:len(LAST_MODULES)]
+    assert lines == [f"{m} " for m in LAST_MODULES], out.stdout
+
 CLI_PROBE = """
 import os, runpy, sys, tempfile
 import numpy as np
@@ -210,5 +253,39 @@ def test_video_eval_cli_runs_without_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     assert '"bpp"' in out.stdout and '"real coding"' not in out.stdout
     assert "ssf2020 real coding" in out.stdout
+    bad = [line for line in out.stdout.splitlines() if line.startswith("BAD:")]
+    assert bad == ["BAD:"], bad
+
+
+CODEC_CLI_PROBE = """
+import os, runpy, sys, tempfile
+import numpy as np
+d = tempfile.mkdtemp()
+from flashgmm_tpu_torch.datasets import save_image
+save_image(os.path.join(d, "a.ppm"), np.full((64, 64, 3), 0.5, np.float32))
+w = os.path.join("weights", "factorized_n128_m192_synthetic.npz")
+for argv in (["encode", os.path.join(d, "a.ppm"), "-o", os.path.join(d, "a.fgm"),
+              "-a", "bmshj2018-factorized", "--weights", w, "--device", "cpu"],
+             ["decode", os.path.join(d, "a.fgm"), "-o", os.path.join(d, "b.ppm"),
+              "--weights", w, "--device", "cpu"]):
+    sys.argv = ["codec"] + argv
+    try:
+        runpy.run_module("flashgmm_tpu_torch.examples.codec", run_name="__main__")
+    except SystemExit as e:
+        assert not e.code, e.code
+assert os.path.getsize(os.path.join(d, "b.ppm")) == 64 * 64 * 3 + 13
+print("BAD:" + ",".join(sorted(k for k in sys.modules if k.split(".")[0]
+                               in ("jax", "jaxlib", "flax", "optax", "flashgmm_tpu"))))
+"""
+
+
+def test_codec_cli_runs_without_jax():
+    """``python -m flashgmm_tpu_torch.examples.codec`` encodes and decodes a
+    .fgm file on the CPU (as ``-m`` runs it) in a fresh interpreter,
+    importing no JAX-side module."""
+    out = subprocess.run([sys.executable, "-c", CODEC_CLI_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "bpp)" in out.stdout and "decoded" in out.stdout
     bad = [line for line in out.stdout.splitlines() if line.startswith("BAD:")]
     assert bad == ["BAD:"], bad

@@ -338,8 +338,11 @@ def test_batch_of_two_refused():
                       *params)
     with pytest.raises(ValueError, match="ONE image"):
         JGMM(K=4).compress(*map(jnp.asarray, (y, scales, means, weights)))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TGMM(K=4, entropy_coder="rangecoder")
+    # the range-coder backend (ported with ROADMAP item 15) refuses too
+    rc = TGMM(K=4, entropy_coder="rangecoder")
+    assert rc.entropy_coder.name == "rangecoder"
+    with pytest.raises(ValueError, match="ONE image"):
+        rc.compress(torch.from_numpy(y), *params)
 
 
 def _image(h, w, seed=500001):
