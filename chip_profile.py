@@ -93,6 +93,26 @@ decompress ms by the host clock (median of --reps after a warm-up), the
 host coder's ms of each (the reference-format rANS calls), and from
 torch.profiler the card's busy ms and the kernels that took the most
 device time.
+``--tiled`` instead holds tiled synthesis (``runtime/tiled.py``, halo 8:
+``make_tiled_gs``, and ``g_s_tiled`` over the whole transform, every
+layer tiled, as before the small layers ran whole) against the direct g_s
+of the flagship at N=192 over the grid {seed-initialised (seed 0, no
+weights loaded), synthetic weights} x {random latent (``np.random.RandomState(7).rand``), a real image's latent (the
+codec's y_hat of a textured-leaves image)} x {JAX's test's shape [1, 24,
+8, 192] with tile_h=4, the card test's [1, 40, 24, 192] with tile_h=8} on
+both transform routes: one JSON line a case with, for each of the two,
+the largest difference and the share of pixels more than 1e-6 apart,
+whether the direct g_s is bitwise the same run twice, and, where every
+layer tiled is not bitwise equal, the library or kernel calls of the
+first tile that differs (``F.conv2d``, ``F.linear``, the bf16 conv) whose
+core rows differ from the direct run's while their input's core rows are
+equal, with cuDNN's kernels for that conv.
+``--tiled-engines`` instead records cuDNN's engine for each bf16 conv
+shape of the flagship's g_s on the default route (3x3, 192 channels in;
+192, 1536 (the fused subpel convs) and 12 out) under the pinned library
+settings, over widths from 8 to 1920 and heights giving 64 to 2^21
+pixels: one JSON line a (conv, width) with the height at which each
+engine starts.
 Needs a CUDA device; imports no JAX.
 """
 
@@ -126,6 +146,8 @@ def main() -> int:
     ap.add_argument("--elic", action="store_true")
     ap.add_argument("--gsm", action="store_true")
     ap.add_argument("--video", action="store_true")
+    ap.add_argument("--tiled", action="store_true")
+    ap.add_argument("--tiled-engines", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -165,6 +187,12 @@ def main() -> int:
         return 0
     if args.video:
         video_profile(args.reps, dev, smi)
+        return 0
+    if args.tiled:
+        tiled_grid(dev, smi)
+        return 0
+    if args.tiled_engines:
+        conv_engines(dev, smi)
         return 0
     model = Cheng2020AnchorCheckerboardGMMv2(N=192, K=4, seed=0, device=dev)
     load_npz(model, WEIGHTS)
@@ -1079,6 +1107,248 @@ def conv_tiles(batches, dev, smi):
             print(json.dumps({"batch": batch, "layers": rows,
                               "sum_ms_over_launches": total, "card": smi}),
                   flush=True)
+
+
+
+class _CallRecorder:
+    """Records F.conv2d, F.linear and the bf16 conv kernel's calls while
+    active: (name, input, output), each as an NHWC-ordered view whose dim 1
+    is the image's rows."""
+
+    def __init__(self):
+        import torch.nn.functional as F
+
+        from flashgmm_tpu_torch.ops import conv_kernel
+
+        self.calls = []
+        self._patches = []
+        for owner, name, rows in ((F, "conv2d", 2), (F, "linear", 1),
+                                  (conv_kernel, "conv2d_nhwc_bf16", 1)):
+            self._patches.append((owner, name, getattr(owner, name), rows))
+
+    def __enter__(self):
+        for owner, name, fn, rows in self._patches:
+            def wrapped(x, *a, _fn=fn, _name=name, _rows=rows, **k):
+                y = _fn(x, *a, **k)
+                self.calls.append((_name, x.movedim(_rows, 1).clone(),
+                                   y.movedim(_rows, 1).clone()))
+                return y
+            setattr(owner, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn, _ in self._patches:
+            setattr(owner, name, fn)
+
+
+def _first_divergent_calls(codec, y, tile_h, halo, upsample=16):
+    """For the first tile of ``g_s_tiled`` over the whole transform (every
+    layer tiled) whose core rows differ from the direct g_s, the recorded
+    calls whose core rows differ although their
+    input's core rows are equal (the calls that themselves round
+    differently at the tile's shape), up to 4."""
+    import torch
+
+    def run(yt):
+        with _CallRecorder() as rec:
+            out = torch.clamp(codec._transform(codec._g_s, yt), 0, 1)
+        return out, rec.calls
+
+    h = y.shape[1]
+    direct, dcalls = run(y)
+    for t in range(-(-h // tile_h)):
+        y0, y1 = t * tile_h, min(h, t * tile_h + tile_h)
+        top, bot = max(0, y0 - halo), min(h, y1 + halo)
+        out, tcalls = run(y[:, top:bot])
+        core = out[:, (y0 - top) * upsample:(y1 - top) * upsample]
+        if torch.equal(core, direct[:, y0 * upsample:y1 * upsample]):
+            continue
+        found = []
+        for i, ((name, dx, dy), (_, tx, ty)) in enumerate(zip(dcalls, tcalls)):
+            def rows(d, t_, lat_h=h):
+                s = d.shape[1] // lat_h
+                return (d[:, y0 * s:y1 * s],
+                        t_[:, (y0 - top) * s:(y1 - top) * s])
+            di, ti = rows(dx, tx)
+            do, to = rows(dy, ty)
+            if torch.equal(di, ti) and not torch.equal(do, to):
+                found.append({
+                    "call": i, "op": name, "in_shape": list(tx.shape),
+                    "direct_in_shape": list(dx.shape), "dtype": str(ty.dtype),
+                    "max_abs": float((do.float() - to.float()).abs().max()),
+                    "frac_differ": float((do != to).float().mean())})
+                if name == "conv2d" and len(found) == 1:
+                    found[0]["kernels"] = _conv_kernels(codec, i, y, top, bot)
+                if len(found) == 4:
+                    break
+        return {"tile": t, "rows": [top, bot], "n_calls": len(dcalls),
+                "divergent": found}
+    return None
+
+
+def _conv_kernels(codec, index, y, top, bot):
+    """The device kernels of the ``index``-th F.conv2d call of g_s on y and
+    on the tile y[:, top:bot] (torch.profiler), the input's strides, and,
+    at that conv's width and channels, for each input height from 8 to 160
+    rows (a step of 8) whether its rows above the last equal those of the
+    tallest input (a random bf16 input of the call's layout)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from flashgmm_tpu_torch.layers import pinned_library_settings
+
+    seen = {}
+    orig = F.conv2d
+
+    def run(yt, tag):
+        count = [0]
+
+        def spy(x, w, *a, **k):
+            if count[0] == index:
+                seen[tag] = (x, w, a, k)
+            count[0] += 1
+            return orig(x, w, *a, **k)
+        F.conv2d = spy
+        try:
+            codec._transform(codec._g_s, yt)
+        finally:
+            F.conv2d = orig
+        x, w, a, k = seen[tag]
+        with pinned_library_settings():
+            orig(x, w, *a, **k)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                orig(x, w, *a, **k)
+                torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type.name == "CUDA"})
+        return {"input_shape": list(x.shape), "input_stride": list(x.stride()),
+                "kernels": names}
+
+    out = {"direct": run(y, "direct"), "tile": run(y[:, top:bot], "tile")}
+    x, w, a, k = seen["direct"]
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    tall = 160
+    ref_in = torch.randn((x.shape[0], tall, x.shape[3], x.shape[1]),
+                         generator=gen, device=x.device).to(x.dtype)
+    with pinned_library_settings():
+        ref = orig(ref_in.permute(0, 3, 1, 2), w, *a, **k)
+        same = {}
+        for h in range(8, tall, 8):
+            xin = ref_in[:, :h].contiguous().permute(0, 3, 1, 2)
+            got = orig(xin, w, *a, **k)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                orig(xin, w, *a, **k)
+                torch.cuda.synchronize()
+            same[h] = [bool(torch.equal(got[:, :, :h - 1],
+                                        ref[:, :, :h - 1])),
+                       sorted({e.key[:90] for e in prof.key_averages()
+                               if e.device_type.name == "CUDA"})]
+    out["equal_to_160_rows_by_height"] = same
+    return out
+
+
+def conv_engines(dev, smi):
+    """cuDNN's engine by conv shape (``--tiled-engines``)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from flashgmm_tpu_torch.layers import pinned_library_settings
+
+    def engine(x, w):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            F.conv2d(x, w, None, 1, 1)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type.name == "CUDA" and "Memset" not in e.key]
+        return "+".join(sorted(n.split("_cudnn")[0][-90:] for n in names))
+
+    widths = [8, 16, 24, 32, 48, 64, 96, 128, 192, 240, 256, 480, 960, 1920]
+    with torch.inference_mode(), pinned_library_settings():
+        for c_out in (192, 1536, 12):
+            w = (torch.randn(c_out, 192, 3, 3, device=dev) * 0.05).to(
+                torch.bfloat16)
+            for width in widths:
+                starts, last, px = {}, None, 64
+                while px <= 1 << 21:
+                    h = max(1, px // width)
+                    x = torch.randn(1, h, width, 192, device=dev).to(
+                        torch.bfloat16).permute(0, 3, 1, 2)
+                    F.conv2d(x, w, None, 1, 1)
+                    name = engine(x, w)
+                    if name != last:
+                        starts[h] = name
+                        last = name
+                    px *= 2
+                print(json.dumps({"conv": [192, c_out, 3], "width": width,
+                                  "engine_from_height": starts, "card": smi}),
+                      flush=True)
+
+
+def tiled_grid(dev, smi, n=192):
+    """Tiled against direct g_s over {weights} x {latent} x {shape} on both
+    routes (``--tiled``; ``n`` other than 192 only to rehearse it on the
+    CPU, seed-initialised alone)."""
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+    from flashgmm_tpu_torch.runtime import FastCheckerboardGmmCodec
+    from flashgmm_tpu_torch.runtime.tiled import g_s_tiled, make_tiled_gs
+    from flashgmm_tpu_torch.zoo import load_npz
+
+    shapes = {"jax": ((24, 8), 4), "card": ((40, 24), 8)}
+    for weights in ("seed", "synthetic")[:2 if n == 192 else 1]:
+        model = Cheng2020AnchorCheckerboardGMMv2(N=n, K=4, seed=0,
+                                                 device=dev)
+        if weights == "synthetic":
+            load_npz(model, WEIGHTS)
+        model.update(update_quantiles=True)
+        for kernel in (False, True):
+            codec = FastCheckerboardGmmCodec(model, lanes=256,
+                                             kernel_transforms=kernel)
+            for shape, ((h, w), tile_h) in shapes.items():
+                image = torch.from_numpy(textured_leaves(
+                    16 * h, 16 * w, seed=500006)[None]).to(dev)
+                with torch.inference_mode():
+                    latents = {
+                        "random": torch.from_numpy(np.random.RandomState(
+                            7).rand(1, h, w, n).astype(np.float32)).to(dev),
+                        "real": codec.encode(image)["y_hat"]}
+                    for latent, y in latents.items():
+                        direct = torch.clamp(
+                            codec._transform(codec._g_s, y), 0, 1)
+                        again = torch.clamp(
+                            codec._transform(codec._g_s, y), 0, 1)
+                        row = {
+                            "weights": weights,
+                            "route": "kernel" if kernel else "default",
+                            "latent": latent, "shape": list(y.shape),
+                            "tile_h": tile_h,
+                            "direct_repeatable": bool(torch.equal(direct,
+                                                                  again)),
+                            "card": smi}
+                        every = g_s_tiled(lambda t: torch.clamp(
+                            codec._transform(codec._g_s, t), 0, 1), y,
+                            tile_h=tile_h, halo=8)
+                        for name, out in (
+                                ("tiled", make_tiled_gs(codec, tile_h=tile_h,
+                                                        halo=8)(y)),
+                                ("every_layer_tiled", every)):
+                            diff = (out - direct).abs()
+                            row[name] = {
+                                "max_abs": float(diff.max()),
+                                "frac_beyond_1e-6": float(
+                                    (diff > 1e-6).float().mean())}
+                        if row["every_layer_tiled"]["max_abs"] > 0:
+                            row["first_tile"] = _first_divergent_calls(
+                                codec, y, tile_h, 8)
+                        print(json.dumps(row), flush=True)
+        del model, codec
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -128,7 +128,13 @@ Phases, each ending in one flushed line with its seconds:
    the standalone codec's model card exported on the card and its streams
    crossing the C++ binaries ``fgsc_encode`` / ``fgsc_decode`` (built from
    csrc/ in the CpuSide process after the kernels' build); the range coder
-   (``set_entropy_coder("rangecoder")``) giving the rANS coder's y_hat.
+   (``set_entropy_coder("rangecoder")``) giving the rANS coder's y_hat;
+   and the last public names (ROADMAP A8): the JAX test's tiled case (the
+   seed-initialised flagship on random latents, at [1, 24, 8, 192] and
+   [1, 40, 24, 192], both routes, the same bounds;
+   ``tiled_random_cases``), ``save_npz_weights`` writing the flagship's
+   weight file back bit for bit (``weights_round_trip``), GDN1 and the
+   spectral convs on the card against the CPU (``last_layers_on_card``).
    ``python3 chip_smoke.py --tools`` runs this phase alone;
 12. vbr: the variable-bitrate models (ROADMAP item 13; ``vbr_phase``),
    while the zoo phase's CPU runs go on, on the two 768x512 images of the
@@ -2986,6 +2992,143 @@ def shared_calls(calls):
             for args, kwargs in calls]
 
 
+# the JAX test's own tiled case (tests/test_fast_codec.py:209-225): the
+# flagship seed-initialised, np.random.RandomState(7).rand as the latent,
+# at its shape [1, 24, 8, N] by tiles of 4 rows and at the card test's
+# [1, 40, 24, N] by tiles of 8, halo 8: (latent rows, columns, tile_h)
+TILED_RANDOM_CASES = ((24, 8, 4), (40, 24, 8))
+
+
+def tiled_random_cases(dev, smi_line):
+    """Tiled against direct g_s of the seed-initialised flagship on random
+    latents (TILED_RANDOM_CASES) on both transform routes, within
+    TILED_ATOL with under TILED_FRAC of the pixels more than 1e-6 apart."""
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+    from flashgmm_tpu_torch.runtime import FastCheckerboardGmmCodec
+    from flashgmm_tpu_torch.runtime.tiled import make_tiled_gs
+
+    t0 = time.perf_counter()
+    model = Cheng2020AnchorCheckerboardGMMv2(N=N, K=K, seed=0, device=dev)
+    model.update(update_quantiles=True)
+    rows = []
+    for kernel in (False, True):
+        codec = FastCheckerboardGmmCodec(model, lanes=256,
+                                         kernel_transforms=kernel)
+        for h, w, tile_h in TILED_RANDOM_CASES:
+            y = torch.from_numpy(np.random.RandomState(7).rand(
+                1, h, w, N).astype(np.float32)).to(dev)
+            direct = torch.clamp(codec._transform(codec._g_s, y), 0, 1)
+            tiled = make_tiled_gs(codec, tile_h=tile_h, halo=8)(y)
+            diff = (tiled - direct).abs()
+            worst = float(diff.max())
+            frac = float((diff > 1e-6).float().mean())
+            tag = (f"{'kernel' if kernel else 'default'} route, "
+                   f"[1, {h}, {w}, {N}] by {tile_h} rows")
+            require(tuple(tiled.shape) == (1, 16 * h, 16 * w, 3),
+                    f"tiled random latent, {tag}: shape {tuple(tiled.shape)}")
+            require(worst <= TILED_ATOL and frac < TILED_FRAC,
+                    f"tiled random latent, {tag}: {worst} max, {frac} of "
+                    "pixels beyond 1e-6")
+            rows.append(f"{tag}: max {worst:.3g}, {100 * frac:.4f} % beyond "
+                        "1e-6")
+        del codec
+    del model
+    print("  tiled g_s, seed-initialised flagship on random latents "
+          "(the JAX test's case): " + "; ".join(rows) + f"; "
+          f"{time.perf_counter() - t0:.2f} s with the model's build "
+          f"({smi_line})", flush=True)
+
+
+def weights_round_trip(model, smi_line):
+    """``zoo.save_npz_weights`` on the card: a copy of the phase-4 flagship
+    loaded from WEIGHTS on the card and written to a temporary file must
+    give WEIGHTS' key set and every array bit for bit (float16 -> float32 ->
+    float16 is exact)."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from flashgmm_tpu_torch.zoo import load_npz, save_npz_weights
+
+    t_all = time.perf_counter()
+    m = copy.deepcopy(model)
+    load_npz(m, WEIGHTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "saved.npz"
+        t0 = time.perf_counter()
+        save_npz_weights(m, out)
+        t_save = time.perf_counter() - t0
+        with np.load(WEIGHTS) as want, np.load(out) as got:
+            require(set(got.files) == set(want.files),
+                    f"save_npz_weights: keys {sorted(set(got.files) ^ set(want.files))[:4]} "
+                    "differ from the repository file's")
+            bad = [k for k in want.files
+                   if got[k].dtype != np.float16
+                   or not np.array_equal(got[k].view(np.uint16),
+                                         want[k].view(np.uint16))]
+            require(not bad, f"save_npz_weights: arrays {bad[:4]} differ")
+            n = len(want.files)
+    del m
+    print(f"  save_npz_weights: the flagship loaded on the card from "
+          f"{WEIGHTS.name} written back in {t_save:.2f} s: its {n} keys and "
+          f"every float16 array bit for bit the file's; "
+          f"{time.perf_counter() - t_all:.2f} s in all ({smi_line})",
+          flush=True)
+
+
+# GDN1 and the spectral convs on the card against the CPU: float32 sums in
+# other orders (cuDNN, cuBLAS and cuFFT with TF32 off against the CPU's)
+LAYERS_ATOL = 1e-4
+
+
+def last_layers_on_card(dev, smi_line):
+    """GDN1 (both directions), SpectralConv2d and SpectralConvTranspose2d at
+    N channels on a 1 x 64 x 64 input, on the card against the same module
+    on the CPU, within LAYERS_ATOL."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.layers import (GDN1, SpectralConv2d,
+                                           SpectralConvTranspose2d,
+                                           pinned_library_settings)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED0)
+    gdn = []
+    for inverse in (False, True):
+        g = GDN1(N, inverse=inverse)
+        with torch.no_grad():  # away from the identity init
+            g.beta.uniform_(0.5, 1.5, generator=gen)
+            g.gamma.uniform_(0.0, 0.1, generator=gen)
+        gdn.append((f"GDN1(inverse={inverse})", g))
+    layers = gdn + [
+        ("SpectralConv2d 3x3", SpectralConv2d(N, N, 3, 1, 1, generator=gen)),
+        ("SpectralConvTranspose2d 5x5 s2",
+         SpectralConvTranspose2d(N, N, 5, 2, 2, 1, generator=gen))]
+    x = torch.from_numpy(np.random.RandomState(SEED0).randn(
+        1, 64, 64, N).astype(np.float32))
+    worst = {}
+    with torch.no_grad(), pinned_library_settings():
+        for name, cpu_layer in layers:
+            want = cpu_layer(x)
+            got = copy.deepcopy(cpu_layer).to(dev)(x.to(dev)).cpu()
+            require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                    f"{name} on the card: shape {tuple(got.shape)}")
+            worst[name] = float((got - want).abs().max())
+            require(worst[name] <= LAYERS_ATOL,
+                    f"{name}: the card {worst[name]} from the CPU")
+    print("  layers on the card against the CPU (1x64x64x"
+          f"{N}, within {LAYERS_ATOL}): " + ", ".join(
+              f"{k} max {v:.3g}" for k, v in worst.items())
+          + f"; {time.perf_counter() - t0:.2f} s ({smi_line})", flush=True)
+
+
 def tools_phase(dev, model, record, smi_line, early):
     """The last modules (ROADMAP item 15) on the card: tiled synthesis at
     UHD, the .fgm file CLI, the standalone codec and the range coder.
@@ -3027,6 +3170,8 @@ def tools_phase(dev, model, record, smi_line, early):
       ``set_entropy_coder("rangecoder")`` and under "rans", one compress and
       decompress of a 256x256 image each: the same y_hat; the registry is
       reset after.
+    - The last public names: ``tiled_random_cases``,
+      ``weights_round_trip`` and ``last_layers_on_card``.
 
     Returns (launches, recorded calls) of the kernel route's tiled run and
     the in-process image CLI run together, and the CPU decodes as
@@ -3214,6 +3359,10 @@ def tools_phase(dev, model, record, smi_line, early):
         uhd_coded[route] = (tag, codec, y_hat, len(data))
         del enc, data
     del x, uhd
+    # the last public names, still while the jobs run
+    tiled_random_cases(dev, smi_line)
+    weights_round_trip(model, smi_line)
+    last_layers_on_card(dev, smi_line)
     done = cli.finish()
     for tag, runs in done.items():
         print(f"  .fgm CLI {tag} on the card: " + "; ".join(
@@ -3360,7 +3509,7 @@ def tools_phase(dev, model, record, smi_line, early):
              for k in enc_calls}
     phase("tools", "tiled UHD synthesis on both routes, the .fgm CLI on the "
           "card, the standalone codec against its C++ binaries, the range "
-          "coder")
+          "coder, the last public names")
     return launches, calls, cpu_jobs
 
 

@@ -60,6 +60,7 @@ def _f32(v: float) -> float:
     return struct.unpack("f", struct.pack("f", v))[0]
 
 
+MAX_CDF_VALUE = 65535.0
 _PI = 3.14159265358979323846
 _POLYA_C = _f32(-2.0 / _PI)
 _INV_SQRT_2PI = _f32(0.3989422804014327)
@@ -125,6 +126,14 @@ _CDF_FNS = {0: polya_cdf, 1: abramowitz_stegun_cdf, 2: logistic_cdf}
 # Pólya mode the 0.5 moves onto the weight, as XLA rewrites it).
 _TERM_A = {0: _polya, 1: _abramowitz_stegun, 2: _logistic_1702}
 _TERM_B = {0: lambda w: _ftz(w * 0.5), 1: lambda w: w, 2: lambda w: w}
+
+
+def gaussian_cdf(x, mode: int = None):
+    """Phi(x) by the approximation ``mode`` (0 Pólya, 1 Abramowitz &
+    Stegun, 2 logistic; None: ``APPROX_MODE``, as ``get_approx_mode``)."""
+    if mode is None:
+        mode = get_approx_mode()
+    return _CDF_FNS[mode](x)
 
 
 def _mixture_cdf(x, scales, means, weights, mode: int):

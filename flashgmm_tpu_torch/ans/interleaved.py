@@ -17,6 +17,7 @@ freqs, words, rows and streams int32 (u16 payloads), masks bool.
 import torch
 
 RANS_L = 1 << 16
+M_TOTAL = 1 << 16  # probability denominator
 MASK32 = 0xFFFFFFFF
 MASK16 = 0xFFFF
 

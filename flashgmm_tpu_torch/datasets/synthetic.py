@@ -1,6 +1,7 @@
 """Synthetic natural-image-statistics content (the port's own copy of
-``dead_leaves`` and ``textured_leaves`` from flashgmm_tpu/datasets/synthetic.py;
-a copy, because importing anything under flashgmm_tpu imports JAX).
+``dead_leaves``, ``textured_leaves``, ``make_pool`` and ``random_crop`` from
+flashgmm_tpu/datasets/synthetic.py; a copy, because importing anything under
+flashgmm_tpu imports JAX).
 
 Pure numpy and deterministic in the seed, so the same seed gives the same
 image in both packages. ``textured_leaves`` is dead leaves + per-disk linear
@@ -10,7 +11,7 @@ at 0.4-1.0 bpp under a trained model, like real photos.
 
 import numpy as np
 
-__all__ = ["dead_leaves", "textured_leaves"]
+__all__ = ["dead_leaves", "make_pool", "random_crop", "textured_leaves"]
 
 
 def _disk_bbox(h, w, cy, cx, r):
@@ -117,3 +118,26 @@ def textured_leaves(h, w, seed=0, noise_std=0.01):
     img = _blur3(img)
     img = img + rng.randn(h, w, 3).astype(np.float32) * noise_std
     return np.clip(img, 0.0, 1.0).astype(np.float32)
+
+
+def make_pool(n, h, w, seed0=0, kind="textured"):
+    """Generate a pool of images (list of [h,w,3] float32)."""
+    fn = textured_leaves if kind == "textured" else dead_leaves
+    return [np.asarray(fn(h, w, seed=seed0 + i), np.float32) for i in range(n)]
+
+
+def random_crop(pool, batch, crop, rng):
+    """Sample a [batch, crop, crop, 3] training batch from a pool: each crop
+    from a random image at a random place, flipped left-right with
+    probability 1/2, all drawn from the numpy ``RandomState`` ``rng``."""
+    out = np.empty((batch, crop, crop, 3), np.float32)
+    for b in range(batch):
+        img = pool[rng.randint(len(pool))]
+        h, w = img.shape[:2]
+        y = rng.randint(h - crop + 1)
+        x = rng.randint(w - crop + 1)
+        patch = img[y:y + crop, x:x + crop]
+        if rng.rand() < 0.5:
+            patch = patch[:, ::-1]
+        out[b] = patch
+    return out

@@ -34,3 +34,17 @@ class GDN(nn.Module):
         norm = F.linear((x * x).float(), gamma.float()) + beta.float()
         norm = torch.sqrt(norm) if self.inverse else torch.rsqrt(norm)
         return x * norm.to(x.dtype)
+
+
+class GDN1(GDN):
+    r"""Simplified GDN: y[i] = x[i] / (beta[i] + sum_j gamma[j,i] * |x[j]|)
+    (``inverse=True``: times the sum), in the JAX package's order of
+    operations: the reciprocal first, then the product."""
+
+    def forward(self, x):
+        beta = self.beta_reparam(self.beta)
+        gamma = self.gamma_reparam(self.gamma)
+        norm = F.linear(torch.abs(x).float(), gamma.float()) + beta.float()
+        if not self.inverse:
+            norm = 1.0 / norm
+        return x * norm.to(x.dtype)

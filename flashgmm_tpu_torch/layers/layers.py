@@ -128,11 +128,12 @@ class Conv2d(nn.Module):
     def route_bf16_kernel(self):
         """Send this conv through the bf16 conv kernel from now on, if the
         kernel's rule takes it; the weights are frozen in its layout."""
-        k = tuple(self.weight.shape[-2:])
-        if not conv_kernel.bf16_route_takes(self.in_ch, self.out_ch, k,
-                                            self.stride, self.padding):
+        w = self.kernel_hwio()
+        if not conv_kernel.bf16_route_takes(self.in_ch, self.out_ch,
+                                            tuple(w.shape[:2]), self.stride,
+                                            self.padding):
             return
-        self._kernel_w = conv_kernel.pack_bf16_weight(self.kernel_hwio())
+        self._kernel_w = conv_kernel.pack_bf16_weight(w)
         self._kernel_b = (None if self.bias is None
                           else self.bias.detach().float())
         self.kernel_route = True
@@ -165,13 +166,14 @@ class Conv2d(nn.Module):
 
     def canonical(self, x, negative_slope=None):
         """Rows-chain forward through the hand conv kernel (float32)."""
-        k = self.weight.shape[-1]
-        if (self.stride != (1, 1) or self.weight.shape[-2] != k
+        w = self.kernel_hwio()
+        k = w.shape[1]
+        if (self.stride != (1, 1) or w.shape[0] != k
                 or self.padding != (k // 2, k // 2)):
             raise ValueError("the rows-chain conv kernel takes stride-1 "
                              "'same' square convs only")
         return conv_kernel.conv2d_nhwc(
-            x.float().contiguous(), self.kernel_hwio(),
+            x.float().contiguous(), w,
             None if self.bias is None else self.bias.float(),
             negative_slope=negative_slope)
 
@@ -201,9 +203,13 @@ class ConvTranspose2d(nn.Module):
                                            generator))
                      if use_bias else None)
 
+    def _weight(self):
+        return self.weight
+
     def forward(self, x):
+        w = self._weight()
         y = F.conv_transpose2d(
-            _library_input(x, self.weight), self.weight.to(x.dtype),
+            _library_input(x, w), w.to(x.dtype),
             None if self.bias is None else self.bias.to(x.dtype),
             self.stride, self.padding, self.output_padding)
         return y.permute(0, 2, 3, 1)
@@ -211,7 +217,7 @@ class ConvTranspose2d(nn.Module):
     def kernel_hwio(self):
         """The equivalent stride-1 conv's kernel: the weight flipped
         spatially, as a contiguous float32 HWIO [kh, kw, in, out]."""
-        return self.weight.detach().float().permute(2, 3, 0, 1).flip(
+        return self._weight().detach().float().permute(2, 3, 0, 1).flip(
             0, 1).contiguous()
 
     def canonical(self, x, negative_slope=None):
@@ -224,7 +230,8 @@ class ConvTranspose2d(nn.Module):
         ``deconv``). The inserted zeros leave each output's fmaf chain
         unchanged (fma(0, w, acc) == acc), so its bits depend only on the
         fixed (dy, dx, c_in) order, as in every rows-chain conv."""
-        kh, kw = self.weight.shape[-2:]
+        kernel = self.kernel_hwio()
+        kh, kw = kernel.shape[:2]
         s = self.stride[0]
         if (kh != kw or kh % 2 == 0 or self.stride != (s, s)
                 or self.padding != (kh // 2, kh // 2)
@@ -239,9 +246,51 @@ class ConvTranspose2d(nn.Module):
             up[:, ::s, ::s] = x
             x = up
         return conv_kernel.conv2d_nhwc(
-            x.contiguous(), self.kernel_hwio(),
+            x.contiguous(), kernel,
             None if self.bias is None else self.bias.float(),
             negative_slope=negative_slope)
+
+
+class SpectralConv2d(Conv2d):
+    """Conv with its weight stored in the real-FFT domain (Balle 2018
+    "spectral Adam"; the reference's layers.py:59-106): the parameter
+    ``weight_transformed`` is ``torch.fft.rfftn`` of the OIHW weight over
+    (kh, kw) (``norm="ortho"``, complex [out, in, kh, kw//2+1]), rebuilt by
+    ``irfftn`` at every call, so that an optimizer's steps reach every
+    frequency alike."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
+                 use_bias: bool = True, *, generator=None):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding,
+                         use_bias, generator=generator)
+        w = self.weight.detach()
+        del self.weight
+        self.kernel_size_hw = tuple(w.shape[-2:])
+        self.weight_transformed = nn.Parameter(torch.fft.rfftn(
+            w, s=self.kernel_size_hw, dim=(-2, -1), norm="ortho"))
+
+    def _weight(self):
+        return torch.fft.irfftn(self.weight_transformed, s=self.kernel_size_hw,
+                                dim=(-2, -1), norm="ortho")
+
+
+class SpectralConvTranspose2d(ConvTranspose2d):
+    """Transposed variant of :class:`SpectralConv2d`: the real FFT of the
+    [in, out, kh, kw] weight over (kh, kw)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
+                 output_padding=0, use_bias: bool = True, *, generator=None):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding,
+                         output_padding, use_bias, generator=generator)
+        w = self.weight.detach()
+        del self.weight
+        self.kernel_size_hw = tuple(w.shape[-2:])
+        self.weight_transformed = nn.Parameter(torch.fft.rfftn(
+            w, s=self.kernel_size_hw, dim=(-2, -1), norm="ortho"))
+
+    def _weight(self):
+        return torch.fft.irfftn(self.weight_transformed, s=self.kernel_size_hw,
+                                dim=(-2, -1), norm="ortho")
 
 
 def conv(in_ch, out_ch, kernel_size=5, stride=2, *, generator=None):

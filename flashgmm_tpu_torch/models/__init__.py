@@ -1,4 +1,5 @@
-from .base import CompressionModel, SimpleVAECompressionModel
+from .base import (CompressionModel, SimpleVAECompressionModel,
+                   get_scale_table)
 from .chandelier import Elic2022Chandelier
 from .ckbd_gmm import Cheng2020AnchorCheckerboardGMMv2
 from .elic_gmm import Elic2022GMM
@@ -26,4 +27,4 @@ __all__ = ["CompressionModel", "SimpleVAECompressionModel",
            "MeanScaleHyperpriorVbr", "PointNet2ReconstructionPccModel",
            "PointNetReconstructionPccModel", "ScaleHyperprior",
            "ScaleHyperpriorVbr",
-           "ScaleSpaceFlow", "SigmoidCDFCompressor"]
+           "ScaleSpaceFlow", "SigmoidCDFCompressor", "get_scale_table"]

@@ -1,6 +1,6 @@
 from .image import (cfgs, cfgs_vbr, cfgs_video, create_model, image_models,
                     model_architectures)
-from .npz import load_jax_params, load_npz
+from .npz import load_jax_params, load_npz, save_npz_weights
 from .torch_convert import (load_checkpoint_file, load_torch_state_dict,
                             rename_legacy_keys)
 from .torch_export import export_torch_state_dict, load_into_torch_model
@@ -22,4 +22,5 @@ __all__ = [
     "load_npz",
     "load_torch_state_dict",
     "rename_legacy_keys",
+    "save_npz_weights",
 ]

@@ -1531,14 +1531,21 @@ def test_hrtzxf2022_roundtrip_on_card_decodes_on_the_cpu(cuda):
     assert float(chamfer_distance(x_cpu, a.cpu())) < 1e-6
 
 
+@pytest.mark.parametrize("case", ["real", "random_jax", "random_card"])
 @pytest.mark.parametrize("kernel_transforms", [False, True])
-def test_tiled_synthesis_matches_direct_on_card(cuda, kernel_transforms):
-    """Tiled g_s (``runtime/tiled.py``) of the flagship at N=192 on its
-    synthetic weights, on the card, on both transform routes: the y_hat of
-    a 640x384 textured-leaves image decoded by tiles of 8 latent rows
-    within 2e-2 of the direct g_s with under 5 % of the pixels more than
-    1e-6 apart (the JAX test's bounds), the kernel route launching the
-    bf16 conv for each tile."""
+def test_tiled_synthesis_matches_direct_on_card(cuda, kernel_transforms,
+                                                case):
+    """Tiled g_s (``runtime/tiled.py``, halo 8) of the flagship at N=192 on
+    the card, on both transform routes, within 2e-2 of the direct g_s with
+    under 5 % of the pixels more than 1e-6 apart (the JAX test's bounds,
+    tests/test_fast_codec.py:209-225), the kernel route launching the bf16
+    conv for each tile. Cases: "real", the synthetic weights and the y_hat
+    of a 640x384 textured-leaves image ([1, 40, 24, 192]) by tiles of 8
+    latent rows; "random_jax", the JAX test's own case: the model
+    seed-initialised (seed 0, no weights loaded) and
+    ``np.random.RandomState(7).rand`` as the latent, at its shape [1, 24, 8,
+    192] by tiles of 4 rows; "random_card", that model and latent at the
+    real case's shape [1, 40, 24, 192] by tiles of 8 rows."""
     from flashgmm_tpu_torch.datasets import textured_leaves
     from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
     from flashgmm_tpu_torch.runtime import FastCheckerboardGmmCodec
@@ -1547,20 +1554,26 @@ def test_tiled_synthesis_matches_direct_on_card(cuda, kernel_transforms):
 
     model = Cheng2020AnchorCheckerboardGMMv2(N=192, K=4, seed=0,
                                              device=cuda)
-    load_npz(model, Path(__file__).resolve().parent.parent / "weights"
-             / "ckbd_gmm_n192_k4_synthetic.npz")
+    if case == "real":
+        load_npz(model, Path(__file__).resolve().parent.parent / "weights"
+                 / "ckbd_gmm_n192_k4_synthetic.npz")
     model.update(update_quantiles=True)
     codec = FastCheckerboardGmmCodec(model, lanes=256,
                                      kernel_transforms=kernel_transforms)
-    x = torch.from_numpy(textured_leaves(640, 384, seed=500006)[None])
+    (h, w), tile_h = ((24, 8), 4) if case == "random_jax" else ((40, 24), 8)
     with torch.inference_mode():
-        y = codec.encode(x.to(cuda))["y_hat"]
+        if case == "real":
+            x = torch.from_numpy(textured_leaves(640, 384, seed=500006)[None])
+            y = codec.encode(x.to(cuda))["y_hat"]
+        else:
+            y = torch.from_numpy(np.random.RandomState(7).rand(
+                1, h, w, 192).astype(np.float32)).to(cuda)
         direct = torch.clamp(codec._transform(codec._g_s, y), 0, 1)
         before = conv_kernel.conv2d_nhwc_bf16.launches
-        tiled = make_tiled_gs(codec, tile_h=8, halo=8)(y)
+        tiled = make_tiled_gs(codec, tile_h=tile_h, halo=8)(y)
         launched = conv_kernel.conv2d_nhwc_bf16.launches - before
-    assert tuple(y.shape) == (1, 40, 24, 192)
-    assert tiled.shape == direct.shape == (1, 640, 384, 3)
+    assert tuple(y.shape) == (1, h, w, 192)
+    assert tiled.shape == direct.shape == (1, 16 * h, 16 * w, 3)
     diff = (tiled - direct).abs()
     assert float(diff.max()) <= 2e-2
     assert float((diff > 1e-6).float().mean()) < 0.05

@@ -169,24 +169,48 @@ LAST_MODULES = [
     "flashgmm_tpu_torch.utils.video.plot.__main__",
 ]
 
+# the last public names (ROADMAP A8), each where the JAX package exports it
+LAST_NAMES = [
+    ("flashgmm_tpu_torch.zoo", "save_npz_weights"),
+    ("flashgmm_tpu_torch.zoo.npz", "save_npz_weights"),
+    ("flashgmm_tpu_torch.layers", "GDN1"),
+    ("flashgmm_tpu_torch.layers.gdn", "GDN1"),
+    ("flashgmm_tpu_torch.layers", "SpectralConv2d"),
+    ("flashgmm_tpu_torch.layers", "SpectralConvTranspose2d"),
+    ("flashgmm_tpu_torch.layers", "leaky_relu"),
+    ("flashgmm_tpu_torch.datasets.synthetic", "make_pool"),
+    ("flashgmm_tpu_torch.datasets.synthetic", "random_crop"),
+    ("flashgmm_tpu_torch.models", "get_scale_table"),
+    ("flashgmm_tpu_torch.ans.gaussian_cdf", "gaussian_cdf"),
+    ("flashgmm_tpu_torch.ans.gaussian_cdf", "MAX_CDF_VALUE"),
+    ("flashgmm_tpu_torch.ans.interleaved", "M_TOTAL"),
+]
+
 
 def test_last_modules_import_no_jax():
     """The last modules (the entropy-coder registry, the numpy coders,
     tiled synthesis, the standalone codec's export, bitstream and build,
     the .fgm CLI, the state-dict export, the profiler and the host tool
-    CLIs), imported one after another in a fresh interpreter, each
-    followed by a look at what got imported."""
+    CLIs), then the last public names (``LAST_NAMES``), imported one after
+    another in a fresh interpreter, each followed by a look at what got
+    imported."""
     probe = ("import importlib, sys\n"
+             "def bad():\n"
+             "    return ','.join(sorted(k for k in sys.modules if "
+             "k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', "
+             "'flashgmm_tpu')))\n"
              f"for m in {LAST_MODULES!r}:\n"
              "    importlib.import_module(m)\n"
-             "    bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-             "('jax', 'jaxlib', 'flax', 'optax', 'flashgmm_tpu'))\n"
-             "    print(m, ','.join(bad))\n")
+             "    print(m, bad())\n"
+             f"for m, name in {LAST_NAMES!r}:\n"
+             "    getattr(importlib.import_module(m), name)\n"
+             "    print(m, name, bad())\n")
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    lines = out.stdout.split("\n")[:len(LAST_MODULES)]
-    assert lines == [f"{m} " for m in LAST_MODULES], out.stdout
+    lines = out.stdout.split("\n")[:len(LAST_MODULES) + len(LAST_NAMES)]
+    assert lines == [f"{m} " for m in LAST_MODULES] + [
+        f"{m} {name} " for m, name in LAST_NAMES], out.stdout
 
 CLI_PROBE = """
 import os, runpy, sys, tempfile
