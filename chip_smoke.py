@@ -136,6 +136,18 @@ Phases, each ending in one flushed line with its seconds:
    weight file back bit for bit (``weights_round_trip``), GDN1 and the
    spectral convs on the card against the CPU (``last_layers_on_card``).
    ``python3 chip_smoke.py --tools`` runs this phase alone;
+11c. parallel: batch-data-parallel coding and the sharded forwards
+   (ROADMAP A9; ``parallel_phase``) over every card of the host, or on a
+   one-card host over 4 slots named on cuda:0: the flagship's batched
+   codec with ``use_mesh`` on both routes (launches by card: the bf16
+   conv on every card, the coders and the f32 conv on the first; every
+   round trip exact; one card's bytes decoded on the mesh and the mesh's
+   on one card; ``portable=False`` exact; the bytes against one card's,
+   ROADMAP C15), GSM and ELIC on the mesh, the height-sharded forward
+   within the JAX test's bounds of the whole one, each card's peak
+   memory. ``python3 chip_smoke.py --parallel`` runs it alone, with the
+   times at global batch 24 and 96 on one card and on the mesh, the
+   transforms' share, each card's busy share and a 3840x2176 forward;
 12. vbr: the variable-bitrate models (ROADMAP item 13; ``vbr_phase``),
    while the zoo phase's CPU runs go on, on the two 768x512 images of the
    JAX package's sweep: the shipped mbt2018-mean-vbr (N=192, M=320, the variable-step bottleneck) at each of
@@ -3548,6 +3560,407 @@ def tools_early(cpu):
             "uhd": cpu.start(textured_leaves, (*TOOLS_UHD, SEED0 + 5))}
 
 
+# the parallel phase (ROADMAP A9): the slots of the mesh a one-card host
+# names on cuda:0; the default run's global batch (the smoke's images
+# twice over, one a slot) and its height-sharded image (both images one
+# above the other: 1536 rows, 6 units of 64 a slot); --parallel's global
+# batches (24 distinct images, repeated 4 times for 96), its UHD frame
+# (3840x2176: 34 units of 64 rows, 9/9/8/8 over four cards) and the
+# repetitions its times are the medians of
+PAR_SLOTS = 4
+PAR_BATCHES, PAR_UHD, PAR_REPS = (24, 96), (2176, 3840), 3
+
+
+def sync_all():
+    """Wait for every card."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def par_meshes(dev):
+    """(data mesh, spatial mesh, what they are): every card of the host,
+    or on a one-card host PAR_SLOTS slots named on it."""
+    import torch
+
+    from flashgmm_tpu_torch.parallel import Mesh, make_mesh
+
+    n = torch.cuda.device_count()
+    if n > 1:
+        return (make_mesh(n), make_mesh(n, data=1, spatial=n),
+                f"{n} cards, one slot each")
+    return (Mesh([dev] * PAR_SLOTS), Mesh([[dev] * PAR_SLOTS]),
+            f"{PAR_SLOTS} slots named on {dev} (a one-card host: the split, "
+            "gather and halo code runs, no second card)")
+
+
+def launches_by_device(calls):
+    """{kernel: {device: launches}} of recorded calls, each counted on the
+    device of its first tensor argument."""
+    import torch
+
+    out = {}
+    for name, cs in calls.items():
+        for args, kwargs in cs:
+            t = next(a for a in (*args, *kwargs.values())
+                     if isinstance(a, torch.Tensor))
+            per = out.setdefault(name, {})
+            per[str(t.device)] = per.get(str(t.device), 0) + 1
+    return out
+
+
+def busy_by_device(fn):
+    """fn() under torch.profiler: (its result, the host-clock ms of the
+    call, {device index: ms that card was busy}, the union of its kernels'
+    and copies' intervals); {} when the trace holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync_all()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync_all()
+        wall = 1e3 * (time.perf_counter() - t0)
+    spans = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA" and not getattr(
+                e, "is_user_annotation", False):
+            spans.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end))
+    busy = {}
+    for d, iv in spans.items():
+        total, end = 0.0, float("-inf")
+        for a, b in sorted(iv):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        busy[d] = total / 1e3
+    return out, wall, busy
+
+
+def split_report(one, c, xs, d1, dm):
+    """The mesh codec c's encode of xs against one card's (the codec one):
+    whether the bytes are equal, else how many z bins and y_hat values the
+    two encoders gave otherwise (ROADMAP C15: the library picks a conv's
+    algorithm by the batch's shape, so a card's share may round a latent
+    otherwise than the whole batch)."""
+    if dm == d1:
+        return f"{len(dm)} bytes, equal to one card's"
+    z1, zm = one._analyze(xs)[0], c._analyze_all(xs)[0]
+    y1, ym = one.encode(xs)["y_hat"], c.encode(xs)["y_hat"]
+    return (f"{len(dm)} bytes, NOT equal to one card's {len(d1)} (ROADMAP "
+            f"C15: {int((z1 != zm).sum())} of {z1.numel()} z bins and "
+            f"{int((y1 != ym).sum())} of {y1.numel()} y_hat values apart)")
+
+
+def parallel_phase(dev, model, record, smi_line, full=False):
+    """Batch-data-parallel coding and the sharded forwards (ROADMAP A9;
+    ``parallel/``), over every card of the host, or on a one-card host
+    over PAR_SLOTS slots named on cuda:0 (``par_meshes``):
+    1. the flagship (the phase-4 model) through FastCheckerboardGmmCodec
+       at lanes=LANES, cap_divisor=CAP_DIVISOR on both routes: one
+       encode_to_bytes + decode_bytes on the mesh with the launches counted
+       from 0 and by card (every kernel of the path launched: the bf16 conv
+       on every card on the kernel route, the rANS coders and the f32 conv
+       on the first card alone); the mesh's bytes against the one card's
+       (equal on the kernel route, the default route's y_hat flips
+       counted: ROADMAP C15); y_hat exact through the mesh's bytes; the one
+       card's bytes decoded on the mesh and the mesh's on one card;
+       ``portable=False`` exact on its mesh; bpp, PSNR, encode and decode
+       ms;
+    2. GSM (N=128) and ELIC (N=192, M=320) at their batched settings on
+       the mesh, default route: y_hat exact, bytes equal to the one card's
+       or their flips counted;
+    3. the flagship's height-sharded forward (``make_spatial_sharded_
+       forward``) against the whole forward (at most 2 % of pixels beyond
+       2e-5, bits within 1e-3: the JAX test's bounds), each card's peak
+       memory against the whole forward's, both ms.
+    The default run codes the smoke's images twice over (one a slot) and
+    shards them one above the other (1536x512). ``full`` (``--parallel``)
+    also times the flagship at global batches PAR_BATCHES on one card and
+    on the mesh, both routes (medians of PAR_REPS, host clock; the
+    transforms' share of each direction; each card's busy share from
+    torch.profiler), GSM and ELIC at batch 24, and shards a PAR_UHD frame.
+    Returns the kernel route's mesh launches by card."""
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.models import (Cheng2020AnchorCheckerboard,
+                                           Elic2022GMM)
+    from flashgmm_tpu_torch.parallel import make_spatial_sharded_forward
+    from flashgmm_tpu_torch.runtime import (FastCheckerboardGmmCodec,
+                                            FastCheckerboardGsmCodec,
+                                            FastElicGmmCodec)
+    from flashgmm_tpu_torch.zoo import load_npz
+
+    t_phase = time.perf_counter()
+    mesh, spatial, what = par_meshes(dev)
+    cards = sorted({str(d) for d in mesh.flat})
+    peers = {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b)
+             for a in range(torch.cuda.device_count())
+             for b in range(torch.cuda.device_count()) if a != b}
+    print(f"  mesh: {what}; peer access {peers or 'n/a (one card)'}; "
+          f"{smi_line}", flush=True)
+    x2 = torch.from_numpy(np.stack([textured_leaves(
+        H, W, seed=SEED0 + 1 + i) for i in range(BATCH)])).to(dev)
+    xb = torch.cat([x2] * (mesh.size // BATCH or 1))
+
+    def both(codec, xs, tag):
+        """codec's encode_to_bytes + decode_bytes of xs: (bytes, out,
+        x_hat, encode s, decode s)."""
+        sync_all()
+        t0 = time.perf_counter()
+        data, out = codec.encode_to_bytes(xs)
+        sync_all()
+        t1 = time.perf_counter()
+        x_hat = codec.decode_bytes(data, tuple(out["y_hat"].shape))
+        sync_all()
+        return data, out, x_hat, t1 - t0, time.perf_counter() - t1
+
+    def mesh_checks(cls, m, xs, tag, kw):
+        """One codec of class cls on the mesh against one card: (mesh
+        launches by card, launches, bytes)."""
+        one = cls(m, **kw)
+        d1, o1 = one.encode_to_bytes(xs)
+        c = cls(m, **kw).use_mesh(mesh)
+        both(c, xs, tag)  # warm-up
+        (dm, om, x_hat, t_enc, t_dec), launches, calls = record(
+            lambda: both(c, xs, tag))
+        y_shape = tuple(om["y_hat"].shape)
+        require(torch.equal(c.decode_y_hat(c.from_bytes(dm, y_shape),
+                                           y_shape), om["y_hat"]),
+                f"{tag}: y_hat differs after the mesh's bytes")
+        require(torch.equal(c.decode_y_hat(c.from_bytes(d1, y_shape),
+                                           y_shape), o1["y_hat"]),
+                f"{tag}: one card's bytes do not decode on the mesh")
+        require(torch.equal(one.decode_y_hat(one.from_bytes(dm, y_shape),
+                                             y_shape), om["y_hat"]),
+                f"{tag}: the mesh's bytes do not decode on one card")
+        require(tuple(x_hat.shape) == tuple(xs.shape)
+                and bool(torch.isfinite(x_hat).all()), f"{tag}: x_hat")
+        b = xs.shape[0]
+        print(f"  {tag}: {split_report(one, c, xs, d1, dm)}; y_hat exact "
+              f"through the mesh's bytes, bytes cross one card and the mesh "
+              f"both ways; bpp {len(dm) * 8 / (b * H * W):.7f}, PSNR "
+              f"{psnr_of(x_hat, xs):.4f} dB; encode {1e3 * t_enc / b:.3f}, "
+              f"decode {1e3 * t_dec / b:.3f} ms per image (batch {b}, host "
+              f"clock); launches by card {launches_by_device(calls)}",
+              flush=True)
+        return launches_by_device(calls), launches, dm
+
+    kw = dict(lanes=LANES, cap_divisor=CAP_DIVISOR)
+    by_card = {}
+    for route in (False, True):
+        tag = f"flagship, {'kernel' if route else 'default'} route"
+        per, launches, dm = mesh_checks(
+            FastCheckerboardGmmCodec, model, xb, tag,
+            dict(kw, kernel_transforms=route))
+        for name in ("rans_encode", "rans_encode_gmm", "rans_decode",
+                     "rans_decode_gmm", "gmm_softmax", "conv2d_nhwc"):
+            require(launches[name] > 0 and set(per[name]) == {str(dev)},
+                    f"{tag}: {name} not launched on {dev} alone: "
+                    f"{per.get(name)}")
+        if route:
+            require(set(per.get("conv2d_nhwc_bf16", {})) == set(cards),
+                    f"{tag}: the bf16 conv ran on "
+                    f"{per.get('conv2d_nhwc_bf16')}, not on every card "
+                    f"{cards}")
+            by_card = per
+        else:
+            require(launches["conv2d_nhwc_bf16"] == 0,
+                    f"{tag}: the bf16 conv launched")
+        spmd = FastCheckerboardGmmCodec(model, kernel_transforms=route,
+                                        **kw).use_mesh(mesh, portable=False)
+        dn, on = spmd.encode_to_bytes(xb)
+        y_shape = tuple(on["y_hat"].shape)
+        require(torch.equal(spmd.decode_y_hat(spmd.from_bytes(dn, y_shape),
+                                              y_shape), on["y_hat"]),
+                f"{tag}: portable=False does not round-trip")
+        print(f"  {tag}, portable=False: y_hat exact through its {len(dn)} "
+              f"bytes ({'equal to' if dn == dm else 'not'} the portable "
+              "mode's)", flush=True)
+        del spmd
+    torch.cuda.empty_cache()
+
+    # GSM and ELIC at their batched settings
+    gsm = Cheng2020AnchorCheckerboard(N=GSM_N, seed=0, device=dev)
+    load_npz(gsm, GSM_WEIGHTS)
+    gsm.update(update_quantiles=True)
+    elic = Elic2022GMM(N=N, M=ELIC_M, K=K, seed=0, device=dev)
+    load_npz(elic, ELIC_WEIGHTS)
+    elic.update(update_quantiles=True)
+    others = ((FastCheckerboardGsmCodec, gsm, "GSM N=128", kw),
+              (FastElicGmmCodec, elic, "ELIC N=192 M=320",
+               dict(lanes=ELIC_LANES, cap_divisor=ELIC_CAP)))
+    for cls, m, tag, okw in others:
+        mesh_checks(cls, m, xb, f"{tag}, default route", okw)
+    torch.cuda.empty_cache()
+
+    # the height-sharded forward against the whole one
+    def sharded_forward(img, tag):
+        sync_all()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        ref = model(img, training=False)
+        sync_all()
+        t_whole = time.perf_counter() - t0
+        peak_whole = torch.cuda.max_memory_allocated(dev) - base
+        run = make_spatial_sharded_forward(model, spatial)
+        run(img)  # warm-up: the library's choices for the band shapes
+        sync_all()
+        devs = sorted({d.index for d in spatial.flat})
+        bases = {}
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
+            bases[d] = torch.cuda.memory_allocated(d)
+        t0 = time.perf_counter()
+        got = run(img)
+        sync_all()
+        t_sharded = time.perf_counter() - t0
+        peaks = {f"cuda:{d}": round((torch.cuda.max_memory_allocated(d)
+                                     - bases[d]) / 2 ** 30, 3) for d in devs}
+        share = float(((got["x_hat"] - ref["x_hat"]).abs() > 2e-5)
+                      .float().mean())
+
+        def bits(o):
+            return sum(float(-torch.log2(v).sum())
+                       for v in o["likelihoods"].values())
+
+        gap = abs(bits(got) - bits(ref)) / bits(ref)
+        print(f"  {tag}: {share:.6f} of pixels beyond 2e-5, bits "
+              f"{bits(got):.1f} against {bits(ref):.1f} (gap {gap:.3g}); "
+              f"whole {1e3 * t_whole:.1f} ms peaking at "
+              f"{peak_whole / 2 ** 30:.3f} GiB, sharded "
+              f"{1e3 * t_sharded:.1f} ms, peak GiB by card {peaks}; "
+              f"{smi_line}", flush=True)
+        require(share < 0.02, f"{tag}: {share} of pixels beyond 2e-5")
+        require(gap < 1e-3, f"{tag}: bits {gap} apart")
+        del ref, got
+
+    sharded_forward(torch.cat(list(x2), dim=0)[None],
+                    f"height-sharded forward of {BATCH * H}x{W}")
+    if full:
+        print(f"  the checks above: {time.perf_counter() - t_phase:.2f} s",
+              flush=True)
+        parallel_times(dev, model, gsm, elic, mesh, smi_line)
+        uhd = torch.from_numpy(textured_leaves(*PAR_UHD, seed=SEED0 + 7)
+                               )[None].to(dev)
+        sharded_forward(uhd, f"height-sharded forward of {PAR_UHD[1]}x"
+                        f"{PAR_UHD[0]}")
+    del gsm, elic
+    torch.cuda.empty_cache()
+    phase("parallel", f"batch-data-parallel coding and the height-sharded "
+          f"forward over {what}")
+    return by_card
+
+
+def parallel_times(dev, model, gsm, elic, mesh, smi_line):
+    """``--parallel``'s times: the flagship at each global batch of
+    PAR_BATCHES on one card and on the mesh, both routes, ms per image of
+    encode_to_bytes + decode_bytes (medians of PAR_REPS after a warm-up,
+    host clock to every card's synchronize), the mesh's bytes against the
+    one card's (y_hat flips counted), the transforms' share of each
+    direction (the analysis alone, encode's g_a, h_a and gather; decode's
+    g_s: decode minus decode_y_hat), and each card's busy share of one
+    mesh encode + decode (torch.profiler); GSM and ELIC at batch 24 on one
+    card and on the mesh, default route."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.runtime import (FastCheckerboardGmmCodec,
+                                            FastCheckerboardGsmCodec,
+                                            FastElicGmmCodec)
+
+    imgs = torch.from_numpy(np.stack([textured_leaves(
+        H, W, seed=SEED0 + 1 + i) for i in range(PAR_BATCHES[0])])).to(dev)
+
+    def timed(fn):
+        fn()
+        ts = []
+        for _ in range(PAR_REPS):
+            sync_all()
+            t0 = time.perf_counter()
+            fn()
+            sync_all()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    def measure(cls, m, kw, xs, tag):
+        """xs coded on one card and on the mesh: each one's times, the
+        transforms' shares and the busy shares printed, then the mesh's
+        bytes against one card's."""
+        b = xs.shape[0]
+        rows = {}
+        for where in ("1 card", "mesh"):
+            c = cls(m, **kw)
+            if where == "mesh":
+                c.use_mesh(mesh)
+            data, out = c.encode_to_bytes(xs)
+            y_shape = tuple(out["y_hat"].shape)
+            t_enc = timed(lambda: c.encode_to_bytes(xs))
+            t_dec = timed(lambda: c.decode_bytes(data, y_shape))
+            t_ana = timed(lambda: c._analyze_all(xs))
+            streams = c.from_bytes(data, y_shape)
+            t_dy = timed(lambda: c.decode_y_hat(streams, y_shape))
+            t_full = timed(lambda: c.decode(streams, y_shape))
+            _, wall, busy = busy_by_device(lambda: c.decode_bytes(
+                c.encode_to_bytes(xs)[0], y_shape))
+            shares = {f"cuda:{d}": round(v / wall, 4)
+                      for d, v in sorted(busy.items())} or "not measured"
+            rows[where] = (c, data)
+            print(f"  {tag}, batch {b}, {where}: encode "
+                  f"{1e3 * t_enc / b:.4f} + decode {1e3 * t_dec / b:.4f} = "
+                  f"{1e3 * (t_enc + t_dec) / b:.4f} ms per image; {len(data)}"
+                  f" bytes; transforms {100 * t_ana / t_enc:.1f} % of encode"
+                  f" (g_a, h_a, gather: {1e3 * t_ana / b:.4f} ms/img), g_s "
+                  f"{100 * (t_full - t_dy) / t_full:.1f} % of decode; busy "
+                  f"share of an encode + decode by card {shares} "
+                  f"({wall:.2f} ms); "
+                  f"{smi_line}", flush=True)
+        (one, d1), (c, dm) = rows["1 card"], rows["mesh"]
+        print(f"  {tag}, batch {b}: the mesh's "
+              f"{split_report(one, c, xs, d1, dm)}", flush=True)
+        del rows, one, c
+        torch.cuda.empty_cache()
+
+    kw = dict(lanes=LANES, cap_divisor=CAP_DIVISOR)
+    for batch in PAR_BATCHES:
+        xs = torch.cat([imgs] * (batch // imgs.shape[0]))
+        for route in (False, True):
+            measure(FastCheckerboardGmmCodec, model,
+                    dict(kw, kernel_transforms=route), xs,
+                    f"flagship {'kernel' if route else 'default'} route")
+    measure(FastCheckerboardGsmCodec, gsm, kw, imgs, "GSM N=128")
+    measure(FastElicGmmCodec, elic, dict(lanes=ELIC_LANES,
+                                         cap_divisor=ELIC_CAP), imgs,
+            "ELIC N=192 M=320")
+
+
+def parallel_only():
+    """``python3 chip_smoke.py --parallel``: the device line, the build and
+    the parallel phase alone with its times (``full``), then the kernel
+    route's launches by card."""
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+    from flashgmm_tpu_torch.zoo import load_npz
+
+    dev, smi_line = _device_and_build()
+    model = Cheng2020AnchorCheckerboardGMMv2(N=N, K=K, seed=0, device=dev)
+    load_npz(model, WEIGHTS)
+    model.update(update_quantiles=True)
+    bound = kernel_wrappers()
+    originals = {name: getattr(*where) for name, where in bound.items()}
+    by_card = parallel_phase(dev, model, make_record(bound, originals),
+                             smi_line, full=True)
+    print(json.dumps({"parallel_launches": by_card}), flush=True)
+
+
 def train_phase(dev):
     """Training on the card under the trainer's library settings (cuDNN's
     TF32 on, as PyTorch's default, matmul TF32 off, ``cudnn.benchmark``
@@ -3887,7 +4300,8 @@ def main() -> int:
         bytes_worker(*sys.argv[2:5])
         return 0
     alone = {"--zoo": zoo_only, "--vbr": vbr_only, "--video": video_only,
-             "--pcc": pcc_only, "--tools": tools_only}
+             "--pcc": pcc_only, "--tools": tools_only,
+             "--parallel": parallel_only}
     if len(sys.argv) > 1 and sys.argv[1] in alone:
         if not torch.cuda.is_available():
             return 1
@@ -4749,6 +5163,10 @@ def smoke():
     tools_launches, tools_calls, tools_cpu = tools_phase(
         dev, model, record, smi_line, early)
 
+    # 11c. batch-data-parallel coding and the sharded forwards over every
+    # card (on one card over slots named on it) ------------------------------
+    par_by_card = parallel_phase(dev, model, record, smi_line)
+
     # 12. the variable-bitrate models, while the eval CLI's CPU runs go on
     vbr_launches, vbr_calls = vbr_phase(dev, record, originals, smi_line,
                                         cpu)
@@ -5200,6 +5618,8 @@ def smoke():
             "bound_by": max(by, key=by.get), "library_ms": lib_ms})
         if name != base or name == "gaussian_boundary_rows":
             results[-1]["instance"] = "K=1 (zero means, unit weights)"
+        results[-1]["parallel_launches"] = (par_by_card.get(name, {})
+                                            if name == base else {})
         results[-1].update({"latency_launches": lat_launches,
                             "latency_ms": lat_t["ms"],
                             "latency_bound_ms": lat_t["bound_ms"],

@@ -19,9 +19,14 @@ from flashgmm_tpu_torch.layers import linear, pinned_library_settings
 
 def f32_einsum(equation, a, b):
     """``torch.einsum`` in full float32: on the card under
-    :func:`flashgmm_tpu_torch.layers.pinned_library_settings` (no TF32)."""
+    :func:`flashgmm_tpu_torch.layers.pinned_library_settings` (no TF32).
+    The operands are copied into the library's own allocations first: the
+    CPU BLAS rounds otherwise for another alignment of its operands (a
+    tensor over a numpy array is aligned to 16 bytes, at an offset that
+    depends on the heap), and a kNN near-tie then flipped with what the
+    process had imported before."""
     with pinned_library_settings() if a.is_cuda else contextlib.nullcontext():
-        return torch.einsum(equation, a, b)
+        return torch.einsum(equation, a.clone(), b.clone())
 
 
 class SharedMLP(nn.Module):

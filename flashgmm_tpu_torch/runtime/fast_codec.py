@@ -34,7 +34,21 @@ pixels) and run in bfloat16 by default: as library convs, or with
 
 ``_FastCodec`` holds what this codec shares with ELIC's
 (``runtime/fast_elic.py``): the transforms, the z pass, the y passes'
-coder calls and the bytes of any list of passes with their packed layout.
+coder calls, the bytes of any list of passes with their packed layout, and
+batch-data-parallel coding over a mesh (``use_mesh``, reference :255-299).
+
+On a mesh one process drives every card. ``encode`` splits the batch over
+the mesh's data axis and runs g_a, h_a and the quantization on each slot's
+snapshot of the model; the integer boundary tensors (z bins and the
+clamped symbols; GSM's unembedded y, whose symbols need the means) are
+gathered to the mesh's first device, which is the codec's, in batch order,
+so the NHWC-ravel symbol order is the whole batch's. The z pass, the rows
+chain and the coder calls run there as on one card: a stream coded on any
+mesh decodes on one card and the other way round. ``decode`` decodes y_hat
+there and runs g_s on each slot's share. ``portable=False`` runs the rows
+chain on each slot for its share and gathers the per-symbol parameters to
+the first device for the coder calls, as the reference's all-SPMD mode
+(whose streams stay portable here: the rows chain is batch-invariant).
 """
 
 import copy
@@ -48,6 +62,7 @@ from flashgmm_tpu_torch.ans import rans_kernels
 from flashgmm_tpu_torch.ans.gaussian_cdf import get_approx_mode
 from flashgmm_tpu_torch.layers import (route_bf16_kernel, run_canonical,
                                       run_transform)
+from flashgmm_tpu_torch.parallel.mesh import snapshot, split_batch
 
 
 _PASSES = ("z", "y0", "y1")
@@ -135,10 +150,21 @@ class _FastCodec:
 
     A codec says how many passes it has and their capacities
     (``_pass_caps``), and how its streams and its encoder's output hold
-    them (``_passes``, ``_streams``, ``_out_passes``)."""
+    them (``_passes``, ``_streams``, ``_out_passes``). Its ``_analyze``
+    gives what encode gathers from the mesh: the z bins and a tuple of
+    tensors whose batch axis is ``_payload_dim``."""
+
+    _payload_dim = 0
 
     def __init__(self, model, hyper, lanes, max_abs, cap_divisor,
                  bf16_transforms, kernel_transforms):
+        # a mesh slot's codec is built with the same options
+        self._options = dict(lanes=lanes, max_abs=max_abs,
+                             cap_divisor=cap_divisor,
+                             bf16_transforms=bf16_transforms,
+                             kernel_transforms=kernel_transforms)
+        self._others = None  # use_mesh: the other slots' codecs
+        self.mesh_portable = True
         self.lanes = int(lanes)
         self.max_abs = int(max_abs)  # symbols clamped to [-max_abs, max_abs]
         self.cap_divisor = int(cap_divisor)
@@ -167,6 +193,79 @@ class _FastCodec:
         self._staging = None
         self._staged = None
 
+    # -- the mesh -------------------------------------------------------------
+
+    def use_mesh(self, mesh, axis: str = "data", portable: bool = True):
+        """Code batches data-parallel over the slots of ``mesh``'s ``axis``
+        (a ``parallel.Mesh``), whose first device must be the codec's:
+        each slot's batch share through its own snapshot of the model
+        (g_a, h_a, g_s; with ``portable=False`` the rows chain too), the
+        boundary tensors and the coder calls on the codec's device.
+        ``mesh=None`` returns the codec to one card. Returns the codec.
+
+        A stream of either mode decodes exactly on one card and on any
+        mesh: the rows chain's f32 conv and the coding softmax give each
+        symbol's parameters bit for bit whatever the batch around it, so
+        ``portable=False`` keeps more than the reference's same-topology
+        contract. The bytes equal one card's where a slot's transforms
+        round its share as the whole batch's do: on the CPU; on the card
+        cuDNN picks an engine by shape, and a latent may round otherwise
+        (ROADMAP C15)."""
+        if mesh is None:
+            self._others = None
+            return self
+        devices = mesh.axis_devices(axis)
+        if devices[0] != self.device:
+            raise ValueError(f"use_mesh: the mesh's first device {devices[0]}"
+                             f" is not the codec's, {self.device}")
+        self._others = [type(self)(snapshot(self.model, d), **self._options)
+                        for d in devices[1:]]
+        self.mesh_portable = bool(portable)
+        return self
+
+    def _shards(self):
+        """A codec a slot of the mesh, this one first ([self] off a
+        mesh)."""
+        return [self, *(self._others or ())]
+
+    def _rows_shards(self):
+        """The codecs that run the rows chain: this one alone, or on a mesh
+        of ``portable=False`` each slot's."""
+        return [self] if self.mesh_portable else self._shards()
+
+    def _scatter(self, t, shards):
+        """t split by batch over ``shards``, each part on its codec's
+        device; over one codec, [t] itself."""
+        if len(shards) == 1:
+            return [t]
+        return [p.to(c.device) for c, p in
+                zip(shards, split_batch(t, len(shards)))]
+
+    def _gather(self, parts, dim=0):
+        """Per-slot tensors concatenated along ``dim`` on this codec's
+        device, in slot order; one part is returned as it is."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.device) for p in parts], dim)
+
+    def _gather_params(self, parts):
+        """Per-slot parameter tuples ([n_i, K] tensors) gathered into one
+        tuple in the whole batch's symbol order."""
+        return tuple(self._gather([p[j] for p in parts])
+                     for j in range(len(parts[0])))
+
+    def _analyze_all(self, x):
+        """``_analyze`` of the batch: here, or on each mesh slot for its
+        share with the results gathered here."""
+        shards = self._shards()
+        if len(shards) == 1:
+            return self._analyze(x)
+        outs = [c._analyze(p) for c, p in zip(shards,
+                                              self._scatter(x, shards))]
+        return (self._gather([o[0] for o in outs]),
+                tuple(self._gather([o[1][j] for o in outs], self._payload_dim)
+                      for j in range(len(outs[0][1]))))
+
     # -- shared pieces -------------------------------------------------------
 
     def _transform(self, mod, x):
@@ -186,17 +285,24 @@ class _FastCodec:
     def _lo_bins(self):
         return -(self.max_abs + 1), 2 * (self.max_abs + 1) + 1
 
-    def _encode_z(self, z):
-        """z quantized against the EntropyBottleneck's tables and its pass
-        encoded: (z_bin int32, PassStream). z is ~10% of the payload; not
-        worth the overflow risk of capping."""
+    def _quantize_z(self, z):
+        """z quantized against the EntropyBottleneck's tables: z_bin int32."""
         z_bin = torch.round(z - self._med).to(torch.int32) - self._z_off
-        z_bin = torch.minimum(torch.clamp_min(z_bin, 0), self._z_maxbin)
+        return torch.minimum(torch.clamp_min(z_bin, 0), self._z_maxbin)
+
+    def _z_pass(self, z_bin):
+        """The z pass of z_bin encoded. z is ~10% of the payload; not worth
+        the overflow risk of capping."""
         zb = z_bin.reshape(-1).long()
-        ch = torch.arange(zb.shape[0], device=zb.device) % z.shape[-1]
+        ch = torch.arange(zb.shape[0], device=zb.device) % z_bin.shape[-1]
         z_start = self._z_rows[ch, zb]
         z_freq = self._z_rows[ch, zb + 1] - z_start
-        return z_bin, _encode_pass(z_start, z_freq, self.lanes, 1)
+        return _encode_pass(z_start, z_freq, self.lanes, 1)
+
+    def _encode_z(self, z):
+        """(z_bin int32, its z pass's PassStream)."""
+        z_bin = self._quantize_z(z)
+        return z_bin, self._z_pass(z_bin)
 
     def _decode_z(self, ps, b, h, w, err=None):
         """The z pass of a latent y [b, h, w, .] decoded: z_bin [b, h/4,
@@ -243,9 +349,13 @@ class _FastCodec:
 
     @torch.inference_mode()
     def decode(self, streams, y_shape):
-        """Streams -> reconstructed images [B, H, W, 3] in [0, 1]."""
+        """Streams -> reconstructed images [B, H, W, 3] in [0, 1] (on a
+        mesh g_s runs on each slot's share; the images are gathered)."""
         y_hat = self.decode_y_hat(streams, y_shape)
-        return torch.clamp(self._transform(self._g_s, y_hat), 0.0, 1.0)
+        shards = self._shards()
+        return self._gather([torch.clamp(c._transform(c._g_s, y), 0.0, 1.0)
+                             for c, y in zip(shards,
+                                             self._scatter(y_hat, shards))])
 
     # -- bytes -------------------------------------------------------------------
 
@@ -474,22 +584,36 @@ class FastCheckerboardGmmCodec(_FastCodec):
             x, 1 if full else self.cap_divisor)
         return {"z": ps_z, "y0": ps0, "y1": ps1, "y_hat": y_hat}
 
+    _payload_dim = 1  # the symbols [2, b, h, w/2, c]
+
+    def _analyze(self, x):
+        """g_a, h_a and the quantization of x on this codec's device:
+        (z_bin, (symbols int32 [2, b, h, w/2, c],))."""
+        y = self._transform(self._g_a, x)
+        z = self._transform(self._h_a, y)
+        sym = torch.clamp(torch.round(self._ckbd.unembed(y)).to(torch.int32),
+                          -self.max_abs, self.max_abs)
+        return self._quantize_z(z), (sym,)
+
     def _encode(self, x, cd):
         """The encode core, y passes capped at 1/``cd``: (z, y0, y1
         PassStreams, anchor and non-anchor symbols int32 [B, H/16, W/32,
-        N], y_hat). Waits for nothing, so a CUDA graph can capture it."""
-        y = self._transform(self._g_a, x)
-        z = self._transform(self._h_a, y)
-        z_bin, ps_z = self._encode_z(z)
-
-        sym = torch.clamp(torch.round(self._ckbd.unembed(y)).to(torch.int32),
-                          -self.max_abs, self.max_abs)  # [2, b, h, w/2, c]
+        N], y_hat). Without a mesh it waits for nothing, so a CUDA graph
+        can capture it."""
+        z_bin, (sym,) = self._analyze_all(x)
+        ps_z = self._z_pass(z_bin)
         y_hat = self._ckbd.embed(sym.float())
 
-        side = self._side(z_bin)
-        ps0 = self._encpass(self._params0(side[0]), sym[0].reshape(-1), cd)
-        ps1 = self._encpass(self._params1(side[1], sym[0]),
-                            sym[1].reshape(-1), cd)
+        shards = self._rows_shards()
+        sides = [c._side(z) for c, z in zip(shards,
+                                            self._scatter(z_bin, shards))]
+        ps0 = self._encpass(self._gather_params(
+            [c._params0(s[0]) for c, s in zip(shards, sides)]),
+            sym[0].reshape(-1), cd)
+        ps1 = self._encpass(self._gather_params(
+            [c._params1(s[1], s0) for c, s, s0 in
+             zip(shards, sides, self._scatter(sym[0], shards))]),
+            sym[1].reshape(-1), cd)
         return ps_z, ps0, ps1, sym[0], sym[1], y_hat
 
     @torch.inference_mode()
@@ -500,12 +624,17 @@ class FastCheckerboardGmmCodec(_FastCodec):
         the device (``rans_kernels.decode_scan``)."""
         b, h, w, c = self._y_shape_parts(y_shape)
         z_bin = self._decode_z(streams["z"], b, h, w, err)
-        side = self._side(z_bin)
+        shards = self._rows_shards()
+        sides = [s._side(z) for s, z in zip(shards,
+                                            self._scatter(z_bin, shards))]
         n = b * h * (w // 2) * c
-        sym0 = self._decpass(streams["y0"], self._params0(side[0]), n,
-                             err).reshape(b, h, w // 2, c)
-        sym1 = self._decpass(streams["y1"], self._params1(side[1], sym0), n,
-                             err).reshape(b, h, w // 2, c)
+        sym0 = self._decpass(streams["y0"], self._gather_params(
+            [s._params0(side[0]) for s, side in zip(shards, sides)]), n,
+            err).reshape(b, h, w // 2, c)
+        sym1 = self._decpass(streams["y1"], self._gather_params(
+            [s._params1(side[1], s0) for s, side, s0 in
+             zip(shards, sides, self._scatter(sym0, shards))]), n,
+            err).reshape(b, h, w // 2, c)
         return self._ckbd.embed(torch.stack([sym0, sym1]).float())
 
     def stream_capacities(self, y_shape):
@@ -598,20 +727,37 @@ class FastCheckerboardGsmCodec(FastCheckerboardGmmCodec):
         return self._ckbd.embed(torch.stack([sym0.float() + mu0,
                                              sym1.float() + mu1]))
 
+    def _analyze(self, x):
+        """g_a, h_a and z's quantization on this codec's device: (z_bin,
+        (y unembedded [2, b, h, w/2, c],)); y's symbols need the means."""
+        y = self._transform(self._g_a, x)
+        z = self._transform(self._h_a, y)
+        return self._quantize_z(z), (self._ckbd.unembed(y),)
+
+    def _pass(self, results):
+        """A pass's per-slot (parameters, means) gathered: (parameters,
+        means here, the means on each slot)."""
+        mus = [r[1] for r in results]
+        return (self._gather_params([r[0] for r in results]),
+                self._gather(mus), mus)
+
     def _encode(self, x, cd):
         """The encode core, y passes capped at 1/``cd``: (z, y0, y1
         PassStreams, anchor and non-anchor symbols int32 [B, H/16, W/32,
         N], y_hat)."""
-        y = self._transform(self._g_a, x)
-        z = self._transform(self._h_a, y)
-        z_bin, ps_z = self._encode_z(z)
-        y_ = self._ckbd.unembed(y)  # [2, b, h, w/2, c]
+        z_bin, (y_,) = self._analyze_all(x)
+        ps_z = self._z_pass(z_bin)
 
-        side = self._side(z_bin)
-        params0, mu0 = self._params0(side[0])
+        shards = self._rows_shards()
+        sides = [c._side(z) for c, z in zip(shards,
+                                            self._scatter(z_bin, shards))]
+        params0, mu0, mus0 = self._pass(
+            [c._params0(s[0]) for c, s in zip(shards, sides)])
         sym0 = self._quantize(y_[0], mu0)
         ps0 = self._encpass(params0, sym0.reshape(-1), cd)
-        params1, mu1 = self._params1(side[1], sym0, mu0)
+        params1, mu1, _ = self._pass([
+            c._params1(s[1], s0, m0) for c, s, s0, m0 in
+            zip(shards, sides, self._scatter(sym0, shards), mus0)])
         sym1 = self._quantize(y_[1], mu1)
         ps1 = self._encpass(params1, sym1.reshape(-1), cd)
         return ps_z, ps0, ps1, sym0, sym1, self._embed(sym0, sym1, mu0, mu1)
@@ -621,12 +767,17 @@ class FastCheckerboardGsmCodec(FastCheckerboardGmmCodec):
         """Streams -> y_hat [B, H/16, W/16, N] (see the flagship's)."""
         b, h, w, c = self._y_shape_parts(y_shape)
         z_bin = self._decode_z(streams["z"], b, h, w, err)
-        side = self._side(z_bin)
+        shards = self._rows_shards()
+        sides = [s._side(z) for s, z in zip(shards,
+                                            self._scatter(z_bin, shards))]
         n = b * h * (w // 2) * c
-        params0, mu0 = self._params0(side[0])
+        params0, mu0, mus0 = self._pass(
+            [s._params0(side[0]) for s, side in zip(shards, sides)])
         sym0 = self._decpass(streams["y0"], params0, n,
                              err).reshape(b, h, w // 2, c)
-        params1, mu1 = self._params1(side[1], sym0, mu0)
+        params1, mu1, _ = self._pass([
+            s._params1(side[1], s0, m0) for s, side, s0, m0 in
+            zip(shards, sides, self._scatter(sym0, shards), mus0)])
         sym1 = self._decpass(streams["y1"], params1, n,
                              err).reshape(b, h, w // 2, c)
         return self._embed(sym0, sym1, mu0, mu1)

@@ -21,6 +21,12 @@ symbol's parameters. The bytes are the JAX class's format (per pass u32
 n_words, u32 x W states, u16 x n_words words; z first, then each group's
 anchor and non-anchor pass), with its lanes, caps and StreamOverflow
 fallback.
+
+``use_mesh`` (``_FastCodec``'s; reference :258-345) gathers the z bins and
+the ten passes' symbols from the mesh's slots; with ``portable=False`` each
+slot runs the channel and spatial contexts and the aggregation networks
+for its batch share, and the decoder scatters each pass's decoded symbols
+back to the slots before the next.
 """
 
 import torch
@@ -101,29 +107,48 @@ class FastElicGmmCodec(_FastCodec):
         streams, _, y_hat = self._encode(x, 1 if full else self.cap_divisor)
         return {"streams": streams, "y_hat": y_hat}
 
-    def _encode(self, x, cd):
-        """The encode core, y passes capped at 1/``cd``: (the eleven
-        PassStreams, the symbols int32 [B, h, w/2, g_k] of each pass in
-        coding order, y_hat). Waits for nothing, so a CUDA graph can
-        capture it."""
+    def _analyze(self, x):
+        """g_a, h_a and the quantization of x on this codec's device:
+        (z_bin, the symbols int32 [b, h, w/2, g_k] of each pass in coding
+        order)."""
         y = self._transform(self._g_a, x)
         z = self._transform(self._h_a, y)
-        z_bin, ps_z = self._encode_z(z)
         syms = []
         for ckbd, yk in zip(self._ckbds, self._cg._split(y)):
             sym = torch.clamp(torch.round(ckbd.unembed(yk)).to(torch.int32),
                               -self.max_abs, self.max_abs)
             syms += [sym[0], sym[1]]
+        return self._quantize_z(z), tuple(syms)
 
-        side_all = self._side(z_bin)
+    def _group_sides(self, shards, side_all, shard_syms, k):
+        """Each slot's unembedded context parameters of group k."""
+        return [c._ckbds[k].unembed(c._ctxparams(sa, ss[:2 * k], k))
+                for c, sa, ss in zip(shards, side_all, shard_syms)]
+
+    def _encode(self, x, cd):
+        """The encode core, y passes capped at 1/``cd``: (the eleven
+        PassStreams, the symbols int32 [B, h, w/2, g_k] of each pass in
+        coding order, y_hat). Without a mesh it waits for nothing, so a
+        CUDA graph can capture it."""
+        z_bin, syms = self._analyze_all(x)
+        syms = list(syms)
+        ps_z = self._z_pass(z_bin)
+
+        shards = self._rows_shards()
+        side_all = [c._side(z) for c, z in zip(shards,
+                                               self._scatter(z_bin, shards))]
+        # each slot's share of every pass's symbols
+        shard_syms = list(zip(*(self._scatter(s, shards) for s in syms)))
         streams = [ps_z]
-        for k, ckbd in enumerate(self._ckbds):
-            side = ckbd.unembed(self._ctxparams(side_all, syms[:2 * k], k))
-            sym0, sym1 = syms[2 * k], syms[2 * k + 1]
-            streams.append(self._encpass(self._pass_params(k, side[0]),
-                                         sym0.reshape(-1), cd))
-            streams.append(self._encpass(self._pass_params(k, side[1], sym0),
-                                         sym1.reshape(-1), cd))
+        for k in range(len(self.groups)):
+            sides = self._group_sides(shards, side_all, shard_syms, k)
+            streams.append(self._encpass(self._gather_params(
+                [c._pass_params(k, s[0]) for c, s in zip(shards, sides)]),
+                syms[2 * k].reshape(-1), cd))
+            streams.append(self._encpass(self._gather_params(
+                [c._pass_params(k, s[1], ss[2 * k]) for c, s, ss in
+                 zip(shards, sides, shard_syms)]),
+                syms[2 * k + 1].reshape(-1), cd))
         return streams, syms, self._embed_full(syms)
 
     @torch.inference_mode()
@@ -132,16 +157,24 @@ class FastElicGmmCodec(_FastCodec):
         decoders' deferred error flag, as in
         ``FastCheckerboardGmmCodec.decode_y_hat``."""
         b, h, w, _ = self._y_shape_parts(y_shape)
-        side_all = self._side(self._decode_z(streams[0], b, h, w, err))
+        z_bin = self._decode_z(streams[0], b, h, w, err)
+        shards = self._rows_shards()
+        side_all = [c._side(z) for c, z in zip(shards,
+                                               self._scatter(z_bin, shards))]
         syms = []
-        for k, (ckbd, gk) in enumerate(zip(self._ckbds, self.groups)):
-            side = ckbd.unembed(self._ctxparams(side_all, syms, k))
+        shard_syms = [[] for _ in shards]  # each slot's share of syms
+        for k, gk in enumerate(self.groups):
+            sides = self._group_sides(shards, side_all, shard_syms, k)
             n = b * h * (w // 2) * gk
-            sym0 = self._decpass(streams[1 + 2 * k], self._pass_params(
-                k, side[0]), n, err).reshape(b, h, w // 2, gk)
-            sym1 = self._decpass(streams[2 + 2 * k], self._pass_params(
-                k, side[1], sym0), n, err).reshape(b, h, w // 2, gk)
-            syms += [sym0, sym1]
+            for i in range(2):
+                params = self._gather_params(
+                    [c._pass_params(k, s[i], ss[2 * k] if i else None)
+                     for c, s, ss in zip(shards, sides, shard_syms)])
+                sym = self._decpass(streams[1 + 2 * k + i], params, n,
+                                    err).reshape(b, h, w // 2, gk)
+                syms.append(sym)
+                for ss, part in zip(shard_syms, self._scatter(sym, shards)):
+                    ss.append(part)
         return self._embed_full(syms)
 
     def stream_capacities(self, y_shape):

@@ -22,6 +22,11 @@ reference's routing, :185-245), and any other capture or replay error
 raises. ``decode_bytes`` decodes bytes through the decode-y and g_s
 graphs. On a CPU model the same functions run eagerly. The bytes are the
 batched codec's ``to_bytes`` format at the same lanes.
+
+``encode``, ``decode_y_hat``, ``to_bytes`` and ``num_bytes`` are the
+batched codec's, which the JAX class inherits: its eager encode and
+decode, no graph. Its graphs are one card's, so it has no ``use_mesh``;
+the batched codec's codes batches over a mesh.
 """
 
 from .fast_elic import FastElicGmmCodec
@@ -60,3 +65,19 @@ class FastLatencyElicCodec(_GraphedCodec):
     def decode_bytes(self, data: bytes, y_shape):
         """Bytes -> x_hat [1, H, W, 3] in [0, 1] (``decode``)."""
         return self.decode(data, y_shape)
+
+    # -- the batched codec's eager entry points (the JAX class inherits them)
+
+    def encode(self, x, full: bool = False):
+        """The batched codec's eager encode: {"streams", "y_hat"}."""
+        return self._batched.encode(x, full)
+
+    def decode_y_hat(self, streams, y_shape):
+        """The batched codec's eager decode of its streams: y_hat."""
+        return self._batched.decode_y_hat(streams, y_shape)
+
+    def to_bytes(self, out) -> bytes:
+        return self._batched.to_bytes(out)
+
+    def num_bytes(self, out) -> int:
+        return self._batched.num_bytes(out)

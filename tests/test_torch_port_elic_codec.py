@@ -265,6 +265,34 @@ def test_latency_bytes_equal_the_batched_codec(models, latency):
                        _codec(tm).decode_bytes(data, y_shape))
 
 
+def test_latency_eager_entry_points_as_jax(models, latency):
+    """The entry points the JAX class inherits from FastElicGmmCodec:
+    ``encode`` gives the batched codec's streams and y_hat, ``to_bytes``
+    its bytes (which JAX's FastLatencyElicCodec reads back pass for pass,
+    and whose ``num_bytes`` equals JAX's over them), ``decode_y_hat`` the
+    encoder's y_hat."""
+    from flashgmm_tpu.runtime import FastLatencyElicCodec as JLatency
+
+    jm, tm = models
+    x = torch.from_numpy(_images(2, 23))
+    out = latency.encode(x)
+    data = latency.to_bytes(out)
+    b_data, b_out = _codec(tm).encode_to_bytes(x)
+    assert data == b_data and torch.equal(out["y_hat"], b_out["y_hat"])
+    assert latency.num_bytes(out) == _codec(tm).num_bytes(b_out)
+    y_shape = tuple(out["y_hat"].shape)
+    assert torch.equal(latency.decode_y_hat(out["streams"], y_shape),
+                       out["y_hat"])
+    jlat = JLatency(jm, lanes=LANES, bf16_transforms=False)
+    j_streams = jlat.from_bytes(data, y_shape)
+    assert jlat.num_bytes({"streams": j_streams}) == latency.num_bytes(out)
+    for p, q in zip(out["streams"], j_streams):
+        n = int(p.n_words)
+        assert int(q.n_words) == n
+        np.testing.assert_array_equal(np.asarray(q.stream)[:n],
+                                      p.stream[:n].numpy().astype(np.uint16))
+
+
 def test_latency_forced_failure_takes_the_fallback(latency):
     """A certificate that fails once takes the batched codec's bytes,
     cross-certified; failing both ways, their digest routes the decode

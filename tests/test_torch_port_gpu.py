@@ -44,7 +44,12 @@ exact, and the CPU decodes the card's strings to every branch's y_hat bit
 for bit. A point-cloud codec's (hrtzxf2022) round trip on the card is
 repeatable, and the CPU decodes the card's strings to the card's symbols.
 Tiled synthesis of the flagship's g_s stays within the JAX test's bounds
-of the direct g_s on both transform routes.
+of the direct g_s on both transform routes. Over every card of a host of
+two or more (they skip below two): the flagship's batch coded with
+``use_mesh`` round-trips exactly, its bytes cross one card and the mesh
+both ways (every card launching the bf16 conv on the kernel route), and
+its height-sharded forward stays within the JAX test's bounds of the
+whole forward.
 """
 
 import importlib.util
@@ -1578,3 +1583,106 @@ def test_tiled_synthesis_matches_direct_on_card(cuda, kernel_transforms,
     assert float(diff.max()) <= 2e-2
     assert float((diff > 1e-6).float().mean()) < 0.05
     assert (launched > 0) == kernel_transforms
+
+
+@pytest.fixture
+def cards(cuda):
+    """Every card of the host; skips below two."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _per_card_bf16_launches(monkeypatch):
+    """Count the bf16 conv's calls by the device of their input."""
+    by_card = {}
+    original = conv_kernel.conv2d_nhwc_bf16
+
+    def counted(x, *args, **kwargs):
+        by_card[str(x.device)] = by_card.get(str(x.device), 0) + 1
+        return original(x, *args, **kwargs)
+
+    counted.launches = 0
+    monkeypatch.setattr(conv_kernel, "conv2d_nhwc_bf16", counted)
+    return by_card
+
+
+@pytest.mark.parametrize("kernel_transforms", [False, True])
+def test_mesh_codec_across_cards(cards, kernel_transforms, monkeypatch):
+    """The flagship (N=64, seed weights) coded over every card
+    (``use_mesh``): y_hat exact through the mesh's bytes, the one card's
+    bytes decoding on the mesh and the other way round, portable=False
+    exact on its mesh; on the kernel route every card launches the bf16
+    conv. The bytes need not equal one card's: cuDNN rounds a card's
+    share of the batch otherwise than the whole batch (ROADMAP C15)."""
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+    from flashgmm_tpu_torch.parallel import make_mesh
+    from flashgmm_tpu_torch.runtime import FastCheckerboardGmmCodec
+
+    model = Cheng2020AnchorCheckerboardGMMv2(N=64, K=4, seed=0,
+                                             device=cards[0])
+    model.update(update_quantiles=True)
+    x = torch.from_numpy(np.stack([textured_leaves(128, 128, seed=500001 + i)
+                                   for i in range(2 * len(cards))]))
+    x = x.to(cards[0])
+    kw = dict(lanes=256, kernel_transforms=kernel_transforms)
+    mesh = make_mesh()
+    with torch.inference_mode():
+        one = FastCheckerboardGmmCodec(model, **kw)
+        d1, o1 = one.encode_to_bytes(x)
+        by_card = _per_card_bf16_launches(monkeypatch)
+        codec = FastCheckerboardGmmCodec(model, **kw).use_mesh(mesh)
+        dm, om = codec.encode_to_bytes(x)
+        y_shape = tuple(om["y_hat"].shape)
+        assert torch.equal(codec.decode_y_hat(codec.from_bytes(dm, y_shape),
+                                              y_shape), om["y_hat"])
+        assert torch.equal(codec.decode_y_hat(codec.from_bytes(d1, y_shape),
+                                              y_shape), o1["y_hat"])
+        assert torch.equal(one.decode_y_hat(one.from_bytes(dm, y_shape),
+                                            y_shape), om["y_hat"])
+        x_hat = codec.decode_bytes(dm, y_shape)
+        spmd = FastCheckerboardGmmCodec(model, **kw).use_mesh(
+            mesh, portable=False)
+        dn, on = spmd.encode_to_bytes(x)
+        assert torch.equal(spmd.decode_y_hat(spmd.from_bytes(dn, y_shape),
+                                             y_shape), on["y_hat"])
+    assert x_hat.shape == x.shape and x_hat.device == cards[0]
+    assert bool(torch.isfinite(x_hat).all())
+    if kernel_transforms:
+        assert set(by_card) == {str(d) for d in cards}, by_card
+    else:
+        assert not by_card
+
+
+def test_spatial_forward_across_cards(cards):
+    """The flagship's forward (N=64, seed weights) height-sharded over
+    every card, one 64-row unit a card and more: the JAX test's bounds
+    against the whole forward on the first card; make_mesh refuses one
+    card more than the host has."""
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+    from flashgmm_tpu_torch.parallel import (make_mesh,
+                                             make_spatial_sharded_forward)
+
+    n = len(cards)
+    model = Cheng2020AnchorCheckerboardGMMv2(N=64, K=4, seed=0,
+                                             device=cards[0])
+    model.update(update_quantiles=True)
+    x = torch.from_numpy(np.random.RandomState(5).rand(
+        1, 64 * (2 * n + 1), 64, 3).astype(np.float32)).to(cards[0])
+    with torch.no_grad():
+        got = make_spatial_sharded_forward(
+            model, make_mesh(n, data=1, spatial=n))(x)
+        ref = model(x, training=False)
+    assert got["x_hat"].device == cards[0]
+    assert float(((got["x_hat"] - ref["x_hat"]).abs() > 2e-5)
+                 .float().mean()) < 0.02
+
+    def bits(out):
+        return sum(float(-torch.log2(v).sum())
+                   for v in out["likelihoods"].values())
+
+    assert abs(bits(got) - bits(ref)) / bits(ref) < 1e-3
+    with pytest.raises(RuntimeError, match="requested"):
+        make_mesh(n + 1)

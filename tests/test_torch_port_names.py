@@ -1,4 +1,5 @@
-"""Every public name of the JAX package has a counterpart in the port.
+"""Every public name of the JAX package has a counterpart in the port, and
+every public method of a class both packages define.
 
 For each module of ``flashgmm_tpu/`` the port's module at the same path
 under ``flashgmm_tpu_torch/`` must bind every public top-level name that the
@@ -9,6 +10,14 @@ included. A name with no counterpart must be in ``NO_PORT`` with what does
 its job in the port, and a module with no counterpart in
 ``NO_PORT_MODULES``. Both lists are held current: an entry the port now
 binds, or a name the JAX package no longer has, fails.
+
+Methods: for each class the JAX package defines that the port defines
+too (at the same module path, or by the same name anywhere in the port
+when that name is unique there), the port's class must bind every public
+method of the JAX class, each side's bases within its package included (a
+class-level assignment binds a name on the port's side). A method with no
+counterpart must be in ``NO_PORT_METHODS`` with its reason, held current as
+``NO_PORT`` is.
 
 AST only: neither package is imported, so the whole file takes about a
 second.
@@ -24,8 +33,7 @@ JAX_ROOT = REPO / "flashgmm_tpu"
 PORT_ROOT = REPO / "flashgmm_tpu_torch"
 
 _SUBPACKAGES = "subpackages import on use: import flashgmm_tpu_torch.<name>"
-_NO_MESH = ("parallel.train_step on one card; the mesh serves only the TPU "
-            "(ROADMAP §A)")
+_NO_DDP = "training across cards: ROADMAP A10, the next slice"
 _NNX_FILTER = ("an nnx filter; optimizers/net_aux.py::net_aux_partition "
                "splits the parameters")
 _TRANSFORM = ("layers.run_transform runs a transform; "
@@ -51,10 +59,8 @@ NO_PORT = {
     ("entropy_models/entropy_models.py", "QuantilesParam"): _NNX_FILTER,
     ("models/base.py", "iter_entropy_modules"):
         "the port walks self.modules()",
-    ("parallel/__init__.py", "data_parallel_train_step"): _NO_MESH,
-    ("parallel/__init__.py", "make_mesh"): _NO_MESH,
-    ("parallel/__init__.py", "shard_batch"): _NO_MESH,
-    ("parallel/train.py", "data_parallel_train_step"): _NO_MESH,
+    ("parallel/__init__.py", "data_parallel_train_step"): _NO_DDP,
+    ("parallel/train.py", "data_parallel_train_step"): _NO_DDP,
     ("parallel/train.py", "AUX_FILTER"): _NNX_FILTER,
     ("parallel/train.py", "NET_FILTER"): _NNX_FILTER,
     ("registry/registry.py", "T"): "a TypeVar of the annotations",
@@ -71,11 +77,15 @@ NO_PORT_MODULES = {
                            "ans/rans_kernels.py over csrc/rans_kernels.cu",
     "ops/pallas_conv.py": "the f32 and bf16 CUDA convs behind "
                           "ops/conv_kernel.py",
-    "parallel/inference.py": "one H100 takes the batch whole; "
-                             "runtime/tiled.py bounds a large decode's memory",
-    "parallel/mesh.py": "one H100: no mesh",
     "runtime/latency_probe.py": "CUDA events (chip_smoke.cuda_ms) and "
                                 "utils/profiler.py",
+}
+
+# (module path, "Class.method"): why the port's class has no such method
+NO_PORT_METHODS = {
+    ("runtime/latency_elic.py", "FastLatencyElicCodec.use_mesh"):
+        "its CUDA graphs are one card's; FastElicGmmCodec.use_mesh codes "
+        "batches over a mesh",
 }
 
 MODULES = sorted(str(p.relative_to(JAX_ROOT))
@@ -154,3 +164,79 @@ def test_no_port_list_is_current():
             stale.append(f"{module}::{name} has a port now")
     assert not stale, "; ".join(stale)
     assert len(MODULES) > 100
+
+
+def _classes(root: Path):
+    """{(module path, name): ClassDef} of a package's top-level classes."""
+    return {(str(p.relative_to(root)), node.name): node
+            for p in sorted(root.rglob("*.py"))
+            for node in ast.parse(p.read_text()).body
+            if isinstance(node, ast.ClassDef)}
+
+
+JAX_CLASSES = _classes(JAX_ROOT)
+PORT_CLASSES = _classes(PORT_ROOT)
+
+
+def _find(classes, module, name):
+    """The key of class ``name`` as seen from ``module``: the class there,
+    else the package's only class of that name, else None (outside the
+    package)."""
+    if (module, name) in classes:
+        return (module, name)
+    found = [k for k in classes if k[1] == name]
+    return found[0] if len(found) == 1 else None
+
+
+def _methods(classes, key, assigned: bool):
+    """The names a class binds in its body, its bases' within the package
+    included: its functions, and with ``assigned`` its class-level
+    assignments."""
+    node = classes[key]
+    names = set()
+    for st in node.body:
+        if isinstance(st, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            names.add(st.name)
+        elif assigned and isinstance(st, ast.Assign):
+            names |= {t.id for t in st.targets if isinstance(t, ast.Name)}
+    for base in node.bases:
+        name = base.id if isinstance(base, ast.Name) else getattr(
+            base, "attr", None)
+        base_key = name and _find(classes, key[0], name)
+        if base_key and base_key != key:
+            names |= _methods(classes, base_key, assigned)
+    return names
+
+
+SHARED_CLASSES = sorted(
+    (key, port) for key in JAX_CLASSES
+    if (port := _find(PORT_CLASSES, *key)) is not None)
+
+
+@pytest.mark.parametrize("key,port", SHARED_CLASSES,
+                         ids=[f"{k[0]}::{k[1]}" for k, _ in SHARED_CLASSES])
+def test_every_public_method_has_a_port(key, port):
+    module, name = key
+    missing = _public(_methods(JAX_CLASSES, key, False)) \
+        - _methods(PORT_CLASSES, port, True)
+    unexplained = sorted(
+        m for m in missing
+        if not NO_PORT_METHODS.get((module, f"{name}.{m}"), "").strip())
+    assert not unexplained, (
+        f"{module}::{name}: methods {unexplained} have no counterpart in the "
+        f"port's {port[0]}::{port[1]} and no reason in NO_PORT_METHODS")
+
+
+def test_no_port_methods_list_is_current():
+    stale = []
+    for module, qual in sorted(NO_PORT_METHODS):
+        name, method = qual.split(".")
+        port = _find(PORT_CLASSES, module, name)
+        if (module, name) not in JAX_CLASSES or method not in _methods(
+                JAX_CLASSES, (module, name), False):
+            stale.append(f"{module}::{qual} is gone from the JAX package")
+        elif port is not None and method in _methods(PORT_CLASSES, port,
+                                                     True):
+            stale.append(f"{module}::{qual} has a port now")
+    assert not stale, "; ".join(stale)
+    assert len(SHARED_CLASSES) > 100
