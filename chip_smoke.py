@@ -198,11 +198,22 @@ Phases, each ending in one flushed line with its seconds:
    g_a moved, a NaN batch guarded), the step,
    forward and backward ms, peak memory, the top device kernels of a step,
    and one step under the coding path's pinned settings (TF32 off, no
-   autotuning) beside it;
+   autotuning) beside it; 2 ``data_parallel_train_step``s on a world-1
+   NCCL group beside 2 ``train_step``s from the same weights, batch and
+   noise (cuDNN deterministic): the parameters bitwise equal, both steps'
+   ms and one all-reduce's ms of the flat gradient on the group;
    the trainer CLI on a folder of PPMs (2 epochs across a milestone, a
    resume, the checkpoints loading bit for bit); one step each of ELIC and
    GSM. None of the port's hand kernels runs there; its cached device
-   memory is released for the zoo phase's card runs;
+   memory is released for the zoo phase's card runs.
+   ``python3 chip_smoke.py --train-parallel`` trains across the host's
+   cards alone (``train_parallel_only``; ROADMAP A10): one process a card
+   over NCCL (on a one-card host 2 processes on cuda:0 over gloo), the
+   flagship at full width, 20 steps at global batch 8 (finite, the loss
+   going down, the replicas bitwise equal, the first loss within 1 % of
+   one card's ``train_step``), the step ms at global batch 8 and 32 on one
+   card and on all, the all-reduce's ms and share, each card's peak
+   memory; then the trainer CLI under torchrun for an epoch;
 15. zoo: the CompressAI image-model line (ROADMAP item 12) at its zoo
    widths on the first image (``zoo_phase``): bmshj2018-factorized,
    bmshj2018-hyperprior and mbt2018-mean (both coders) at q4 (N=128,
@@ -415,6 +426,13 @@ FACTORIZED_WEIGHTS = ROOT / "weights" / "factorized_n128_m192_synthetic.npz"
 # the steps the flagship takes on one fixed batch
 TRAIN_BATCH, TRAIN_PATCH, TRAIN_STEPS = 8, 256, 20
 TRAIN_LR, TRAIN_AUX_LR, TRAIN_LMBDA = 1e-4, 1e-3, 0.01
+# training across cards (--train-parallel): one process a card over NCCL
+# (on a one-card host TRAIN_SHARED_RANKS processes on cuda:0 over gloo),
+# TRAIN_STEPS steps at the first global batch, then TRAIN_PAR_TIMED timed
+# after a first step at each global batch, on one card and on all of them;
+# every collective waits at most TRAIN_RANK_TIMEOUT seconds
+TRAIN_PAR_BATCHES, TRAIN_PAR_TIMED, TRAIN_SHARED_RANKS = (8, 32), 5, 2
+TRAIN_RANK_TIMEOUT, TRAIN_PAR_LOSS_RTOL = 600, 1e-2
 
 _T_START = time.perf_counter()
 _t_phase = [_T_START]
@@ -4017,12 +4035,7 @@ def train_phase(dev):
         matmul.allow_tf32 = matmul_tf32
 
     def timed_step(model, opts, batch, gen):
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        out = train_step(model, *opts, batch, gen, TRAIN_LMBDA)
-        b.record()
-        torch.cuda.synchronize()
-        return {k: float(v) for k, v in out.items()}, a.elapsed_time(b)
+        return _step_ms(train_step, model, opts, batch, gen)
 
     def step_counts(opt):
         return {int(st["step"]) for st in opt.state.values()}
@@ -4152,6 +4165,7 @@ def train_phase(dev):
                   f"off, benchmark off) loss {runs['pinned'][0]:.4f} "
                   f"({100 * rel:.4f} % apart), {runs['pinned'][1]:.3f} then "
                   f"{runs['pinned'][2]:.3f} ms", flush=True)
+            train_world_one(dev, model, batch)
             del model, opts
 
             # 2. the trainer CLI over a folder of PPMs ----------------------
@@ -4229,6 +4243,411 @@ def train_phase(dev):
           "width under the trainer's settings")
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _step_ms(step, model, opts, batch, gen):
+    """One step's terms and its ms (CUDA events)."""
+    import torch
+
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = step(model, *opts, batch, gen, TRAIN_LMBDA)
+    b.record()
+    torch.cuda.synchronize()
+    return {k: float(v) for k, v in out.items()}, a.elapsed_time(b)
+
+
+def flat_parameters(model):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def allreduce_ms(numel, dev, reps=TIMING_REPS):
+    """The median ms (CUDA events, after 3 warm-ups) of one all-reduce of
+    ``numel`` float32 values over the default group: the flat gradient and
+    the loss terms, as ``set_guarded_grads`` reduces them."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    buf = torch.zeros(numel, device=dev)
+    times = []
+    for i in range(3 + reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        dist.all_reduce(buf)
+        b.record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def train_world_one(dev, model, batch):
+    """The flagship's ``data_parallel_train_step`` on a world-1 NCCL group
+    against ``train_step``: 2 steps each from copies of ``model``, on
+    ``batch``, from one generator state. cuDNN is held deterministic (no
+    autotuning; TF32 as the trainer's), so a difference is the step's: the
+    parameters must be bitwise equal. Prints both steps' ms and the ms of
+    the all-reduce a step makes over a group (the flat gradient and the
+    terms; on a world of 1 the step skips it)."""
+    import copy
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from flashgmm_tpu_torch.optimizers import net_aux_partition
+    from flashgmm_tpu_torch.parallel import (data_parallel_train_step,
+                                             make_train_state, train_step)
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(
+                                seconds=TRAIN_RANK_TIMEOUT))
+    try:
+        runs = {}
+        for tag, step in (("train_step", train_step),
+                          ("data_parallel_train_step",
+                           data_parallel_train_step)):
+            m = copy.deepcopy(model)
+            opts = make_train_state(m, TRAIN_LR, TRAIN_AUX_LR, 1.0)
+            gen = torch.Generator(device=dev).manual_seed(SEED0 + 7)
+            steps = [_step_ms(step, m, opts, batch, gen) for _ in range(2)]
+            runs[tag] = (flat_parameters(m), steps)
+            del m, opts
+        (a, sa), (b, sb) = runs.values()
+        require(torch.equal(a, b), "train: data_parallel_train_step on a "
+                "world-1 NCCL group is not train_step bit for bit "
+                f"(parameters {float((a - b).abs().max())} apart)")
+        require([t for t, _ in sa] == [t for t, _ in sb],
+                f"train: the world-1 step's terms {sb} are not train_step's "
+                f"{sa}")
+        n_flat = sum(p.numel() for p in net_aux_partition(model)[0].values())
+        ar = allreduce_ms(n_flat + 3, dev)
+    finally:
+        dist.destroy_process_group()
+        cudnn.deterministic, cudnn.benchmark = saved
+    print(f"  train flagship, data_parallel_train_step on a world-1 NCCL "
+          f"group (cuDNN deterministic, no autotuning): parameters bitwise "
+          f"train_step's after 2 steps; step ms {sa[0][1]:.3f}, "
+          f"{sa[1][1]:.3f} (train_step) and {sb[0][1]:.3f}, {sb[1][1]:.3f}; "
+          f"one all-reduce of the flat gradient ({n_flat} values) and the "
+          f"terms {ar:.4f} ms on the group (median of {TIMING_REPS}); "
+          f"{time.perf_counter() - t0:.2f} s with the group's start",
+          flush=True)
+
+
+def _train_rank_group(mode):
+    """The default group of a --train-rank process, from torchrun's
+    variables: NCCL on cuda:LOCAL_RANK (``init_from_env``), or on a
+    one-card host ("shared") gloo with every rank on cuda:0. Returns the
+    rank's device."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from flashgmm_tpu_torch.parallel import init_from_env
+
+    timeout = datetime.timedelta(seconds=TRAIN_RANK_TIMEOUT)
+    if mode == "nccl":
+        return init_from_env("cuda", timeout=timeout)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    world = int(os.environ["WORLD_SIZE"])
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{os.environ['MASTER_ADDR']}:"
+        f"{os.environ['MASTER_PORT']}", rank=int(os.environ["RANK"]),
+        world_size=world, timeout=timeout)
+    return dev
+
+
+def train_rank_steps(dev, shared=False):
+    """One rank's work in --train-parallel, under the trainer's library
+    settings: the flagship (N, K, seed 0) on global batches of
+    TRAIN_PATCH^2 random crops of textured-leaves images (the train
+    phase's batch of 8 first). The first rank alone times ``train_step`` on
+    each whole global batch (a first step, then TRAIN_PAR_TIMED) while the
+    others wait; then every rank runs TRAIN_STEPS
+    ``data_parallel_train_step``s on its rows of the batch of 8 (finite
+    terms), all-gathers the flat parameters (bitwise equal on every rank),
+    takes 1 + TRAIN_PAR_TIMED steps at each larger global batch, and times
+    one all-reduce of the flat gradient and the terms. ``shared``: the
+    ranks share one card, and each is held to its share of the card's
+    memory once the first rank's one-card steps are done. Returns the
+    rank's report: losses, ms, peak memory, whether the replicas are
+    equal."""
+    import copy
+    import random
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from flashgmm_tpu_torch.datasets import textured_leaves
+    from flashgmm_tpu_torch.datasets.image import random_crop
+    from flashgmm_tpu_torch.models import Cheng2020AnchorCheckerboardGMMv2
+    from flashgmm_tpu_torch.optimizers import net_aux_partition
+    from flashgmm_tpu_torch.parallel import (broadcast_parameters,
+                                             data_parallel_train_step,
+                                             local_rows, make_train_state,
+                                             train_step)
+
+    torch.backends.cudnn.allow_tf32 = True  # the trainer's settings
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = dist.get_rank(), dist.get_world_size()
+    imgs = [textured_leaves(H, W, seed=SEED0 + 1 + i) for i in range(20)]
+
+    def global_batch(b):
+        random.seed(SEED0 + b - TRAIN_BATCH)  # the train phase's at 8
+        return torch.from_numpy(np.stack([
+            random_crop(imgs[i % len(imgs)], TRAIN_PATCH) for i in range(b)])
+        ).to(dev)
+
+    def timed_steps(step, model, opts, batch, gen, n):
+        outs = [_step_ms(step, model, opts, batch, gen) for _ in range(n)]
+        for out, _ in outs:
+            require(all(np.isfinite(v) for v in out.values()),
+                    f"train-parallel: rank {rank}: a term is not finite: "
+                    f"{out}")
+        return outs
+
+    model = Cheng2020AnchorCheckerboardGMMv2(N=N, K=K, seed=0, device=dev)
+    broadcast_parameters(model)
+    report = {"rank": rank, "world": world, "device": str(dev),
+              "card": torch.cuda.get_device_name(dev)}
+    if rank == 0:
+        for b in TRAIN_PAR_BATCHES:
+            m = copy.deepcopy(model)
+            opts = make_train_state(m, TRAIN_LR, TRAIN_AUX_LR, 1.0)
+            gen = torch.Generator(device=dev).manual_seed(SEED0)
+            outs = timed_steps(train_step, m, opts, global_batch(b), gen,
+                               1 + TRAIN_PAR_TIMED)
+            report[f"one_{b}"] = {
+                "loss": outs[0][0]["loss"], "first_ms": outs[0][1],
+                "ms": statistics.median(t for _, t in outs[1:])}
+            del m, opts, outs
+            torch.cuda.empty_cache()
+    dist.barrier()
+    if shared:
+        torch.cuda.set_per_process_memory_fraction(0.9 / world, dev)
+
+    opts = make_train_state(model, TRAIN_LR, TRAIN_AUX_LR, 1.0)
+    gen = torch.Generator(device=dev).manual_seed(SEED0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = local_rows(global_batch(TRAIN_BATCH))
+    outs = timed_steps(data_parallel_train_step, model, opts, rows, gen, 5)
+    peak_first = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    outs += timed_steps(data_parallel_train_step, model, opts, rows, gen,
+                        TRAIN_STEPS - 5)
+    losses = [o["loss"] for o, _ in outs]
+    flat = flat_parameters(model)
+    replicas = [torch.empty_like(flat) for _ in range(world)]
+    dist.all_gather(replicas, flat)
+    report[f"group_{TRAIN_BATCH}"] = {
+        "losses": losses, "first_ms": outs[0][1],
+        "ms": statistics.median(t for _, t in outs[5:]),
+        "peak": torch.cuda.max_memory_allocated(dev), "peak_first": peak_first}
+    report["equal"] = all(torch.equal(r, flat) for r in replicas)
+    for b in TRAIN_PAR_BATCHES[1:]:
+        outs = timed_steps(data_parallel_train_step, model, opts,
+                           local_rows(global_batch(b)), gen,
+                           1 + TRAIN_PAR_TIMED)
+        report[f"group_{b}"] = {
+            "first_ms": outs[0][1],
+            "ms": statistics.median(t for _, t in outs[1:]),
+            "peak": torch.cuda.max_memory_allocated(dev)}
+    n_flat = sum(p.numel() for p in net_aux_partition(model)[0].values())
+    report["allreduce_ms"] = allreduce_ms(n_flat + 3, dev)
+    report["flat_values"] = n_flat
+    return report
+
+
+def train_rank(out_path, mode):
+    """``python3 chip_smoke.py --train-rank OUT nccl|shared``: one rank of
+    --train-parallel, started with torchrun's variables; its report as JSON
+    in OUT."""
+    import torch.distributed as dist
+
+    dev = _train_rank_group(mode)
+    try:
+        report = train_rank_steps(dev, shared=mode == "shared")
+    finally:
+        dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(report))
+
+
+def _tail(path, n=3000):
+    return Path(path).read_text(errors="replace")[-n:]
+
+
+def train_parallel_only():
+    """``python3 chip_smoke.py --train-parallel``: training across the
+    host's cards, alone. One process a card over NCCL (``--train-rank``,
+    torchrun's variables); on a one-card host TRAIN_SHARED_RANKS processes
+    on cuda:0 over gloo in its place (NCCL refuses two ranks on one card).
+    Each rank runs ``train_rank_steps``: the flagship at full width on
+    global batches of TRAIN_PAR_BATCHES x TRAIN_PATCH^2, the loss going
+    down over TRAIN_STEPS steps, the replicas bitwise equal after them, the
+    first step's loss within TRAIN_PAR_LOSS_RTOL of one card's
+    ``train_step`` on the whole batch. Prints the step ms at each global
+    batch on one card and on all, the all-reduce's ms and its share of a
+    step, and each card's peak memory. Then the trainer CLI under torchrun
+    (one process a card; on a one-card host one process) for one epoch on a
+    temporary folder of PPMs written as the train phase writes its folder:
+    one finite log line of 2 steps."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flashgmm_tpu_torch.datasets import save_image, textured_leaves
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    cards = torch.cuda.device_count()
+    phase("device", f"{torch.cuda.get_device_name(0)} | {smi_line} | "
+          f"{cards} cards")
+    world, mode = (cards, "nccl") if cards > 1 else (TRAIN_SHARED_RANKS,
+                                                     "shared")
+    tmp = tempfile.TemporaryDirectory()
+    _CLEANUP.append(tmp.cleanup)
+    root = Path(tmp.name)
+    port, procs = free_port(), []
+
+    def stop():
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    _CLEANUP.insert(0, stop)  # before the folder goes
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank if mode == "nccl" else 0),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        with open(root / f"rank{rank}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--train-rank",
+                 str(root / f"rank{rank}.json"), mode], cwd=ROOT, env=env,
+                stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.perf_counter() + 2 * TRAIN_RANK_TIMEOUT
+    for rank, proc in enumerate(procs):
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            rc = None
+        require(rc == 0, f"train-parallel: rank {rank} ended with {rc}:\n"
+                + _tail(root / f"rank{rank}.log"))
+    reports = [json.loads((root / f"rank{r}.json").read_text())
+               for r in range(world)]
+    phase("train-ranks", f"{world} ranks ({mode}) done")
+    train_parallel_report(reports, mode, smi_line)
+
+    # the trainer CLI under torchrun --------------------------------------
+    imgs = [textured_leaves(H, W, seed=SEED0 + 1 + i) for i in range(20)]
+    for split, idx in (("train", range(16)), ("test", range(16, 20))):
+        (root / "data" / split).mkdir(parents=True)
+        for i in idx:
+            save_image(root / "data" / split / f"{i}.ppm", imgs[i])
+    cli_world = cards  # one process a card; NCCL refuses two on one
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+         "--nproc-per-node", str(cli_world), "--master-addr", "127.0.0.1",
+         "--master-port", str(free_port()), "-m",
+         "flashgmm_tpu_torch.examples.train", "-d", str(root / "data"),
+         "-n", str(N), "-K", str(K), "--batch-size", str(TRAIN_BATCH),
+         "--patch-size", str(TRAIN_PATCH), "--epochs", "1",
+         "--checkpoint-dir", str(root / "ck")], cwd=ROOT,
+        capture_output=True, text=True, timeout=2 * TRAIN_RANK_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    require(cli.returncode == 0, "train-parallel: the trainer under torchrun "
+            f"ended with {cli.returncode}:\n{cli.stderr[-3000:]}")
+    records = [json.loads(line) for line in
+               (root / "ck" / "train_log.jsonl").read_text().splitlines()]
+    require(len(records) == 1 and records[0]["steps"] == 16 // TRAIN_BATCH
+            and all(np.isfinite(records[0][k]) for k in
+                    ("loss", "bpp_loss", "mse_loss", "aux_loss",
+                     "test_loss")),
+            f"train-parallel: the trainer's log under torchrun: {records}")
+    require((root / "ck" / "latest").exists(),
+            "train-parallel: the trainer wrote no latest checkpoint")
+    r = records[0]
+    print(f"  train-parallel CLI: torchrun --nproc-per-node {cli_world}, 1 "
+          f"epoch of 16 768x512 PPMs at global batch {TRAIN_BATCH} x "
+          f"{TRAIN_PATCH}^2 ({r['steps']} steps, eval on 4): loss "
+          f"{r['loss']:.3f}, test loss {r['test_loss']:.3f}; the epoch "
+          f"{r['seconds']:.2f} s (its log), the run {seconds:.2f} s with "
+          f"the processes' start; {smi_line}", flush=True)
+    phase("train-parallel", f"training across {world} ranks and the trainer "
+          "CLI under torchrun")
+
+
+def train_parallel_report(reports, mode, smi_line):
+    """The checks and lines of --train-parallel from the ranks' reports."""
+    import numpy as np
+
+    world = len(reports)
+    first = reports[0]
+    losses = first[f"group_{TRAIN_BATCH}"]["losses"]
+    require(all(r["equal"] for r in reports),
+            "train-parallel: the replicas differ after the steps")
+    require(all(r[f"group_{TRAIN_BATCH}"]["losses"] == losses
+                for r in reports),
+            "train-parallel: the ranks logged other global losses")
+    require(np.mean(losses[-5:]) < np.mean(losses[:5]),
+            f"train-parallel: the loss did not go down: {losses}")
+    ref = first[f"one_{TRAIN_BATCH}"]["loss"]
+    rel = abs(losses[0] / ref - 1)
+    require(rel <= TRAIN_PAR_LOSS_RTOL,
+            f"train-parallel: the first step's loss {losses[0]} is "
+            f"{100 * rel:.3f} % from one card's train_step's {ref}")
+    ar = first["allreduce_ms"]
+    where = (f"{world} cards, NCCL" if mode == "nccl" else
+             f"{world} ranks on one card over gloo (a one-card host)")
+    print(f"  train-parallel: the flagship N={N} K={K} over {where}; "
+          f"global batch {TRAIN_BATCH} x {TRAIN_PATCH}^2: loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f} over {TRAIN_STEPS} steps, "
+          f"the first {100 * rel:.4f} % from one card's train_step ({ref:.3f}); "
+          f"replicas bitwise equal; {smi_line}", flush=True)
+    for b in TRAIN_PAR_BATCHES:
+        one, group = first[f"one_{b}"], first[f"group_{b}"]
+        print(f"  train-parallel step ms at global batch {b}: one card "
+              f"{one['ms']:.3f} (first {one['first_ms']:.1f}), {world} ranks "
+              f"{group['ms']:.3f} (first {group['first_ms']:.1f}; medians of "
+              f"the timed steps, CUDA events); all-reduce of "
+              f"{first['flat_values'] + 3} float32 values {ar:.4f} ms, "
+              f"{100 * ar / group['ms']:.2f} % of the step", flush=True)
+    print("  train-parallel peak memory by rank (GiB; steps 1-5 with cuDNN's "
+          "autotuning, steps 6-20, then the larger batches): "
+          + "; ".join(f"{r['device']} {r[f'group_{TRAIN_BATCH}']['peak_first'] / 2**30:.3f}, "
+                      f"{r[f'group_{TRAIN_BATCH}']['peak'] / 2**30:.3f}, "
+                      + ", ".join(f"{r[f'group_{b}']['peak'] / 2**30:.3f}"
+                                  for b in TRAIN_PAR_BATCHES[1:])
+                      for r in reports), flush=True)
+
+
 def kernel_wrappers():
     """{name: (module, attribute)} of every kernel wrapper: the main path's
     codecs call each through its module's name, so a replaced attribute
@@ -4299,9 +4718,17 @@ def main() -> int:
             return 1
         bytes_worker(*sys.argv[2:5])
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--train-rank":
+        if not torch.cuda.is_available():
+            return 1
+        sys.path.insert(0, str(ROOT))
+        train_rank(*sys.argv[2:4])
+        faulthandler.cancel_dump_traceback_later()
+        return 0
     alone = {"--zoo": zoo_only, "--vbr": vbr_only, "--video": video_only,
              "--pcc": pcc_only, "--tools": tools_only,
-             "--parallel": parallel_only}
+             "--parallel": parallel_only,
+             "--train-parallel": train_parallel_only}
     if len(sys.argv) > 1 and sys.argv[1] in alone:
         if not torch.cuda.is_available():
             return 1

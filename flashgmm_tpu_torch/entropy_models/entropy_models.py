@@ -126,10 +126,50 @@ def _sigmoid_np(x):
     return 1.0 / (1.0 + np.exp(-np.clip(x, -50.0, 50.0)))
 
 
+class RankNoise:
+    """The training noise of one rank's rows of a global batch split evenly
+    over ``world`` ranks in rank order, accepted wherever a generator is:
+    every draw is of the global shape (the local one with its batch axis
+    ``axis`` times ``world``) from ``generator``, seeded alike on every
+    rank, and keeps this rank's slice of that axis. So each rank's noise is
+    its rows of the noise one process draws on the whole batch, and every
+    rank's generator advances as that process's does (JAX draws from one
+    key over the global array). The EntropyBottleneck draws over
+    [C, 1, B*H*W], whose batch axis is the last."""
+
+    def __init__(self, generator, rank: int, world: int, axis: int = 0):
+        self.generator = generator
+        self.rank, self.world, self.axis = int(rank), int(world), int(axis)
+
+    def along(self, axis: int):
+        """The same noise source with the batch on ``axis``."""
+        return RankNoise(self.generator, self.rank, self.world, axis)
+
+    def global_shape(self, shape):
+        shape = list(shape)
+        shape[self.axis] *= self.world
+        return tuple(shape)
+
+    def rows(self, noise):
+        """This rank's slice of a draw of ``global_shape``."""
+        n = noise.shape[self.axis] // self.world
+        return noise.narrow(self.axis, self.rank * n, n)
+
+
+def noise_along(generator, axis: int):
+    """``generator`` for a draw whose batch axis is ``axis``."""
+    return generator.along(axis) if isinstance(generator, RankNoise) \
+        else generator
+
+
 def uniform_noise(shape, generator, like):
-    """U[-0.5, 0.5) noise of ``like``'s type and device from ``generator``."""
+    """U[-0.5, 0.5) noise of ``like``'s type and device from ``generator``
+    (a ``torch.Generator`` or a :class:`RankNoise`)."""
     if generator is None:
         raise ValueError("noise quantization needs a torch.Generator")
+    if isinstance(generator, RankNoise):
+        return generator.rows(uniform_noise(generator.global_shape(shape),
+                                            generator.generator, like))
     return torch.rand(shape, generator=generator, dtype=like.dtype,
                       device=like.device) - 0.5
 
@@ -320,7 +360,8 @@ class EntropyBottleneck(EntropyModel):
         c = x.shape[-1]
         values = x.movedim(-1, 0).reshape(c, 1, -1)  # [C, 1, B*H*W]
         outputs = self.quantize(values, "noise" if training else "dequantize",
-                                self._get_medians(), generator)
+                                self._get_medians(),
+                                noise_along(generator, -1))
         likelihood, _, _ = self._likelihood(outputs)
         likelihood = self._likelihood_lower_bound(likelihood)
         shape = (c,) + tuple(x.shape[:-1])

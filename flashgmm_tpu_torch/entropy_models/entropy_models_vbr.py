@@ -94,7 +94,9 @@ class EntropyBottleneckVbr(_VariableStep, EntropyBottleneck):
         values = x.movedim(-1, 0).reshape(c, 1, -1)
         mode = "ste" if ste else ("noise" if training else "dequantize")
         outputs = self.quantize_variable(values, mode, self._get_medians(),
-                                         qs=qs, generator=generator)
+                                         qs=qs,
+                                         generator=_em.noise_along(generator,
+                                                                   -1))
         likelihood = self._likelihood_lower_bound(
             self._likelihood_variable(outputs, qs))
         shape = (c,) + tuple(x.shape[:-1])

@@ -1,6 +1,21 @@
 """Training entry point (port of examples/train.py; the reference's
-train_ckbd_gmm.py / train_elic_gmm.py), on one CUDA device unless
-``--device cpu`` is given.
+train_ckbd_gmm.py / train_elic_gmm.py), on the card unless ``--device cpu``
+is given: on one card, or under torchrun on several, one process a card.
+
+Under torchrun (``python -m torch.distributed.run --nproc-per-node W -m
+flashgmm_tpu_torch.examples.train ...``) the ranks start one process group
+(``parallel/distributed.py``: NCCL, each rank on ``cuda:LOCAL_RANK``; gloo
+with ``--device cpu``) and take the parameters of the first rank.
+``--batch-size`` is the global batch and must divide by W. The first rank
+alone runs the loader and broadcasts each global batch (the crops come
+from Python's ``random``, which the loader's threads call in no fixed
+order, so two processes' loaders would not agree on a batch); every rank
+takes its rows and steps through ``data_parallel_train_step`` from the same
+generator seed, so the step is the one-process step on the whole batch,
+and the logged terms are the global means. The first rank alone evaluates,
+probes and writes the log, TensorBoard and the checkpoints, and the others
+wait for it at a barrier; on resume every rank loads the checkpoint. Without
+torchrun the trainer runs on one process as before.
 
 The net/aux optimizer split, the non-finite guard, gradient clipping,
 MultiStepLR decay, periodic evaluation and latest/best/epoch_{n}
@@ -27,11 +42,15 @@ Usage:
     python -m flashgmm_tpu_torch.examples.train \
         --model cheng2020-anchor-checkerboard-gmm \
         --dataset /path/to/imagefolder -n 192 -K 4 --lambda 0.01 --epochs 200
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m flashgmm_tpu_torch.examples.train --dataset /path/to/imagefolder \
+        --batch-size 32
 """
 
 import argparse
 import inspect
 import json
+import random
 import sys
 import time
 from pathlib import Path
@@ -72,9 +91,9 @@ def parse_args(argv):
     return p.parse_args(argv)
 
 
-def build_model(args):
+def build_model(args, device=None):
     """``MODELS[args.model]`` with the N, M and K its constructor takes,
-    seeded with ``args.seed``, on ``args.device``."""
+    seeded with ``args.seed``, on ``device`` (default ``args.device``)."""
     import flashgmm_tpu_torch.models  # noqa: F401  (registers the models)
     from flashgmm_tpu_torch.registry import MODELS
 
@@ -85,78 +104,111 @@ def build_model(args):
                         ("K", args.mixtures)):
         if name in sig.parameters:
             kwargs[name] = value
-    return model_cls(**kwargs, seed=args.seed, device=args.device)
+    return model_cls(**kwargs, seed=args.seed,
+                     device=args.device if device is None else device)
 
 
 def main(argv=None):
     args = parse_args(argv)
 
+    import torch.distributed as dist
+
     from flashgmm_tpu_torch.datasets import BatchLoader, ImageFolder
     from flashgmm_tpu_torch.datasets.image import IMG_EXTENSIONS, load_image
-    from flashgmm_tpu_torch.parallel import make_train_state, train_step
+    from flashgmm_tpu_torch.parallel import (broadcast_parameters,
+                                             data_parallel_train_step,
+                                             init_from_env, launched,
+                                             local_rows, make_train_state)
     from flashgmm_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                      save_checkpoint)
     from flashgmm_tpu_torch.utils.logging import ScalarWriter, rd_probe
 
     np.random.seed(args.seed)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        torch.backends.cudnn.benchmark = True
-
-    model = build_model(args)
-    opt_net, opt_aux = make_train_state(
-        model, args.learning_rate, args.aux_learning_rate, args.clip_max_norm
-    )
-    scheduler = torch.optim.lr_scheduler.MultiStepLR(
-        opt_net, milestones=args.lr_milestones, gamma=0.1)
-
-    start_epoch = 0
-    best_loss = float("inf")
-    if args.checkpoint:
-        meta = load_checkpoint(args.checkpoint, model, opt_net, opt_aux,
-                               scheduler)
-        start_epoch = meta.get("epoch", 0) + 1
-        best_loss = meta.get("best_loss", best_loss)
-
-    train_ds = ImageFolder(args.dataset, patch_size=args.patch_size, split="train")
-    test_ds = ImageFolder(args.dataset, patch_size=args.patch_size, split="test")
-    loader = BatchLoader(
-        train_ds, args.batch_size, num_workers=args.num_workers, seed=args.seed
-    )
-
-    ckpt_dir = Path(args.checkpoint_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
-    log_path = ckpt_dir / "train_log.jsonl"
-    writer = ScalarWriter(args.logdir or ckpt_dir / "tb")
-    probe_images = None
-    if args.probe_dir:
-        probe_images = [
-            load_image(f) for f in sorted(Path(args.probe_dir).iterdir())
-            if f.suffix.lower() in IMG_EXTENSIONS
-        ]
-
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-
+    random.seed(args.seed)  # the crops
+    if launched():
+        device = init_from_env(args.device)
+    else:
+        device = torch.device(args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    first = not dist.is_initialized() or dist.get_rank() == 0
+    writer = None
     try:
+        if args.batch_size % world:
+            raise ValueError(f"--batch-size {args.batch_size} does not "
+                             f"divide over {world} ranks")
+        if device.type == "cuda":
+            torch.backends.cudnn.benchmark = True
+
+        model = build_model(args, device)
+        opt_net, opt_aux = make_train_state(
+            model, args.learning_rate, args.aux_learning_rate,
+            args.clip_max_norm)
+        scheduler = torch.optim.lr_scheduler.MultiStepLR(
+            opt_net, milestones=args.lr_milestones, gamma=0.1)
+
+        start_epoch = 0
+        best_loss = float("inf")
+        if args.checkpoint:
+            meta = load_checkpoint(args.checkpoint, model, opt_net, opt_aux,
+                                   scheduler)
+            start_epoch = meta.get("epoch", 0) + 1
+            best_loss = meta.get("best_loss", best_loss)
+        broadcast_parameters(model)
+
+        train_ds = ImageFolder(args.dataset, patch_size=args.patch_size,
+                               split="train")
+        test_ds = ImageFolder(args.dataset, patch_size=args.patch_size,
+                              split="test")
+        loader = BatchLoader(train_ds, args.batch_size,
+                             num_workers=args.num_workers, seed=args.seed)
+
+        ckpt_dir = Path(args.checkpoint_dir)
+        log_path = ckpt_dir / "train_log.jsonl"
+        probe_images = None
+        if first:
+            ckpt_dir.mkdir(parents=True, exist_ok=True)
+            writer = ScalarWriter(args.logdir or ckpt_dir / "tb")
+            if args.probe_dir:
+                probe_images = [
+                    load_image(f)
+                    for f in sorted(Path(args.probe_dir).iterdir())
+                    if f.suffix.lower() in IMG_EXTENSIONS
+                ]
+
+        generator = torch.Generator(device=device).manual_seed(args.seed)
+        shape = (args.batch_size, args.patch_size, args.patch_size, 3)
+
+        def batches():
+            source = iter(loader) if first else None
+            for _ in range(len(loader)):
+                x = torch.from_numpy(next(source)).to(device) if first \
+                    else torch.empty(shape, device=device)
+                if world > 1:
+                    dist.broadcast(x, src=0)
+                yield local_rows(x)
+
         for epoch in range(start_epoch, args.epochs):
             lr = opt_net.param_groups[0]["lr"]
             t0 = time.time()
             n_steps = 0
             agg = {}
-            for batch in loader:
-                x = torch.from_numpy(batch).to(device)
-                out = train_step(model, opt_net, opt_aux, x, generator,
-                                 args.lmbda)
-                loss = float(out["loss"])
+            for x in batches():
+                out = data_parallel_train_step(model, opt_net, opt_aux, x,
+                                               generator, args.lmbda)
+                loss = float(out["loss"])  # the global mean
                 if not np.isfinite(loss):  # log only: the step zeroed the update
                     continue
                 n_steps += 1
                 for k, v in out.items():
                     agg[k] = agg.get(k, 0.0) + float(v)
             scheduler.step()
+            if not first:
+                dist.barrier()  # the first rank's evaluation and checkpoints
+                continue
 
             metrics = {k: v / max(n_steps, 1) for k, v in agg.items()}
-            metrics.update(epoch=epoch, steps=n_steps, seconds=time.time() - t0)
+            metrics.update(epoch=epoch, steps=n_steps,
+                           seconds=time.time() - t0)
 
             if epoch % args.eval_every == 0:
                 metrics["test_loss"] = evaluate(model, test_ds, args)
@@ -183,8 +235,13 @@ def main(argv=None):
                 save("best")
             if epoch % 20 == 0:
                 save(f"epoch_{epoch}")
+            if world > 1:
+                dist.barrier()
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

@@ -47,9 +47,10 @@ Tiled synthesis of the flagship's g_s stays within the JAX test's bounds
 of the direct g_s on both transform routes. Over every card of a host of
 two or more (they skip below two): the flagship's batch coded with
 ``use_mesh`` round-trips exactly, its bytes cross one card and the mesh
-both ways (every card launching the bf16 conv on the kernel route), and
-its height-sharded forward stays within the JAX test's bounds of the
-whole forward.
+both ways (every card launching the bf16 conv on the kernel route), its
+height-sharded forward stays within the JAX test's bounds of the whole
+forward, and ``data_parallel_train_step`` over the cards keeps its
+replicas bitwise equal and its terms within 1e-4 of one card's step.
 """
 
 import importlib.util
@@ -1686,3 +1687,26 @@ def test_spatial_forward_across_cards(cards):
     assert abs(bits(got) - bits(ref)) / bits(ref) < 1e-3
     with pytest.raises(RuntimeError, match="requested"):
         make_mesh(n + 1)
+
+
+def test_train_step_across_cards(cards):
+    """``data_parallel_train_step`` over every card, one spawned process a
+    card over NCCL (tests/torch_port_ddp_ranks.py; TF32 off): the narrow
+    flagship (N=32, K=2) on global batches of 8 64x64 images, 3 steps; the
+    replicas bitwise equal after every step, and each step's terms within
+    rtol 1e-4 of one card's ``train_step`` on the whole batch (the bound of
+    the card-against-CPU step above); ``init_from_env`` refuses more ranks
+    than cards."""
+    import torch_port_ddp_ranks as ranks
+
+    got = ranks.run_ranks(len(cards), ranks.flagship_job, 3, device="cuda",
+                          timeout=300)
+    ref = ranks.one_process(cards[0], 3, len(cards))
+    for rank in got:
+        assert rank["equal"] == [True] * 3 and rank["finite"]
+        for t, r in zip(rank["terms"], ref["terms"]):
+            for k in r:
+                np.testing.assert_allclose(t[k], r[k], rtol=1e-4, err_msg=k)
+    with pytest.raises(AssertionError, match="ranks on"):
+        ranks.run_ranks(len(cards) + 1, ranks.flagship_job, 1, device="cuda",
+                        timeout=120)

@@ -33,7 +33,6 @@ JAX_ROOT = REPO / "flashgmm_tpu"
 PORT_ROOT = REPO / "flashgmm_tpu_torch"
 
 _SUBPACKAGES = "subpackages import on use: import flashgmm_tpu_torch.<name>"
-_NO_DDP = "training across cards: ROADMAP A10, the next slice"
 _NNX_FILTER = ("an nnx filter; optimizers/net_aux.py::net_aux_partition "
                "splits the parameters")
 _TRANSFORM = ("layers.run_transform runs a transform; "
@@ -59,8 +58,6 @@ NO_PORT = {
     ("entropy_models/entropy_models.py", "QuantilesParam"): _NNX_FILTER,
     ("models/base.py", "iter_entropy_modules"):
         "the port walks self.modules()",
-    ("parallel/__init__.py", "data_parallel_train_step"): _NO_DDP,
-    ("parallel/train.py", "data_parallel_train_step"): _NO_DDP,
     ("parallel/train.py", "AUX_FILTER"): _NNX_FILTER,
     ("parallel/train.py", "NET_FILTER"): _NNX_FILTER,
     ("registry/registry.py", "T"): "a TypeVar of the annotations",

@@ -6,9 +6,14 @@ K=2, groups [8, 8, 32]), its parameters carried to the port through
 their docstrings). ``vbr_pair`` builds the VBR models' pairs the same way
 (tests/test_torch_port_vbr*.py)."""
 
+import fcntl
 import inspect
 import json
 import os
+import tempfile
+import time
+import zlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -59,7 +64,8 @@ VBR_LEVELS = [(0, 0), (3, 0), (7, 0), (1, 1.6)]
 
 
 def pair(arch, coder=None):
-    """(JAX model, port model on its parameters), built once a module."""
+    """(JAX model, port model on its parameters), built once a process
+    (every test file of a process that asks for ``arch`` shares them)."""
     key = (arch, coder)
     if key not in _PAIRS:
         kw = _kwargs(J_MODELS[arch])
@@ -75,7 +81,7 @@ def pair(arch, coder=None):
 def vbr_pair(arch, vr=False):
     """(JAX VBR model, port model on its parameters) at N=32, M=48,
     ``vr_entbttlnck=vr`` where the architecture has it; built once a
-    module."""
+    process, as ``pair``'s."""
     key = ("vbr", arch, vr)
     if key not in _PAIRS:
         cls = J_MODELS[arch]
@@ -145,6 +151,43 @@ def _jax_y_hat(arch, jm, out):
             means=means))
     return np.asarray(gc.decompress(strings[0], gc.build_indexes(scales),
                                     means=means))
+
+
+def jax_host_coder():
+    """Loads the JAX package's host coder (flashgmm_tpu/ans/cext.py) in
+    this process. That module builds its library in the source tree at its
+    first use in each process and keeps a failed load for the life of the
+    process; test workers that start together in a fresh checkout race, and
+    one may map the file while another's g++ is still writing it ("file too
+    short"): every later JAX host-coder call in that worker then fails
+    (``'NoneType' object has no attribute 'fg_...'``) or, where the JAX
+    package has one, falls back to numpy. Here the load happens under an
+    exclusive lock shared by the workers, and a load that failed is tried
+    again until the library is whole (up to a minute).
+
+    This module calls it when it is imported: every xdist worker collects
+    every test file, and so imports this module, before it runs any test,
+    so each worker holds the whole library before any test of the JAX
+    package's or the port's uses it, and no worker builds it again."""
+    from flashgmm_tpu.ans import cext as j_cext
+
+    lock = Path(tempfile.gettempdir()) / (
+        f"flashgmm_jax_cext_{zlib.crc32(j_cext._LIB_PATH.encode()):08x}.lock")
+    with open(lock, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            for _ in range(60):
+                if j_cext._load() is not None:
+                    return
+                j_cext._build_error = None  # lost the race: load again
+                time.sleep(1.0)
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+    raise RuntimeError(f"the JAX host coder does not load: "
+                       f"{j_cext._build_error!r}")
+
+
+jax_host_coder()
 
 
 _GC_TABLES = {}
